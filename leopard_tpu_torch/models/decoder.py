@@ -1,0 +1,237 @@
+"""Decoder-only LLM, Llama-3.1 family with a dense SwiGLU MLP (port of
+leopard_tpu/models/decoder.py).
+
+Matmuls run in the parameter dtype (bf16 on the card); norms, softmax and
+logits are fp32. The KV cache keeps the JAX package's packed layout and its
+invariant, slot == absolute position, but is updated IN PLACE: each layer
+scatters its new tokens into the stacked buffer (the JAX package threads an
+immutable cache through its layer scan instead).
+
+Attention tiers (JAX decoder.py:482-504): a continuation step into a
+non-empty cache (decode) is the dense masked sweep over the cache; a
+sequence of at least `long_seq_threshold` tokens without a cache, or into a
+fresh cache, takes the flash tier; shorter ones take dense. On a CUDA tensor
+the flash tier is the Hopper kernel; on a CPU tensor it is the kernel's plain
+version, which stands in for the JAX package's CPU chunked tier (the same
+function). `attn_impl="dense"` and `"flash"` force a tier. Not in this slice
+(they raise): MoE, tied embeddings, the chunked continuation tier; weight
+quantization, int8 KV and context parallelism are not ported either.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from leopard_tpu_torch.config import TextConfig
+from leopard_tpu_torch.models.params import Params, new_param, torch_dtype
+from leopard_tpu_torch.ops.attention import attention, make_attention_mask
+from leopard_tpu_torch.ops.flash_attention import flash_attention
+from leopard_tpu_torch.ops.norms import rms_norm
+from leopard_tpu_torch.ops.rotary import apply_rope, compute_inv_freq, rope_cos_sin
+
+
+@dataclass
+class KVCache:
+    """KV cache with per-row write offsets, updated in place.
+
+    kv: [L, B, S_max, 2·H_kv, D], K in heads [:H_kv] and V in [H_kv:];
+    seg: [B, S_max] int32 segment id per slot (0 = empty or padding, never
+    attended); index: [B] int32 count of valid tokens written per row.
+    Prefill writes a right-padded block at offset 0 (pad slots get seg 0);
+    each decode step writes a row's next token at that row's index.
+    """
+
+    kv: torch.Tensor
+    seg: torch.Tensor
+    index: torch.Tensor
+
+    @staticmethod
+    def create(cfg: TextConfig, batch: int, max_len: int, *, device=None) -> "KVCache":
+        shape = (cfg.num_layers, batch, max_len, 2 * cfg.num_kv_heads, cfg.head_dim)
+        return KVCache(
+            kv=torch.zeros(shape, dtype=torch_dtype(cfg.dtype), device=device),
+            seg=torch.zeros((batch, max_len), dtype=torch.int32, device=device),
+            index=torch.zeros((batch,), dtype=torch.int32, device=device),
+        )
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: TextConfig, *, dtype: torch.dtype, device=None):
+        super().__init__()
+        if cfg.num_experts > 0:
+            raise NotImplementedError("MoE layers are not in the port yet")
+        h, f = cfg.hidden_size, cfg.intermediate_size
+        qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+        kw = dict(dtype=dtype, device=device)
+        self.input_norm = new_param((h,), dtype, device)
+        self.attn = Params({"wq": (qd, h), "wk": (kvd, h), "wv": (kvd, h),
+                            "wo": (h, qd)}, **kw)
+        self.post_attn_norm = new_param((h,), dtype, device)
+        self.mlp = Params({"w_gate": (f, h), "w_up": (f, h), "w_down": (h, f)}, **kw)
+
+    def forward(
+        self,
+        x: torch.Tensor,                       # [B, S, H]
+        cfg: TextConfig,
+        cos: torch.Tensor,
+        sin: torch.Tensor,
+        *,
+        attn_impl: str,
+        mask: Optional[torch.Tensor],
+        segment_ids: Optional[torch.Tensor],
+        cache: Optional[KVCache],
+        layer_idx: int,
+        slots: Optional[torch.Tensor],         # [B, S] cache slots of the new tokens
+        fresh_cache: bool,
+    ) -> torch.Tensor:
+        b, s, _ = x.shape
+        a = self.attn
+        hkv = cfg.num_kv_heads
+        y = rms_norm(x, self.input_norm, cfg.rms_norm_eps)
+        q = F.linear(y, a.wq).reshape(b, s, cfg.num_heads, cfg.head_dim)
+        k = F.linear(y, a.wk).reshape(b, s, hkv, cfg.head_dim)
+        v = F.linear(y, a.wv).reshape(b, s, hkv, cfg.head_dim)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+
+        if cache is not None:
+            layer_kv = cache.kv[layer_idx]  # a view: the scatter lands in the cache
+            rows = torch.arange(b, device=x.device)[:, None]
+            layer_kv[rows, slots] = torch.cat([k, v], dim=2).to(layer_kv.dtype)
+            if not fresh_cache:
+                # a fresh cache holds only these tokens: attend over the local
+                # k/v; otherwise over the whole layer slice
+                k, v = layer_kv[:, :, :hkv], layer_kv[:, :, hkv:]
+
+        if attn_impl == "flash":
+            o = flash_attention(
+                q, k, v, causal=True,
+                q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
+                sliding_window=cfg.sliding_window,
+            )
+        else:
+            o = attention(q, k, v, mask=mask)
+        x = x + F.linear(o.reshape(b, s, -1), a.wo)
+
+        y = rms_norm(x, self.post_attn_norm, cfg.rms_norm_eps)
+        m = self.mlp
+        gated = F.silu(F.linear(y, m.w_gate)) * F.linear(y, m.w_up)
+        return x + F.linear(gated, m.w_down)
+
+
+class Decoder(nn.Module):
+    def __init__(self, cfg: TextConfig, device=None):
+        super().__init__()
+        if cfg.tie_word_embeddings:
+            raise NotImplementedError("tied embeddings are not in the port yet")
+        self.cfg = cfg
+        dt = torch_dtype(cfg.dtype)
+        h = cfg.hidden_size
+        self.embed_tokens = new_param((cfg.vocab_size, h), dt, device)
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, dtype=dt, device=device) for _ in range(cfg.num_layers)
+        )
+        self.final_norm = new_param((h,), dt, device)
+        self.lm_head = new_param((cfg.vocab_size, h), dt, device)
+        self._head_f32: Optional[torch.Tensor] = None
+        self._inv_freq = torch.from_numpy(compute_inv_freq(cfg))  # moved on first use
+
+    def _rope_inv_freq(self, device) -> torch.Tensor:
+        """The inverse-frequency table on `device`, copied there once: a
+        pageable host-to-device copy in every forward would stall the
+        stream at each decode step."""
+        if self._inv_freq.device != device:
+            self._inv_freq = self._inv_freq.to(device)
+        return self._inv_freq
+
+    def keep_fp32_head(self) -> None:
+        """Keep one fp32 copy of the unembedding, made once from the final
+        weights. Logits are fp32 as in the JAX package, where the bf16 head
+        is promoted inside the fp32 product; without the copy each call
+        would cast the whole [vocab, hidden] table (2.1 GB at 8B) anew."""
+        self._head_f32 = self.lm_head.detach().float()
+
+    def _head(self) -> torch.Tensor:
+        return self._head_f32 if self._head_f32 is not None else self.lm_head.float()
+
+    def _attn_impl(self, s: int, cache: Optional[KVCache], fresh_cache: bool) -> str:
+        cfg = self.cfg
+        if cache is not None and not fresh_cache:
+            if s >= cfg.long_seq_threshold:
+                raise NotImplementedError(
+                    "continuation prefill into a filled cache (the chunked "
+                    "continuation tier) is not in the port yet"
+                )
+            return "dense"
+        impl = cfg.attn_impl
+        if impl == "auto":
+            impl = "flash" if s >= cfg.long_seq_threshold else "dense"
+        if impl not in ("flash", "dense"):
+            raise NotImplementedError(f"attn_impl={impl!r} is not in the port yet")
+        return impl
+
+    def forward(
+        self,
+        tokens: Optional[torch.Tensor] = None,        # [B, S] int
+        *,
+        input_embeds: Optional[torch.Tensor] = None,  # [B, S, H] overrides tokens
+        segment_ids: Optional[torch.Tensor] = None,   # [B, S]; 0 = padding
+        cache: Optional[KVCache] = None,
+        logits_indices: Optional[torch.Tensor] = None,  # [B]: only these positions
+        fresh_cache: bool = False,
+    ):
+        """Returns (logits [B, S, V] fp32, or [B, 1, V] with logits_indices,
+        and the cache, updated in place, or None). `fresh_cache=True` says
+        the cache is just created and empty: the tokens are then the whole
+        history, and attention runs over them through the uncached tiers
+        while the cache is still written for decode."""
+        cfg = self.cfg
+        x = self.embed_tokens[tokens] if input_embeds is None else input_embeds
+        b, s, _ = x.shape
+        dev = x.device
+        base = cache.index[:, None] if cache is not None else 0
+        positions = (base + torch.arange(s, device=dev)[None, :]).expand(b, s)
+        cos, sin = rope_cos_sin(positions, self._rope_inv_freq(dev))
+        attn_impl = self._attn_impl(s, cache, fresh_cache)
+
+        slots = None
+        if cache is not None:
+            if segment_ids is None:
+                segment_ids = torch.ones((b, s), dtype=torch.int32, device=dev)
+            slots = cache.index[:, None].long() + torch.arange(s, device=dev)[None, :]
+            rows = torch.arange(b, device=dev)[:, None]
+            cache.seg[rows, slots] = segment_ids.to(torch.int32)
+
+        mask = None
+        if cache is not None and not fresh_cache:
+            # slot == absolute position (see KVCache)
+            kv_pos = torch.arange(cache.seg.shape[1], device=dev)[None, :]
+            mask = (positions[:, :, None] >= kv_pos[:, None, :]) & (cache.seg != 0)[:, None, :]
+            if cfg.sliding_window is not None:
+                mask = mask & ((positions[:, :, None] - kv_pos[:, None, :]) < cfg.sliding_window)
+            mask = (mask & (segment_ids != 0)[:, :, None])[:, None]
+        elif attn_impl == "dense":
+            mask = make_attention_mask(
+                s, s, causal=True, q_segment_ids=segment_ids,
+                kv_segment_ids=segment_ids, sliding_window=cfg.sliding_window,
+                device=dev,
+            )
+
+        for i, layer in enumerate(self.layers):
+            x = layer(
+                x, cfg, cos, sin, attn_impl=attn_impl, mask=mask,
+                segment_ids=segment_ids, cache=cache, layer_idx=i, slots=slots,
+                fresh_cache=fresh_cache,
+            )
+        if cache is not None:
+            cache.index = cache.index + (segment_ids != 0).sum(dim=1, dtype=torch.int32)
+
+        x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
+        if logits_indices is not None:
+            x = x.gather(1, logits_indices.long()[:, None, None].expand(b, 1, x.shape[-1]))
+        return F.linear(x.float(), self._head()), cache
