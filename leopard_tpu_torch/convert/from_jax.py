@@ -5,6 +5,16 @@ weight matrices [in, out]; the port has one module per layer and keeps them
 [out, in] (models/params.py). The bridge is mechanical: flatten the tree to
 dotted paths, split each `layers` leaf along its first axis into
 `layers.{i}`, and transpose the matrix leaves.
+
+A tree after the JAX `quantize_tree` holds quantized leaves ({"q", "s"} or
+{"q4", "s"}) where weights were. The port keeps those in the JAX layout
+(models/params.py::QuantizedWeight), so they pass through untransposed,
+split along the layer axis only, and load into a port model quantized the
+same way:
+
+    model = LeopardVLM(cfg, device="meta")
+    quantize_tree(model.text, mode="int4")      # the structure only
+    model.load_state_dict(state_dict_from_jax(params, cfg), strict=True, assign=True)
 """
 
 from __future__ import annotations
@@ -16,7 +26,8 @@ import torch
 
 from leopard_tpu_torch.config import VLMConfig
 
-# leaves the port applies with F.linear, i.e. stores [out, in]
+# leaves the port applies with F.linear, i.e. stores [out, in]; the leaves
+# of a quantized weight (q, q4, s) are not among them
 LINEAR_LEAVES = frozenset({
     "kernel", "wq", "wk", "wv", "wo", "fc1", "fc2",
     "w_gate", "w_up", "w_down", "lm_head",

@@ -8,10 +8,15 @@ sampling until every row has emitted eos or `max_new_tokens` is reached. The
 decode loop runs eagerly in Python and checks for "all rows done" after each
 step, where the JAX engine runs one `lax.while_loop`.
 
-Not in this slice (they raise): a device mesh, weight quantization, int8 KV,
-speculative decoding, shared prefixes (`prefix`, `return_prefix`) and the
-chunked prefill of prompts above the largest bucket. NaViT patch masks,
-`build_prefix` and `max_cache` are not ported either.
+`quantize="int8"|"int4"` serves from a new model whose text decoder holds
+quantized weights (ops/quant.py) and shares every other tensor with the
+caller's model, which is left as it is; `quantize_kv=True` keeps the KV cache
+in int8 (models/decoder.py).
+
+Not in this slice (they raise): a device mesh, speculative decoding, shared
+prefixes (`prefix`, `return_prefix`) and the chunked prefill of prompts above
+the largest bucket. NaViT patch masks, `build_prefix` and `max_cache` are not
+ported either.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from leopard_tpu_torch.config import GenerateConfig, VLMConfig
 from leopard_tpu_torch.inference.sampling import sample
 from leopard_tpu_torch.models.decoder import KVCache
 from leopard_tpu_torch.models.vlm import LeopardVLM
+from leopard_tpu_torch.ops.quant import quantize_tree
 
 
 def round_up(x: int, m: int) -> int:
@@ -99,12 +105,20 @@ class Engine:
         quantize: Optional[str] = None,
         quantize_kv: bool = False,
     ):
+        if quantize not in (None, "int8", "int4"):
+            raise ValueError(f"unknown quantize mode {quantize}")
         if mesh is not None:
             raise NotImplementedError("serving over a device mesh is not in the port yet")
-        if quantize is not None or quantize_kv:
-            raise NotImplementedError("weight and KV quantization are not in the port yet")
+        if quantize is not None:
+            # a new model on the caller's tensors (no copy), then its text
+            # weights replaced by quantized ones
+            shared = LeopardVLM(cfg, device="meta")
+            shared.load_state_dict(model.state_dict(), assign=True)
+            quantize_tree(shared.text, mode=quantize)
+            model = shared
         self.cfg = cfg
         self.model = model.eval()
+        self.quantize_kv = quantize_kv
         self.device = model.text.embed_tokens.device
         model.text.keep_fp32_head()
         self.gen_cfg = gen_cfg or GenerateConfig()
@@ -162,7 +176,8 @@ class Engine:
         # round to 512 rather than to the next bucket: a bucket-sized prompt
         # plus new tokens would otherwise nearly double the cache
         cache_len = round_up(s + gen_cfg.max_new_tokens, 512)
-        cache = KVCache.create(self.cfg.text, b, cache_len, device=self.device)
+        cache = KVCache.create(self.cfg.text, b, cache_len, device=self.device,
+                               quantized=self.quantize_kv)
 
         feats = None
         if images is not None and images.shape[0] > 0:

@@ -14,8 +14,15 @@ fresh cache, takes the flash tier; shorter ones take dense. On a CUDA tensor
 the flash tier is the Hopper kernel; on a CPU tensor it is the kernel's plain
 version, which stands in for the JAX package's CPU chunked tier (the same
 function). `attn_impl="dense"` and `"flash"` force a tier. Not in this slice
-(they raise): MoE, tied embeddings, the chunked continuation tier; weight
-quantization, int8 KV and context parallelism are not ported either.
+(they raise): MoE, tied embeddings, the chunked continuation tier; context
+parallelism is not ported either.
+
+Quantized serving (JAX decoder.py:131-178, 302-322, 391-394): the seven
+projections and `lm_head` go through `ops/quant.py::matmul`, so a weight that
+`quantize_tree` replaced by a QuantizedWeight runs int8 or int4 (K4 at decode
+on the card). An int8 KV cache stores each new token per head as int8 with an
+f32 scale; cached decode then attends through `attention_quant_kv`, while a
+fresh prefill still attends over its own bf16 k/v.
 """
 
 from __future__ import annotations
@@ -29,9 +36,10 @@ from torch import nn
 
 from leopard_tpu_torch.config import TextConfig
 from leopard_tpu_torch.models.params import Params, new_param, torch_dtype
-from leopard_tpu_torch.ops.attention import attention, make_attention_mask
+from leopard_tpu_torch.ops.attention import attention, attention_quant_kv, make_attention_mask
 from leopard_tpu_torch.ops.flash_attention import flash_attention
 from leopard_tpu_torch.ops.norms import rms_norm
+from leopard_tpu_torch.ops.quant import is_quantized, matmul
 from leopard_tpu_torch.ops.rotary import apply_rope, compute_inv_freq, rope_cos_sin
 
 
@@ -44,20 +52,41 @@ class KVCache:
     attended); index: [B] int32 count of valid tokens written per row.
     Prefill writes a right-padded block at offset 0 (pad slots get seg 0);
     each decode step writes a row's next token at that row's index.
+
+    int8 mode: kv is int8 and kv_scale [L, B, S_max, 2·H_kv] f32 holds the
+    per-token-per-head scales (K in [:H_kv], V in [H_kv:]), a separate buffer
+    as in the JAX package.
     """
 
     kv: torch.Tensor
     seg: torch.Tensor
     index: torch.Tensor
+    kv_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.kv.dtype == torch.int8
 
     @staticmethod
-    def create(cfg: TextConfig, batch: int, max_len: int, *, device=None) -> "KVCache":
+    def create(cfg: TextConfig, batch: int, max_len: int, *, device=None,
+               quantized: bool = False) -> "KVCache":
         shape = (cfg.num_layers, batch, max_len, 2 * cfg.num_kv_heads, cfg.head_dim)
+        dtype = torch.int8 if quantized else torch_dtype(cfg.dtype)
         return KVCache(
-            kv=torch.zeros(shape, dtype=torch_dtype(cfg.dtype), device=device),
+            kv=torch.zeros(shape, dtype=dtype, device=device),
             seg=torch.zeros((batch, max_len), dtype=torch.int32, device=device),
             index=torch.zeros((batch,), dtype=torch.int32, device=device),
+            kv_scale=(torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+                      if quantized else None),
         )
+
+
+def _q8(x: torch.Tensor):
+    """Symmetric int8 over the last dim: (q int8 [..., D], s f32 [...])."""
+    xf = x.float()
+    s = (xf.abs().amax(dim=-1) / 127.0).clamp(min=1e-8)
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
+    return q, s
 
 
 class DecoderLayer(nn.Module):
@@ -93,20 +122,30 @@ class DecoderLayer(nn.Module):
         a = self.attn
         hkv = cfg.num_kv_heads
         y = rms_norm(x, self.input_norm, cfg.rms_norm_eps)
-        q = F.linear(y, a.wq).reshape(b, s, cfg.num_heads, cfg.head_dim)
-        k = F.linear(y, a.wk).reshape(b, s, hkv, cfg.head_dim)
-        v = F.linear(y, a.wv).reshape(b, s, hkv, cfg.head_dim)
+        q = matmul(y, a.wq).reshape(b, s, cfg.num_heads, cfg.head_dim)
+        k = matmul(y, a.wk).reshape(b, s, hkv, cfg.head_dim)
+        v = matmul(y, a.wv).reshape(b, s, hkv, cfg.head_dim)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
+        quant_kv = None  # (k int8, k scale, v int8, v scale) over the layer slice
         if cache is not None:
-            layer_kv = cache.kv[layer_idx]  # a view: the scatter lands in the cache
+            # views: the scatters land in the cache
+            layer_kv = cache.kv[layer_idx]
             rows = torch.arange(b, device=x.device)[:, None]
-            layer_kv[rows, slots] = torch.cat([k, v], dim=2).to(layer_kv.dtype)
-            if not fresh_cache:
-                # a fresh cache holds only these tokens: attend over the local
-                # k/v; otherwise over the whole layer slice
-                k, v = layer_kv[:, :, :hkv], layer_kv[:, :, hkv:]
+            packed = torch.cat([k, v], dim=2)
+            if cache.quantized:
+                layer_s = cache.kv_scale[layer_idx]
+                layer_kv[rows, slots], layer_s[rows, slots] = _q8(packed)
+                if not fresh_cache:
+                    quant_kv = (layer_kv[:, :, :hkv], layer_s[:, :, :hkv],
+                                layer_kv[:, :, hkv:], layer_s[:, :, hkv:])
+            else:
+                layer_kv[rows, slots] = packed.to(layer_kv.dtype)
+                if not fresh_cache:
+                    # a fresh cache holds only these tokens: attend over the
+                    # local k/v; otherwise over the whole layer slice
+                    k, v = layer_kv[:, :, :hkv], layer_kv[:, :, hkv:]
 
         if attn_impl == "flash":
             o = flash_attention(
@@ -114,14 +153,16 @@ class DecoderLayer(nn.Module):
                 q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
                 sliding_window=cfg.sliding_window,
             )
+        elif quant_kv is not None:
+            o = attention_quant_kv(q, *quant_kv, mask=mask)
         else:
             o = attention(q, k, v, mask=mask)
-        x = x + F.linear(o.reshape(b, s, -1), a.wo)
+        x = x + matmul(o.reshape(b, s, -1), a.wo)
 
         y = rms_norm(x, self.post_attn_norm, cfg.rms_norm_eps)
         m = self.mlp
-        gated = F.silu(F.linear(y, m.w_gate)) * F.linear(y, m.w_up)
-        return x + F.linear(gated, m.w_down)
+        gated = F.silu(matmul(y, m.w_gate)) * matmul(y, m.w_up)
+        return x + matmul(gated, m.w_down)
 
 
 class Decoder(nn.Module):
@@ -153,10 +194,14 @@ class Decoder(nn.Module):
         """Keep one fp32 copy of the unembedding, made once from the final
         weights. Logits are fp32 as in the JAX package, where the bf16 head
         is promoted inside the fp32 product; without the copy each call
-        would cast the whole [vocab, hidden] table (2.1 GB at 8B) anew."""
-        self._head_f32 = self.lm_head.detach().float()
+        would cast the whole [vocab, hidden] table (2.1 GB at 8B) anew. A
+        quantized head keeps no copy: it goes through quant.matmul."""
+        if not is_quantized(self.lm_head):
+            self._head_f32 = self.lm_head.detach().float()
 
-    def _head(self) -> torch.Tensor:
+    def _head(self):
+        if is_quantized(self.lm_head):
+            return self.lm_head
         return self._head_f32 if self._head_f32 is not None else self.lm_head.float()
 
     def _attn_impl(self, s: int, cache: Optional[KVCache], fresh_cache: bool) -> str:
@@ -234,4 +279,6 @@ class Decoder(nn.Module):
         x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
         if logits_indices is not None:
             x = x.gather(1, logits_indices.long()[:, None, None].expand(b, 1, x.shape[-1]))
-        return F.linear(x.float(), self._head()), cache
+        # fp32 logits: an int4 head at M ≤ 64 on the card takes K4, which
+        # rounds x to bf16 as the TPU kernel does
+        return matmul(x.float(), self._head()), cache

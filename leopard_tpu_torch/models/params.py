@@ -6,7 +6,8 @@ holds bare parameters under the JAX leaf names, so a state-dict key reads as
 the JAX path with the layer index spelled out (`text.layers.3.attn.wq`).
 Weight matrices are kept in torch's `nn.Linear` layout [out, in] and applied
 with `F.linear`; the JAX tree keeps them [in, out] (convert/from_jax.py
-transposes them).
+transposes them). A quantized weight is a `QuantizedWeight` module in the
+JAX layout instead, applied by `ops/quant.py::matmul`.
 """
 
 from __future__ import annotations
@@ -39,6 +40,26 @@ class Params(nn.Module):
         super().__init__()
         for name, shape in shapes.items():
             self.register_parameter(name, new_param(shape, dtype, device))
+
+
+class QuantizedWeight(nn.Module):
+    """A quantized weight leaf (ops/quant.py), in the JAX package's layout and
+    bytes, with the reduction dim K first:
+      int8: `q` int8 [K, N], `s` f32 [1, N];
+      int4: `q4` uint8 [K/2, N] split-half packed, `s` f32 [K/G, N].
+    It takes the place of the weight under the leaf's name, so its buffers'
+    state-dict keys read as the JAX path (`text.layers.3.attn.wq.q4`)."""
+
+    def __init__(self, leaves: Mapping[str, torch.Tensor]):
+        super().__init__()
+        if set(leaves) not in ({"q", "s"}, {"q4", "s"}):
+            raise ValueError(f"a quantized leaf holds q/s or q4/s, not {sorted(leaves)}")
+        for name, t in leaves.items():
+            self.register_buffer(name, t)
+
+    @property
+    def int4(self) -> bool:
+        return "q4" in self._buffers
 
 
 def init_normal_(module: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -1,5 +1,5 @@
 """Dense GQA attention with the JAX package's mask semantics (port of
-leopard_tpu/ops/attention.py:25-129).
+leopard_tpu/ops/attention.py:25-170), and its variant over an int8 KV cache.
 
   - causal or bidirectional;
   - grouped-query (q heads a multiple of kv heads, kv head = h // group);
@@ -88,4 +88,39 @@ def attention(
     out = torch.einsum(
         "bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(), v.float()
     )
+    return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def attention_quant_kv(
+    q: torch.Tensor,    # [B, Sq, Hq, D]
+    k_q: torch.Tensor,  # [B, Skv, Hkv, D] int8
+    k_s: torch.Tensor,  # [B, Skv, Hkv] f32 per-token-per-head scale
+    v_q: torch.Tensor,  # [B, Skv, Hkv, D] int8
+    v_s: torch.Tensor,  # [B, Skv, Hkv] f32
+    *,
+    mask: Optional[torch.Tensor] = None,          # [B|1, 1|Hq, Sq, Skv] bool
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Attention over an int8 KV cache (port of attention.py:132-170). The
+    scales fold into the math, so no dequantized copy of the cache is formed:
+      scores = (q · k_int8) · k_scale[kv],   out = (probs · v_scale[kv]) @ v_int8.
+    q and the probabilities are rounded to bf16 as in the JAX package, whose
+    products take bf16 operands; int8 and bf16 values are exact in fp32, so
+    the fp32 products here are those products with fp32 accumulation."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k_q.shape
+    group = hq // hkv
+    if scale is None:
+        scale = d**-0.5
+    qg = q.reshape(b, sq, hkv, group, d).to(torch.bfloat16).float()
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_q.float())
+    # k scale: [B, Skv, Hkv] → [B, Hkv, 1, 1, Skv]
+    scores = scores * (scale * k_s.transpose(1, 2)[:, :, None, None, :])
+    if mask is not None:
+        m = mask[:, :, None] if mask.shape[1] == 1 else mask.reshape(
+            mask.shape[0], hkv, group, sq, skv)
+        scores = scores.masked_fill(~m, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    probs = probs * v_s.transpose(1, 2)[:, :, None, None, :]
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(torch.bfloat16).float(), v_q.float())
     return out.reshape(b, sq, hq, d).to(q.dtype)

@@ -124,13 +124,17 @@ def test_sampled_generate_is_seeded(engines):
         assert np.all((x >= 0) & (x < teng.cfg.text.vocab_size))
 
 
-@pytest.mark.parametrize("kw", [
-    dict(mesh=object()), dict(quantize="int8"), dict(quantize_kv=True),
-], ids=["mesh", "quantize", "quantize_kv"])
+@pytest.mark.parametrize("kw", [dict(mesh=object())], ids=["mesh"])
 def test_engine_rejects_what_the_port_lacks(engines, kw):
     _, teng = engines
     with pytest.raises(NotImplementedError):
         Engine(teng.cfg, teng.model, **kw)
+
+
+def test_engine_rejects_an_unknown_quantize_mode(engines):
+    _, teng = engines
+    with pytest.raises(ValueError, match="unknown quantize mode fp8"):
+        Engine(teng.cfg, teng.model, quantize="fp8")
 
 
 @pytest.mark.parametrize("kw", [dict(spec=object()), dict(prefix=object()),

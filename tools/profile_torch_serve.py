@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port's serving path on one NVIDIA GPU.
 
-    python3 tools/profile_torch_serve.py [--trace-dir traces/]
+    python3 tools/profile_torch_serve.py [--trace-dir traces/] [--quantize int4] [--quantize-kv]
 
 Builds Leopard-LLaVA-8B with seeded random weights on the card and the same
-two requests as chip_smoke.py (16 uint8 tiles each, bucket 4,096), warms up,
+two requests as chip_smoke.py (16 uint8 tiles each, bucket 4,096), with the
+Engine's weight and KV quantization flags as given, warms up,
 then traces with torch.profiler (CPU + CUDA activities):
   - prefill: one generate with max_new_tokens=1 (the TTFT window);
   - decode: one generate with 16 greedy tokens.
@@ -66,6 +67,8 @@ def _window(name, fn, trace_dir, top=25):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace-dir", type=Path, default=None)
+    ap.add_argument("--quantize", choices=("int8", "int4"), default=None)
+    ap.add_argument("--quantize-kv", action="store_true")
     args = ap.parse_args()
 
     import dataclasses
@@ -85,14 +88,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     cfg = leopard_llava_8b()
     model = vlm.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
-    engine = Engine(cfg, model)
+    engine = Engine(cfg, model, quantize=args.quantize, quantize_kv=args.quantize_kv)
     prompts, tiles = make_requests(cfg, 2, text_lengths=(500, 1100))
     gen = GenerateConfig(max_new_tokens=MAX_NEW_TOKENS)
     import subprocess
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}", flush=True)
+    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
+          f"quantize={args.quantize}, quantize_kv={args.quantize_kv}", flush=True)
     engine.generate(prompts, images=tiles, gen_cfg=gen)  # warm-up: build, cuBLAS plans
 
     _window("prefill", lambda: engine.generate(
