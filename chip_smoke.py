@@ -6,15 +6,23 @@
 Phases, each printing its result on its own line; any failure raises and the
 script exits non-zero without printing a result:
   1. environment: torch, the card, its name and power limit (nvidia-smi);
-  2. build: nvcc compiles the flash-attention (K1) and int4 matmul (K4)
-     kernels into build/, one nvcc each, in parallel;
-  3. K1 against its plain version in bf16 at the serving path's shapes
-     (vision tower and decoder prefill), with both times; K4 against its
-     plain version at the 8B decode shapes (M = 2, and M = 64 once), with
-     both times (cold L2) and the kernel's GB/s on the packed bytes;
+  2. build: nvcc compiles the flash-attention forward (K1) and backward (K2)
+     and the int4 matmul (K4) into build/, one nvcc each, in parallel; the
+     Triton norms (K3a/K3b) compile at their first launch, in phase 3;
+  3. each kernel against its plain version, with its time, the plain
+     version's, the time of one PyTorch call computing the same function
+     where there is one, and the card's bound for the work: K1 in bf16 at
+     the serving path's shapes (vision tower and decoder prefill); K2 at the
+     train path's shapes (the decoder's packed two-segment rows with a
+     padding tail, the tower's 16 tiles at head dim 72); K3a/K3b at the
+     train path's rows, (8192, 4096) RMSNorm and (16·676, 1152) LayerNorm,
+     cold L2;
+     K4 at the 8B decode shapes (M = 2, and M = 64 once, cold L2) with the
+     kernel's GB/s on the packed bytes;
   4. serving at 8B: Engine.generate on Leopard-LLaVA-8B with seeded random
      weights, 2 requests of 16 uint8 364×364 tiles each, 16 greedy tokens;
-     K1's launch count, repeatability, TTFT, prefill tok/s and decode ms/step;
+     K1's and K3's launch counts, repeatability, TTFT, prefill tok/s and
+     decode ms/step;
   5. the K1 path against the dense path end to end (one request);
   6. int4 serving at 8B: Engine(quantize="int4") on the same model and
      requests; K1 and K4 launch counts, repeatability, TTFT, decode ms/step;
@@ -22,16 +30,29 @@ script exits non-zero without printing a result:
      bf16 decoder built from the dequantized int4 weights;
   8. int4 weights with the int8 KV cache: one generate, checked;
   9. int8 weights: one checked generate, then TTFT and decode ms/step;
- 10. no JAX was imported.
+ 10. training at the width of Leopard-LLaVA-8B with the text depth cut to 4
+     of 32 (the 8B train state, ~18 B a parameter, does not fit one 80 GB
+     card), seeded random weights, 2 rows × 4,096 tokens each packing two
+     samples (positions restarting per segment, a padding tail) with 16
+     tiles: first one step's gradients through K1 + K2 against the same
+     step with dense attention in text and tower (cosine per parameter
+     group), then 3 steps of `train()` (full recompute, chunked
+     cross-entropy, AdamW with warmup from 0): loss and grad norm finite,
+     params unchanged by step 1 (lr 0) and changed by steps 2-3, the K1, K2
+     and K3 launch counts of every step against the layer counts, step ms,
+     tokens/s and peak memory;
+ 11. no JAX was imported.
 Each engine is freed after its phase, with the phase's peak device memory
-printed. Then one JSON line per kernel ({"kernels": [...]}) and, last, the
-JSON line {"ok": true, "device": {...}}.
+printed. Then the card's name and power limit as nvidia-smi prints them, one
+JSON line with every kernel ({"kernels": [...]}) and, last, the JSON line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -56,7 +77,23 @@ K4_TOL = dict(rtol=1e-2, atol=1e-2)
 K4_SHAPES = {"wq_wo": (4096, 4096, 2), "wk_wv": (4096, 1024, 2),
              "gate_up": (4096, 14336, 2), "down": (14336, 4096, 1),
              "lm_head": (4096, 128256, 0)}
-KERNELS = ("flash_attention", "int4_matmul")
+KERNELS = ("flash_attention", "flash_attention_bwd", "int4_matmul")
+# K2 vs its plain version: P and dS are rounded to bf16 in the kernel, not in
+# the plain version, and both round the gradients to bf16
+K2_TOL = dict(rtol=2e-2, atol=2e-2)
+# K3 vs its plain version: one bf16 rounding (2^-8 relative) of outputs up to
+# ~4 on each side
+K3_TOL = dict(rtol=1.6e-2, atol=1.6e-2)
+# the card's peaks (NVIDIA H100 SXM data sheet, dense, at the full 700 W)
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_S = 3.35e12
+# the train phase: Leopard-LLaVA-8B widths, text depth 4; 2 rows of 4,096
+# tokens, each packing two samples of 4 tiles, then a padding tail
+TRAIN_TEXT_LAYERS = 4
+TRAIN_SEQ = 4096
+TRAIN_ROWS = ((2100, 1900), (1700, 2300))  # sample lengths; the rest is padding
+TRAIN_TILES_PER_SAMPLE = 4
+TRAIN_STEPS = 3
 
 
 def cuda_ms(fn, flush=None) -> float:
@@ -98,6 +135,45 @@ def wall_s(fn, reps=3) -> float:
     return statistics.median(times)
 
 
+def attended_pairs(segment_lengths, causal):
+    """(q, kv) pairs the mask lets through, for rows of contiguous segments."""
+    return sum(n * (n + 1) // 2 if causal else n * n
+               for row in segment_lengths for n in row)
+
+
+def attn_bound_ms(pairs, heads, d, products, n_bytes):
+    """Least time for the work, the larger of two: `products` matmuls of 2·D
+    flops per attended pair and head at the card's bf16 peak (2 for the
+    forward, 5 for the backward), and `n_bytes` (each input read once, each
+    output written once) at its memory rate. Returns (ms, what bounds it)."""
+    ops_ms = products * 2 * d * pairs * heads / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def sdpa_ms(b, s, hq, hkv, d, causal, device, backward):
+    """The yardstick: one F.scaled_dot_product_attention call (forward, or
+    its backward) at the unsegmented shape. The port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+    q, k, v = (torch.randn((b, h, s, d), generator=g, device=device, dtype=torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    kw = dict(is_causal=causal, enable_gqa=hq != hkv)
+    if not backward:
+        with torch.no_grad():
+            return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, **kw))
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, **kw)
+    dout = torch.randn_like(out)
+    return cuda_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True))
+
+
 def kernel_vs_plain(name, b, s, hq, hkv, d, causal, lengths, device, card):
     """Phase 3 for one shape: max abs error over valid rows, both times."""
     import torch
@@ -124,11 +200,126 @@ def kernel_vs_plain(name, b, s, hq, hkv, d, causal, lengths, device, card):
     del want
     ms = cuda_ms(lambda: flash_attention(q, k, v, **kw))
     plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw))
+    n_bytes = nbytes(q, k, v, seg, seg, got)
+    del q, k, v
+    library_ms = sdpa_ms(b, s, hq, hkv, d, causal, device, backward=False)
+    pairs = attended_pairs([[n] for n in lengths] if lengths else [[s]] * b, causal)
+    bound_ms, bound_by = attn_bound_ms(pairs, hq, d, 2, n_bytes)
     shape = (f"B={b} S={s} heads={hq}/{hkv} D={d} {'causal' if causal else 'non-causal'}"
              + (f" lengths={list(lengths)}" if lengths else ""))
     print(f"kernel {name}: {shape}: max_abs_err={err:.6g} (tol {KERNEL_TOL}) "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]", flush=True)
-    return {"shape": f"{name}: {shape}", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms [{card}]", flush=True)
+    return {"shape": f"{name}: {shape}", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def segments_of(rows, s, device):
+    """Segment ids [B, S] for rows of consecutive samples (ids 1, 2, ...)
+    followed by padding (0)."""
+    import torch
+
+    seg = torch.zeros((len(rows), s), dtype=torch.int32)
+    for r, row in enumerate(rows):
+        start = 0
+        for sid, n in enumerate(row, start=1):
+            seg[r, start:start + n] = sid
+            start += n
+    return seg.to(device)
+
+
+def flash_bwd_vs_plain(name, b, s, hq, hkv, d, causal, rows, device, card):
+    """Phase 3, K2 at one shape: dq/dk/dv max abs error against the plain
+    version on the same inputs (out and lse from K1), times, and the bound.
+    `rows`: each row's packed sample lengths, or None (no segments)."""
+    import torch
+
+    from leopard_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+    q = torch.randn((b, s, hq, d), generator=g, device=device, dtype=torch.bfloat16)
+    k = torch.randn((b, s, hkv, d), generator=g, device=device, dtype=torch.bfloat16)
+    v = torch.randn((b, s, hkv, d), generator=g, device=device, dtype=torch.bfloat16)
+    dout = torch.randn((b, s, hq, d), generator=g, device=device, dtype=torch.bfloat16)
+    seg = None
+    if rows is not None:
+        seg = segments_of(rows, s, device)
+        dout = dout * (seg != 0)[:, :, None, None].to(dout.dtype)  # no loss reads padding rows
+    kw = dict(causal=causal)
+    out, lse = fa._launch(q, k, v, q_segment_ids=seg, kv_segment_ids=seg, with_lse=True,
+                          sliding_window=None, **kw)
+    got = fa.flash_attention_bwd(q, k, v, seg, seg, out, lse, dout, **kw)
+    want = fa.flash_attention_bwd_ref(q, k, v, seg, seg, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    errs = {}
+    for gname, a, w in zip(("dq", "dk", "dv"), got, want):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{name}: {gname} has non-finite values")
+        errs[gname] = (a.float() - w.float()).abs().max().item()
+        torch.testing.assert_close(a.float(), w.float(), **K2_TOL, msg=f"{name} {gname}")
+    again = fa.flash_attention_bwd(q, k, v, seg, seg, out, lse, dout, **kw)
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError(f"{name}: K2 does not repeat bit for bit")
+    del want, got, again
+    ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, seg, seg, out, lse, dout, **kw))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, seg, seg, out, lse, dout, **kw))
+    # reads q, k, v, out, dout, lse and the segments; writes dq, dk, dv
+    n_bytes = nbytes(q, k, v, out, dout, lse, seg, seg, q, k, v)
+    del q, k, v, dout, out, lse
+    torch.cuda.empty_cache()
+    library_ms = sdpa_ms(b, s, hq, hkv, d, causal, device, backward=True)
+    pairs = attended_pairs(rows if rows is not None else [[s]] * b, causal)
+    bound_ms, bound_by = attn_bound_ms(pairs, hq, d, 5, n_bytes)
+    shape = (f"B={b} S={s} heads={hq}/{hkv} D={d} {'causal' if causal else 'non-causal'}"
+             + (f" packed rows={[list(r) for r in rows]}" if rows else ""))
+    print(f"kernel flash_attention_bwd {name}: {shape}: max_abs_err "
+          + ", ".join(f"{k_}={e:.6g}" for k_, e in errs.items())
+          + f" (tol {K2_TOL}), repeats bit for bit; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"sdpa backward {library_ms:.4f} ms (unsegmented), bound {bound_ms:.4f} ms [{card}]",
+          flush=True)
+    return {"shape": f"{name}: {shape}", "max_abs_err": max(errs.values()), "errs": errs,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def norm_vs_plain(kind, rows, h, device, card, flush):
+    """Phase 3, K3a (rms) or K3b (ln) at [rows, h] bf16: max abs error,
+    times (cold L2, so that the window holds device time and not the
+    launch, which costs Triton's launcher more than the kernel takes), the
+    F.rms_norm / F.layer_norm yardstick, and the byte bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from leopard_tpu_torch.ops import fused_norms, norms
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+    x = (torch.randn((rows, h), generator=g, device=device) * 2 + 0.5).to(torch.bfloat16)
+    params = [torch.randn(h, generator=g, device=device).to(torch.bfloat16)
+              for _ in range(1 if kind == "rms" else 2)]
+    if kind == "rms":
+        fused, plain, eps = fused_norms.fused_rms_norm, norms.rms_norm_ref, 1e-5
+        library = lambda: F.rms_norm(x, (h,), params[0], eps)  # noqa: E731
+    else:
+        fused, plain, eps = fused_norms.fused_layer_norm, norms.layer_norm_ref, 1e-6
+        library = lambda: F.layer_norm(x, (h,), *params, eps)  # noqa: E731
+    got = fused(x, *params, eps)
+    want = plain(x, *params, eps)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{kind}: kernel output has non-finite values")
+    err = (got.float() - want.float()).abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), **K3_TOL)
+    ms = cuda_ms(lambda: fused(x, *params, eps), flush=flush)
+    plain_ms = cuda_ms(lambda: plain(x, *params, eps), flush=flush)
+    library_ms = cuda_ms(library, flush=flush)
+    n_bytes = nbytes(x, *params, got)
+    bound_ms = n_bytes / PEAK_BYTES_S * 1e3
+    name = "fused_rms_norm" if kind == "rms" else "fused_layer_norm"
+    print(f"kernel {name}: x [{rows}, {h}] bf16: max_abs_err={err:.6g} (tol {K3_TOL}) kernel "
+          f"{ms:.4f} ms ({n_bytes / (ms * 1e-3) / 1e9:.1f} GB/s), plain {plain_ms:.4f} ms, "
+          f"torch {library_ms:.4f} ms, bound {bound_ms:.4f} ms [{card}]", flush=True)
+    return {"shape": f"x [{rows}, {h}] bf16", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms}
 
 
 def int4_vs_plain(name, m, k, n, device, card, flush):
@@ -185,23 +376,30 @@ def serve(engine, cfg, prompts, tiles, card, label, k4_per_step=0, runs=2, time_
 
     from leopard_tpu_torch.config import GenerateConfig
     from leopard_tpu_torch.ops.flash_attention import flash_attention
+    from leopard_tpu_torch.ops.fused_norms import fused_layer_norm, fused_rms_norm
     from leopard_tpu_torch.ops.int4_matmul import int4_matmul
 
     gen = GenerateConfig(max_new_tokens=MAX_NEW_TOKENS)
     expected = cfg.vision.num_layers + cfg.text.num_layers
     results = []
     for _ in range(runs):
-        flash_attention.launches = 0
-        int4_matmul.launches = 0
+        for counter in (flash_attention, int4_matmul, fused_rms_norm, fused_layer_norm):
+            counter.launches = 0
         res = engine.generate(prompts, images=tiles, gen_cfg=gen)
         torch.cuda.synchronize()
         launches = {"flash_attention": flash_attention.launches,
-                    "int4_matmul": int4_matmul.launches}
+                    "int4_matmul": int4_matmul.launches,
+                    "fused_rms_norm": fused_rms_norm.launches,
+                    "fused_layer_norm": fused_layer_norm.launches}
         # decode forwards in one generate: the loop stops after the step
         # where the last row emits eos, and the final step runs no forward
         steps = max(min(MAX_NEW_TOKENS, len(t) + 1) for t in res.tokens) - 1
         want = {"flash_attention": expected,
-                "int4_matmul": 1 + k4_per_step * steps if k4_per_step else 0}
+                "int4_matmul": 1 + k4_per_step * steps if k4_per_step else 0,
+                # two norms a layer and the final one, in the prefill and
+                # every decode forward; two a tower layer and the post-LN
+                "fused_rms_norm": (2 * cfg.text.num_layers + 1) * (1 + steps),
+                "fused_layer_norm": 2 * cfg.vision.num_layers + 1}
         if launches != want:
             raise AssertionError(f"{label}: generate launched {launches}, expected {want}")
         for toks, lps in zip(res.tokens, res.logprobs):
@@ -216,7 +414,9 @@ def serve(engine, cfg, prompts, tiles, card, label, k4_per_step=0, runs=2, time_
                 raise AssertionError(f"{label}: generate is not repeatable: {a} vs {b}")
     k4_note = f"; K4: 1 + {k4_per_step} x {steps} decode forwards" if k4_per_step else ""
     print(f"{label}: {runs} generate call(s), launches each {launches} "
-          f"(K1: {cfg.vision.num_layers} vision + {cfg.text.num_layers} decoder prefill{k4_note}), "
+          f"(K1: {cfg.vision.num_layers} vision + {cfg.text.num_layers} decoder prefill{k4_note}; "
+          f"K3a: {2 * cfg.text.num_layers + 1} x (1 + {steps}) forwards; "
+          f"K3b: {2 * cfg.vision.num_layers + 1}), "
           f"tokens{' identical' if runs > 1 else ''}: {[t.tolist() for t in results[0].tokens]}",
           flush=True)
     timings = {"launches": launches, "decode_steps": steps}
@@ -353,6 +553,196 @@ def int4_vs_dense_decode_step(int4_model, cfg, prompt, tiles, device):
     return cos, same_argmax
 
 
+def train_config():
+    """Leopard-LLaVA-8B at full width with the text depth cut to
+    TRAIN_TEXT_LAYERS (the one cut: the 8B train state does not fit)."""
+    from leopard_tpu_torch.config import leopard_llava_8b
+
+    cfg = leopard_llava_8b()
+    return dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_layers=TRAIN_TEXT_LAYERS))
+
+
+def train_batch(cfg, device):
+    """TRAIN_ROWS packed as the data pipeline packs them: each sample is BOS,
+    its tiles' image tokens, then text; segment ids 1, 2 and 0 for the
+    padding tail; positions restart at 0 in each segment; loss weight 1 on
+    text tokens, 0 on image tokens and padding. Tiles in order of
+    appearance, random pixels from the seed."""
+    import torch
+
+    rng = np.random.RandomState(SEED)
+    n_img = TRAIN_TILES_PER_SAMPLE * cfg.anyres.tokens_per_tile
+    shape = (len(TRAIN_ROWS), TRAIN_SEQ)
+    tokens, seg, pos = (np.zeros(shape, np.int64) for _ in range(3))
+    weights = np.zeros(shape, np.float32)
+    for r, row in enumerate(TRAIN_ROWS):
+        start = 0
+        for sid, n in enumerate(row, start=1):
+            sample = np.concatenate([[128000], np.full(n_img, cfg.image_token_id),
+                                     rng.randint(0, 128000, n - 1 - n_img)])
+            end = start + n
+            tokens[r, start:end], seg[r, start:end], pos[r, start:end] = sample, sid, np.arange(n)
+            weights[r, start:end] = sample != cfg.image_token_id
+            start = end
+    n_tiles = sum(len(row) for row in TRAIN_ROWS) * TRAIN_TILES_PER_SAMPLE
+    size = cfg.vision.image_size
+    g = torch.Generator(device=device).manual_seed(SEED)
+    images = torch.randn((n_tiles, 3, size, size), generator=g, device=device)
+    batch = {"tokens": tokens, "segment_ids": seg, "positions": pos, "loss_weights": weights}
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    batch["images"] = images
+    return batch
+
+
+def param_group(name):
+    if name.startswith("text.layers."):
+        return "text layers"
+    if name.startswith("vision.layers."):
+        return "tower layers"
+    return {"text.embed_tokens": "embed", "text.lm_head": "head",
+            "text.final_norm": "text final norm"}.get(
+        name, "projector" if name.startswith("projector.") else "tower patch/pos/post-LN")
+
+
+def train_grads_vs_dense(model, cfg, batch, card):
+    """Phase 10a: one step's gradients through K1 + K2 against the same step
+    with attn_impl="dense" in text and tower (plain attention under
+    autograd), on the same weights; cosine per parameter group."""
+    import torch
+
+    from leopard_tpu_torch.models.vlm import LeopardVLM
+    from leopard_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from leopard_tpu_torch.training.trainer import vlm_loss
+
+    dense_cfg = dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, attn_impl="dense"),
+        text=dataclasses.replace(cfg.text, attn_impl="dense"))
+    dense = LeopardVLM(dense_cfg, device="meta")
+    dense.load_state_dict(model.state_dict(), assign=True)  # shares the weights
+    grads, losses, launches = {}, {}, {}
+    for name, m, c in (("kernel", model, cfg), ("dense", dense, dense_cfg)):
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        loss, _ = vlm_loss(m, c, batch, remat="full")
+        loss.backward()
+        torch.cuda.synchronize()
+        launches[name] = (flash_attention.launches, flash_attention_bwd.launches)
+        losses[name] = loss.item()
+        grads[name] = {n: p.grad for n, p in m.named_parameters()}
+        for p in m.parameters():
+            p.grad = None
+    layers = cfg.text.num_layers + cfg.vision.num_layers
+    if launches != {"kernel": (2 * layers, layers), "dense": (0, 0)}:
+        raise AssertionError(f"K1/K2 launches {launches}, expected kernel ({2 * layers}, "
+                             f"{layers}) and dense (0, 0)")
+    sums = {}
+    for n, a in grads["kernel"].items():
+        a, b = a.float(), grads["dense"][n].float()
+        acc = sums.setdefault(param_group(n), [0.0, 0.0, 0.0])
+        acc[0] += float((a * b).sum())
+        acc[1] += float(a.square().sum())
+        acc[2] += float(b.square().sum())
+    cosines = {grp: dot / max((na * nb) ** 0.5, 1e-30) for grp, (dot, na, nb) in sums.items()}
+    del grads, dense
+    print(f"train, K1 + K2 vs dense gradients (one step, {cfg.text.num_layers} text layers): "
+          f"loss {losses['kernel']:.6f} vs {losses['dense']:.6f}; cosine per group "
+          + ", ".join(f"{g}: {c:.6f}" for g, c in cosines.items())
+          + f" (min {COSINE_MIN}); K1/K2 launches {launches['kernel']} [{card}]", flush=True)
+    if not all(np.isfinite(list(losses.values()))) or min(cosines.values()) < COSINE_MIN:
+        raise AssertionError(f"gradients disagree: {cosines}, losses {losses}")
+    return {"cosines": cosines, "losses": losses}
+
+
+def train_phase(model, cfg, batch, card):
+    """Phase 10b: TRAIN_STEPS steps of train() through the user's entry
+    points, each step timed and its kernel launches counted."""
+    import torch
+
+    from leopard_tpu_torch.config import OptimizerConfig, TrainConfig
+    from leopard_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from leopard_tpu_torch.ops.fused_norms import fused_layer_norm, fused_rms_norm
+    from leopard_tpu_torch.training import trainer
+    from leopard_tpu_torch.training.loop import train
+
+    counters = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+                "fused_rms_norm": fused_rms_norm, "fused_layer_norm": fused_layer_norm}
+    lt, lv = cfg.text.num_layers, cfg.vision.num_layers
+    # full recompute runs each layer's forward twice (K1, K3) and its
+    # backward once (K2); the final norm and the tower's post-LN run once
+    want = {"flash_attention": 2 * (lt + lv), "flash_attention_bwd": lt + lv,
+            "fused_rms_norm": 2 * 2 * lt + 1, "fused_layer_norm": 2 * 2 * lv + 1}
+    tcfg = TrainConfig(
+        seq_len=TRAIN_SEQ, global_batch_size=len(TRAIN_ROWS), train_steps=TRAIN_STEPS,
+        log_interval=1, eval_interval=0, save_interval=0, remat="full", loss_chunk=1024,
+        optimizer=OptimizerConfig(lr=1e-5, warmup_steps=1, decay_steps=1000, grad_clip=1.0))
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.create_train_state(model, tcfg)
+    step = trainer.make_train_step(cfg, tcfg, model=model)
+    used_rows = torch.unique(batch["tokens"][batch["loss_weights"] > 0])[:64]
+
+    def sample(params):
+        """A few thousand elements of each master tensor (the embedding's
+        rows of tokens in the batch: other rows get no gradient)."""
+        out = {}
+        for n, p in params.items():
+            flat = p[used_rows].reshape(-1) if n == "text.embed_tokens" else p.reshape(-1)
+            out[n] = flat[:: max(1, flat.numel() // 4096)][:4096].clone()
+        return out
+
+    snaps = [sample(state.params)]
+    records = []
+
+    def step_fn(st, b):
+        before = {k: c.launches for k, c in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, metrics = step(st, b)
+        torch.cuda.synchronize()
+        records.append({
+            "ms": (time.perf_counter() - t0) * 1e3, "loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]), "nan_step": bool(metrics["nan_step"]),
+            "launches": {k: c.launches - before[k] for k, c in counters.items()}})
+        snaps.append(sample(st.params))
+        return st, metrics
+
+    for c in counters.values():
+        c.launches = 0
+    state = train(cfg, tcfg, state, step_fn, itertools.repeat(batch))
+    torch.cuda.synchronize()
+    totals = {k: c.launches for k, c in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for i, r in enumerate(records, start=1):
+        print(f"train step {i}: loss {r['loss']:.6f}, grad norm {r['grad_norm']:.6f}, "
+              f"{r['ms']:.1f} ms, launches {r['launches']} [{card}]", flush=True)
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])) or r["nan_step"]:
+            raise AssertionError(f"step {i}: non-finite loss or grad norm: {r}")
+        if r["launches"] != want:
+            raise AssertionError(f"step {i}: launches {r['launches']}, expected {want}")
+    if state.step != TRAIN_STEPS or len(records) != TRAIN_STEPS:
+        raise AssertionError(f"train() ran {len(records)} steps, state.step {state.step}")
+    unchanged = [n for n in snaps[0] if not torch.equal(snaps[0][n], snaps[1][n])]
+    if unchanged:
+        raise AssertionError(f"step 1 (lr 0) changed {unchanged[:5]}")
+    moved = {}
+    for n in snaps[0]:
+        grp = moved.setdefault(param_group(n), [0, 0])
+        grp[0] += int(not torch.equal(snaps[1][n], snaps[-1][n]))
+        grp[1] += 1
+    if any(changed == 0 for changed, _ in moved.values()):
+        raise AssertionError(f"steps 2-3 left a parameter group unchanged: {moved}")
+    step_ms = statistics.mean(r["ms"] for r in records[1:])
+    tokens = len(TRAIN_ROWS) * TRAIN_SEQ
+    print(f"train: {TRAIN_STEPS} steps of train(), step 1 left the params unchanged (lr 0); "
+          f"steps 2-3 changed tensors per group (changed/total): "
+          + ", ".join(f"{g}: {c}/{t}" for g, (c, t) in moved.items())
+          + f"; launches per step {want} (K1 2 x ({lt} + {lv}) layers, K2 {lt} + {lv}, "
+          f"K3a 2 x 2 x {lt} + 1, K3b 2 x 2 x {lv} + 1), in all {totals}; step "
+          f"{step_ms:.1f} ms (mean of steps 2-{TRAIN_STEPS}), {tokens / step_ms * 1e3:.1f} "
+          f"tokens/s, peak device memory {peak_gib:.2f} GiB [{card}]", flush=True)
+    return {"steps": records, "launches": totals, "launches_per_step": want,
+            "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+            "peak_memory_gib": peak_gib, "params_moved": moved}
+
+
 def main() -> int:
     import torch
 
@@ -381,6 +771,8 @@ def main() -> int:
     card = smi.splitlines()[0]
     print(f"device: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}", flush=True)
     print(f"nvidia-smi: {smi}", flush=True)
+    if torch.cuda.device_count() != 1:
+        print(f"note: {torch.cuda.device_count()} cards visible; the smoke uses card 0", flush=True)
     print("tf32: matmul False, cudnn False", flush=True)
 
     # phase 2: build, one nvcc per source, all started together
@@ -400,18 +792,40 @@ def main() -> int:
     }
     per_shape = {name: kernel_vs_plain(name, device=device, card=card, **kw)
                  for name, kw in shapes.items()}
-    flush = torch.empty(2**28 // 4, dtype=torch.float32, device=device)  # 256 MiB > L2
+    # 1 GiB > L2; reading it keeps the device busy ~0.3 ms while a launch is queued
+    flush = torch.empty(2**30 // 4, dtype=torch.float32, device=device)
     k4_shapes = {name: int4_vs_plain(name, 2, k, n, device, card, flush)
                  for name, (k, n, _) in K4_SHAPES.items()}
     k4_m64 = int4_vs_plain("gate_up_m64", 64, 4096, 14336, device, card, flush)
+    # K2 at the train path's shapes, K3 at its rows
+    full = leopard_llava_8b()
+    text, vis = full.text, full.vision
+    n_tiles = sum(len(row) for row in TRAIN_ROWS) * TRAIN_TILES_PER_SAMPLE
+    k2 = {"decoder": flash_bwd_vs_plain(
+              "decoder", len(TRAIN_ROWS), TRAIN_SEQ, text.num_heads, text.num_kv_heads,
+              text.head_dim, True, TRAIN_ROWS, device, card),
+          "tower": flash_bwd_vs_plain(
+              "tower", n_tiles, vis.tokens_per_tile, vis.num_heads, vis.num_heads,
+              vis.head_dim, False, None, device, card)}
+    k3 = {"rms": norm_vs_plain("rms", len(TRAIN_ROWS) * TRAIN_SEQ, text.hidden_size, device,
+                               card, flush),
+          "ln": norm_vs_plain("ln", n_tiles * vis.tokens_per_tile, vis.hidden_size, device,
+                              card, flush)}
     del flush
     # K4's time in one 8B decode step: the seven matmuls of each layer and lm_head
     n_layers = leopard_llava_8b().text.num_layers
     k4_step = {key: sum(n_layers * per * k4_shapes[name][key]
                         for name, (_, _, per) in K4_SHAPES.items())
                + k4_shapes["lm_head"][key] for key in ("ms", "plain_ms")}
+    # bytes each decode matmul must move: packed weight, scales, x (bf16), out (f32)
+    k4_bytes = {name: k // 2 * n + k // 128 * n * 4 + 2 * k * 2 + 2 * n * 4
+                for name, (k, n, _) in K4_SHAPES.items()}
+    k4_step["bound_ms"] = (sum(n_layers * per * k4_bytes[name]
+                               for name, (_, _, per) in K4_SHAPES.items())
+                           + k4_bytes["lm_head"]) / PEAK_BYTES_S * 1e3
     print(f"K4 per 8B decode step (batch 2, cold L2): kernel {k4_step['ms']:.4f} ms, "
-          f"plain {k4_step['plain_ms']:.4f} ms [{card}]", flush=True)
+          f"plain {k4_step['plain_ms']:.4f} ms, bound {k4_step['bound_ms']:.4f} ms [{card}]",
+          flush=True)
     torch.cuda.empty_cache()
 
     # phase 4: serving at 8B
@@ -461,15 +875,43 @@ def main() -> int:
     del engine
     peak["int8"] = phase_memory("serve int8")
 
-    # phase 10: no JAX
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    # phase 10: training at 8B width, text depth 4
+    del model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = train_config()
+    model = vlm.init_params(tcfg, torch.Generator(device=device).manual_seed(SEED))
+    batch = train_batch(tcfg, device)
+    n_train = sum(p.numel() for p in model.parameters())
+    print(f"train model: Leopard-LLaVA-8B widths, {TRAIN_TEXT_LAYERS} of 32 text layers, "
+          f"{n_train} parameters; batch {len(TRAIN_ROWS)} x {TRAIN_SEQ} tokens packing "
+          f"{[list(r) for r in TRAIN_ROWS]}, {batch['images'].shape[0]} tiles", flush=True)
+    grads_check = train_grads_vs_dense(model, tcfg, batch, card)
+    torch.cuda.empty_cache()
+    train_run = train_phase(model, tcfg, batch, card)
+    del model, batch
+    peak["train"] = phase_memory("train")
+
+    # phase 11: no JAX
+    if "jax" in sys.modules or any(m.split(".")[0] == "leopard_tpu" for m in sys.modules):
+        raise AssertionError("jax or the JAX package was imported")
     print("no jax: ok", flush=True)
 
-    per_generate = (cfg.vision.num_layers * per_shape["vision_b32"]["ms"]
-                    + cfg.text.num_layers * per_shape["decoder"]["ms"])
-    per_generate_plain = (cfg.vision.num_layers * per_shape["vision_b32"]["plain_ms"]
-                          + cfg.text.num_layers * per_shape["decoder"]["plain_ms"])
+    per_generate = ((cfg.vision.num_layers, per_shape["vision_b32"]),
+                    (cfg.text.num_layers, per_shape["decoder"]))
+    per_train_step = ((tcfg.text.num_layers, k2["decoder"]),
+                      (tcfg.vision.num_layers, k2["tower"]))
+
+    def total(parts, key):
+        return sum(n * r[key] for n, r in parts)
+
+    def bound_by(parts):
+        """What bounds a sum of calls: the side holding most of its bound."""
+        share = {"operations": 0.0, "bytes": 0.0}
+        for n, r in parts:
+            share[r["bound_by"]] += n * r["bound_ms"]
+        return max(share, key=share.get)
+
     kernels = {"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -477,9 +919,14 @@ def main() -> int:
         "replaces": "leopard_tpu/ops/pallas/flash_attention.py:199",
         "launches": timings["launches"]["flash_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in per_shape.values()),
-        "ms": per_generate,
-        "plain_ms": per_generate_plain,
+        "ms": total(per_generate, "ms"),
+        "plain_ms": total(per_generate, "plain_ms"),
+        "bound_ms": total(per_generate, "bound_ms"),
+        "bound_by": bound_by(per_generate),
+        "library_ms": total(per_generate, "library_ms"),
+        "library": "F.scaled_dot_product_attention forward at the same shapes, unsegmented",
         "ms_is": "per generate: 27 x vision_b32 + 32 x decoder",
+        "launches_train": train_run["launches"]["flash_attention"],
         "shapes": list(per_shape.values()),
         "card": card,
         "serve": timings,
@@ -494,6 +941,10 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in [*k4_shapes.values(), k4_m64]),
         "ms": k4_step["ms"],
         "plain_ms": k4_step["plain_ms"],
+        "bound_ms": k4_step["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes an int4 group-quantized matmul",
         "ms_is": "per 8B decode step at batch 2, cold L2: 32 x (2 wq_wo + 2 wk_wv "
                  "+ 2 gate_up + down) + lm_head",
         "shapes": [*k4_shapes.values(), k4_m64],
@@ -503,7 +954,45 @@ def main() -> int:
         "end_to_end_cosine": cos4,
         "end_to_end_argmax_agrees": same_argmax4,
         "peak_memory_gib": peak,
-    }]}
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "leopard_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "leopard_tpu/ops/pallas/flash_attention.py:443",
+        "launches": train_run["launches"]["flash_attention_bwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
+        "ms": total(per_train_step, "ms"),
+        "plain_ms": total(per_train_step, "plain_ms"),
+        "bound_ms": total(per_train_step, "bound_ms"),
+        "bound_by": bound_by(per_train_step),
+        "library_ms": total(per_train_step, "library_ms"),
+        "library": "backward of F.scaled_dot_product_attention at the same shapes, unsegmented",
+        "ms_is": f"per train step: {tcfg.text.num_layers} x decoder + "
+                 f"{tcfg.vision.num_layers} x tower",
+        "shapes": list(k2.values()),
+        "card": card,
+        "train": train_run,
+        "train_grads_vs_dense": grads_check,
+    }, *[{
+        "name": name,
+        "route": "triton",
+        "source": "leopard_tpu_torch/ops/fused_norms.py",
+        "replaces": f"leopard_tpu/ops/pallas/norms.py:{line}",
+        "launches": train_run["launches"][name],
+        "launches_per_generate": timings["launches"][name],
+        "max_abs_err": k3[kind]["max_abs_err"],
+        "ms": k3[kind]["ms"],
+        "plain_ms": k3[kind]["plain_ms"],
+        "bound_ms": k3[kind]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": k3[kind]["library_ms"],
+        "library": library,
+        "ms_is": f"per call at {k3[kind]['shape']}",
+        "card": card,
+    } for name, kind, line, library in (
+        ("fused_rms_norm", "rms", 54, "F.rms_norm"),
+        ("fused_layer_norm", "ln", 88, "F.layer_norm"))]]}
+    print(smi.splitlines()[0], flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

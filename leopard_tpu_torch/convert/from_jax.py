@@ -1,4 +1,4 @@
-"""JAX parameter tree → state dict of the port's modules.
+"""JAX parameter tree → state dict of the port's modules, and back.
 
 The JAX package stacks every layer's weights on a leading axis and keeps
 weight matrices [in, out]; the port has one module per layer and keeps them
@@ -15,6 +15,10 @@ same way:
     model = LeopardVLM(cfg, device="meta")
     quantize_tree(model.text, mode="int4")      # the structure only
     model.load_state_dict(state_dict_from_jax(params, cfg), strict=True, assign=True)
+
+`jax_tree_from_state_dict` is the inverse for unquantized trees: it re-stacks
+the layers and transposes the matrices back, so that the port's params or
+gradients can be held against the JAX tree leaf by leaf.
 """
 
 from __future__ import annotations
@@ -70,3 +74,31 @@ def state_dict_from_jax(params: Mapping[str, Any], cfg: VLMConfig) -> Dict[str, 
 
     walk(params, ())
     return out
+
+
+def jax_tree_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """{dotted name: tensor} in the port's layout → the JAX tree as nested
+    dicts of fp32 numpy arrays: `layers.{i}` leaves stacked on a leading axis,
+    matrix leaves transposed to [in, out]."""
+    stacks: Dict[tuple, Dict[int, np.ndarray]] = {}
+    tree: Dict[str, Any] = {}
+
+    def put(path, a):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = a
+
+    for name, t in state.items():
+        path = tuple(name.split("."))
+        a = np.array(t.detach().to("cpu", torch.float32))  # a copy: the state moves on
+        if path[-1] in LINEAR_LEAVES:
+            a = a.T
+        if "layers" in path:
+            at = path.index("layers") + 1
+            stacks.setdefault(path[:at] + path[at + 1:], {})[int(path[at])] = a
+        else:
+            put(path, a)
+    for path, by_layer in stacks.items():
+        put(path, np.stack([by_layer[i] for i in range(len(by_layer))]))
+    return tree

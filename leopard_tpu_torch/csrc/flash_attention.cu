@@ -20,7 +20,16 @@
 //     0, and the denominator is max(l, 1e-30): a fully-masked row (a padding
 //     query) comes out 0, never NaN, so its k/v can never poison valid rows;
 //   - P is rounded to bf16 before the PV product, as the TPU kernel rounds it
-//     to V's dtype; both products accumulate in fp32.
+//     to V's dtype; both products accumulate in fp32;
+//   - for training, a non-null lse pointer also receives each row's
+//     logsumexp of the scaled, masked scores, m + log(max(l, 1e-30)), as a
+//     compact [B, Hq, Sq] fp32 array (the TPU kernel keeps a 128-lane replica
+//     of it, flash_attention.py:52-58); a fully-masked row gets about -1e30,
+//     which the backward (flash_attention_bwd.cu) never exponentiates
+//     unmasked. Serving passes null and writes nothing more.
+//
+// The helpers, the pair mask and the tile-skip predicate live in
+// flash_common.cuh, shared with the backward.
 //
 // What bounds it on the H100: both products run on the tensor cores with
 // mma.sync.m16n8k16 (bf16 in, fp32 accumulate), the pre-Hopper warp-level
@@ -43,27 +52,25 @@
 // launch first raises cudaFuncAttributeMaxDynamicSharedMemorySize, and the
 // entry point returns cudaGetLastError() so that a refused launch is seen.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace leopard_flash;
 
 constexpr int BM = 64;   // q rows per block (4 warps x 16)
 constexpr int BN = 64;   // kv rows per tile
 constexpr int NT = 128;  // threads
-constexpr float kNegInf = -1e30f;
-
-typedef __nv_bfloat16 bf16;
 
 struct Params {
   const bf16* q;
   const bf16* k;
   const bf16* v;
   bf16* o;
+  float* lse;  // [B, Hq, Sq] or null
   const int* q_seg;
   const int* kv_seg;
-  int Sq, Skv, group;
+  int Sq, Skv, Hq, group;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -84,38 +91,6 @@ struct Tile {
   static constexpr size_t smem =
       sizeof(bf16) * (BM * LDQ + BN * LDK + DP * LDV) + sizeof(int) * (BM + BN);
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Copy 8 consecutive head-dim elements of one row (dims c8..c8+7) into dst,
-// zero past D and for rows outside the tensor.
-template <int D>
-__device__ __forceinline__ void load8(bf16 (&dst)[8], const bf16* row, int c8, bool in, int vec) {
-  if (in && c8 + 8 <= D && vec) {
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(row + c8);
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    dst[i] = (in && c8 + i < D) ? row[c8 + i] : __float2bfloat16(0.f);
-}
 
 template <int D>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
@@ -184,7 +159,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   for (int n = 0; n < ON; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   // kv tiles this q tile can see: causal stops after the diagonal, the
-  // sliding window starts at the first tile inside the band
+  // sliding window starts at the first tile inside the band. These are
+  // exactly the tiles for which tile_runs(q0, BM, k0, BN, ...) holds, the
+  // predicate the backward kernels skip by.
   int kv_end = p.Skv;
   if (p.causal) kv_end = min(kv_end, q0 + BM);
   int kv_begin = 0;
@@ -240,12 +217,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
       for (int e = 0; e < 4; ++e) {
         const int r = e / 2;
         const int j = n * 8 + t * 2 + (e % 2);
-        const int kj = k0 + j;
-        bool ok = kj < p.Skv;
-        if (has_seg) ok = ok && qs[r] != 0 && qs[r] == kseg_s[j];
-        if (p.causal) ok = ok && qi[r] >= kj;
-        if (p.window > 0) ok = ok && qi[r] - kj < p.window;
-        s[n][e] = ok ? s[n][e] * p.scale : kNegInf;  // no real score is that low
+        const bool ok = attends<false>(qi[r], k0 + j, p.Sq, p.Skv, has_seg, qs[r],
+                                       has_seg ? kseg_s[j] : 1, p.causal, p.window);
+        s[n][e] = ok ? s[n][e] * p.scale : kNegInf;
         mt[r] = fmaxf(mt[r], s[n][e]);
       }
     }
@@ -300,6 +274,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (qi[r] >= p.Sq) continue;
+    if (p.lse != nullptr && t == 0)  // the 4 threads of a row hold the same m, l
+      p.lse[((long long)b * p.Hq + h) * p.Sq + qi[r]] = m[r] + logf(fmaxf(l[r], 1e-30f));
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     bf16* orow = og + (long long)qi[r] * p.o_ss;
 #pragma unroll
@@ -327,13 +303,15 @@ cudaError_t launch(const Params& p, int B, int Hq, cudaStream_t stream) {
 extern "C" {
 
 // bf16 tensors; strides (in elements) holds 14 values: q (b, s, h),
-// k (b, s, h), v (b, s, h), o (b, s, h), q_seg b, kv_seg b. Returns 0 or a
-// cudaError_t code (cudaErrorInvalidValue for an unsupported head dim or
+// k (b, s, h), v (b, s, h), o (b, s, h), q_seg b, kv_seg b. lse is null
+// (serving) or a contiguous [B, Hq, Sq] fp32 array (training). Returns 0 or
+// a cudaError_t code (cudaErrorInvalidValue for an unsupported head dim or
 // head grouping).
 int leopard_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                const int* q_seg, const int* kv_seg, int B, int Sq,
-                                int Skv, int Hq, int Hkv, int D, const long long* strides,
-                                float scale, int causal, int window, void* stream) {
+                                float* lse, const int* q_seg, const int* kv_seg, int B,
+                                int Sq, int Skv, int Hq, int Hkv, int D,
+                                const long long* strides, float scale, int causal, int window,
+                                void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
   if ((q_seg == nullptr) != (kv_seg == nullptr)) return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0 || Hq == 0) return cudaSuccess;
@@ -342,10 +320,12 @@ int leopard_flash_attention_fwd(const void* q, const void* k, const void* v, voi
   p.k = static_cast<const bf16*>(k);
   p.v = static_cast<const bf16*>(v);
   p.o = static_cast<bf16*>(o);
+  p.lse = lse;
   p.q_seg = q_seg;
   p.kv_seg = kv_seg;
   p.Sq = Sq;
   p.Skv = Skv;
+  p.Hq = Hq;
   p.group = Hq / Hkv;
   p.q_sb = strides[0];
   p.q_ss = strides[1];

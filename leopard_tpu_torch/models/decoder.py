@@ -17,6 +17,14 @@ function). `attn_impl="dense"` and `"flash"` force a tier. Not in this slice
 (they raise): MoE, tied embeddings, the chunked continuation tier; context
 parallelism is not ported either.
 
+Training (JAX decoder.py:435-634 with `return_hidden` and `remat`): packed
+rows carry multi-valued segment ids and positions that restart in each
+segment; the flash tier masks by segment (K1 forward, K2 backward through
+autograd), and `remat="full"` recomputes each layer in the backward.
+`return_hidden=True` returns the final-normed hidden states for the
+trainer's chunked cross-entropy, which reads the live `lm_head`, never the
+serving fp32 copy.
+
 Quantized serving (JAX decoder.py:131-178, 302-322, 391-394): the seven
 projections and `lm_head` go through `ops/quant.py::matmul`, so a weight that
 `quantize_tree` replaced by a QuantizedWeight runs int8 or int4 (K4 at decode
@@ -40,6 +48,7 @@ from leopard_tpu_torch.ops.attention import attention, attention_quant_kv, make_
 from leopard_tpu_torch.ops.flash_attention import flash_attention
 from leopard_tpu_torch.ops.norms import rms_norm
 from leopard_tpu_torch.ops.quant import is_quantized, matmul
+from leopard_tpu_torch.ops.remat import remat_wrap
 from leopard_tpu_torch.ops.rotary import apply_rope, compute_inv_freq, rope_cos_sin
 
 
@@ -195,14 +204,18 @@ class Decoder(nn.Module):
         weights. Logits are fp32 as in the JAX package, where the bf16 head
         is promoted inside the fp32 product; without the copy each call
         would cast the whole [vocab, hidden] table (2.1 GB at 8B) anew. A
-        quantized head keeps no copy: it goes through quant.matmul."""
+        quantized head keeps no copy: it goes through quant.matmul. The copy
+        serves only calls without autograd: a call that records gradients
+        reads the live head."""
         if not is_quantized(self.lm_head):
             self._head_f32 = self.lm_head.detach().float()
 
     def _head(self):
         if is_quantized(self.lm_head):
             return self.lm_head
-        return self._head_f32 if self._head_f32 is not None else self.lm_head.float()
+        if self._head_f32 is not None and not torch.is_grad_enabled():
+            return self._head_f32
+        return self.lm_head.float()
 
     def _attn_impl(self, s: int, cache: Optional[KVCache], fresh_cache: bool) -> str:
         cfg = self.cfg
@@ -225,22 +238,30 @@ class Decoder(nn.Module):
         tokens: Optional[torch.Tensor] = None,        # [B, S] int
         *,
         input_embeds: Optional[torch.Tensor] = None,  # [B, S, H] overrides tokens
+        positions: Optional[torch.Tensor] = None,     # [B, S] int
         segment_ids: Optional[torch.Tensor] = None,   # [B, S]; 0 = padding
         cache: Optional[KVCache] = None,
+        return_hidden: bool = False,
+        remat=False,                                  # "none" | "full" (ops/remat.py)
         logits_indices: Optional[torch.Tensor] = None,  # [B]: only these positions
         fresh_cache: bool = False,
     ):
         """Returns (logits [B, S, V] fp32, or [B, 1, V] with logits_indices,
-        and the cache, updated in place, or None). `fresh_cache=True` says
-        the cache is just created and empty: the tokens are then the whole
-        history, and attention runs over them through the uncached tiers
-        while the cache is still written for decode."""
+        and the cache, updated in place, or None); with `return_hidden`, the
+        final-normed hidden states [B, S, H] in place of the logits.
+        `fresh_cache=True` says the cache is just created and empty: the
+        tokens are then the whole history, and attention runs over them
+        through the uncached tiers while the cache is still written for
+        decode. `positions` default to the slot order (training passes
+        positions that restart in each packed segment); `remat` applies to
+        the uncached layer loop only, as in the JAX package."""
         cfg = self.cfg
         x = self.embed_tokens[tokens] if input_embeds is None else input_embeds
         b, s, _ = x.shape
         dev = x.device
-        base = cache.index[:, None] if cache is not None else 0
-        positions = (base + torch.arange(s, device=dev)[None, :]).expand(b, s)
+        if positions is None:
+            base = cache.index[:, None] if cache is not None else 0
+            positions = (base + torch.arange(s, device=dev)[None, :]).expand(b, s)
         cos, sin = rope_cos_sin(positions, self._rope_inv_freq(dev))
         attn_impl = self._attn_impl(s, cache, fresh_cache)
 
@@ -268,7 +289,8 @@ class Decoder(nn.Module):
             )
 
         for i, layer in enumerate(self.layers):
-            x = layer(
+            run = layer if cache is not None else remat_wrap(layer, remat)
+            x = run(
                 x, cfg, cos, sin, attn_impl=attn_impl, mask=mask,
                 segment_ids=segment_ids, cache=cache, layer_idx=i, slots=slots,
                 fresh_cache=fresh_cache,
@@ -277,6 +299,8 @@ class Decoder(nn.Module):
             cache.index = cache.index + (segment_ids != 0).sum(dim=1, dtype=torch.int32)
 
         x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
+        if return_hidden:
+            return x, cache
         if logits_indices is not None:
             x = x.gather(1, logits_indices.long()[:, None, None].expand(b, 1, x.shape[-1]))
         # fp32 logits: an int4 head at M ≤ 64 on the card takes K4, which

@@ -3,7 +3,9 @@
 Pre-LN layers with qkv bias, GELU-tanh MLP and a post-LN over the sequence;
 the patchify conv is an unfold-matmul. Attention on a CUDA tensor goes
 through the flash kernel, which masks the ragged 676-patch tail itself, so
-the sequence is not padded to a block multiple as on the TPU.
+the sequence is not padded to a block multiple as on the TPU. In training
+the kernel's backward (K2) runs at head dim 72, and `remat="full"`
+recomputes each layer in the backward.
 
 Not in this slice: NaViT patch masks and position ids (the Idefics2 slice)
 and the CLIP tower's options (class token, pre-LN, bias-free patchify,
@@ -21,6 +23,7 @@ from leopard_tpu_torch.models.params import Params, new_param, torch_dtype
 from leopard_tpu_torch.ops.attention import attention
 from leopard_tpu_torch.ops.flash_attention import flash_attention
 from leopard_tpu_torch.ops.norms import layer_norm
+from leopard_tpu_torch.ops.remat import remat_wrap
 
 
 def patchify(pixel_values: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -81,9 +84,9 @@ class SiglipVisionTower(nn.Module):
         )
         self.post_ln = Params({"scale": (h,), "bias": (h,)}, dtype=dt, device=device)
 
-    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+    def forward(self, pixel_values: torch.Tensor, remat=False) -> torch.Tensor:
         """pixel_values [B, 3, H, W] → [B, num_patches, hidden] post-LN
-        features."""
+        features. `remat`: "none" | "full" per layer (ops/remat.py)."""
         cfg = self.cfg
         x = patchify(pixel_values.to(self.pos_embed.dtype), cfg.patch_size)
         x = F.linear(x, self.patch_embed.kernel, self.patch_embed.bias)
@@ -98,5 +101,5 @@ class SiglipVisionTower(nn.Module):
         if cfg.feature_layer != -1:  # stop early (LLaVA feature select, e.g. -2)
             n_layers = cfg.num_layers + 1 + cfg.feature_layer
         for layer in self.layers[:n_layers]:
-            x = layer(x, cfg, impl)
+            x = remat_wrap(layer, remat)(x, cfg, impl)
         return layer_norm(x, self.post_ln.scale, self.post_ln.bias, cfg.layer_norm_eps)

@@ -58,7 +58,7 @@ class LeopardVLM(nn.Module):
         self.projector = Projector(cfg.projector, device=device)
         self.text = Decoder(cfg.text, device=device)
 
-    def encode_images(self, pixel_values: torch.Tensor) -> torch.Tensor:
+    def encode_images(self, pixel_values: torch.Tensor, remat=False) -> torch.Tensor:
         """pixel_values [N, 3, H, W] float, or [N, H, W, 3] uint8 →
         [N, tokens_per_tile, text_hidden]."""
         cfg = self.cfg
@@ -66,7 +66,7 @@ class LeopardVLM(nn.Module):
             pixel_values = normalize_uint8_nhwc(
                 pixel_values, cfg.anyres.image_mean, cfg.anyres.image_std
             )
-        feats = self.vision(pixel_values)
+        feats = self.vision(pixel_values, remat=remat)
         if cfg.pixel_shuffle_factor > 1:
             feats = pixel_shuffle(feats, cfg.pixel_shuffle_factor)
         return self.projector(feats)
@@ -80,18 +80,26 @@ class LeopardVLM(nn.Module):
         image_features: Optional[torch.Tensor] = None,  # precomputed encode_images
         logits_indices: Optional[torch.Tensor] = None,
         fresh_cache: bool = False,
+        positions: Optional[torch.Tensor] = None,       # [B, S]; default: slot order
+        return_hidden: bool = False,
+        remat=False,                                    # "none" | "full"
+        remat_vision=None,                              # None: same as remat
     ):
-        """Returns (logits [B, S, V] fp32, the cache or None)."""
+        """Returns (logits [B, S, V] fp32, the cache or None); with
+        `return_hidden`, the decoder's final-normed hidden states in place of
+        the logits (JAX vlm.py:105-168)."""
         embeds = F.embedding(tokens.clamp(min=0), self.text.embed_tokens)
         if image_features is None and images is not None:
-            image_features = self.encode_images(images)
+            image_features = self.encode_images(
+                images, remat=remat if remat_vision is None else remat_vision)
         if image_features is not None:
             embeds = splice_image_features(
                 embeds, image_features, tokens == self.cfg.image_token_id
             )
         return self.text(
-            input_embeds=embeds, segment_ids=segment_ids, cache=cache,
-            logits_indices=logits_indices, fresh_cache=fresh_cache,
+            input_embeds=embeds, positions=positions, segment_ids=segment_ids, cache=cache,
+            return_hidden=return_hidden, remat=remat, logits_indices=logits_indices,
+            fresh_cache=fresh_cache,
         )
 
 

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface, so it compiles in seconds
 without PyTorch's headers. The shared library goes into `build/` at the root
-of the checkout, named after a hash of its source, so an edited source is
-rebuilt and an unchanged one is loaded as it is. Nothing is built when the
+of the checkout, named after a hash of its source and of the headers in
+`csrc/` (`*.cuh`), so an edited source or header is rebuilt and an unchanged
+one is loaded as it is. Nothing is built when the
 module is imported: the first call to `load_library` builds.
 """
 
@@ -39,9 +40,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for src in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(name: str, verbose: bool = False) -> Path:

@@ -54,10 +54,15 @@ def compute_inv_freq(cfg: TextConfig) -> np.ndarray:
 
 def rope_cos_sin(positions: torch.Tensor, inv_freq: torch.Tensor):
     """positions [..., S] int → cos, sin [..., S, head_dim] float32, the
-    half-dim angle table concatenated with itself (HF layout)."""
+    half-dim angle table concatenated with itself (HF layout).
+
+    The angles are fp32 products, as the JAX package forms them; cos and sin
+    are taken in float64 and rounded once, so the tables are the correctly
+    rounded values of those angles whatever the host's fp32 range reduction
+    does at |angle| up to ~10^5."""
     angles = positions[..., None].float() * inv_freq  # [..., S, D/2]
-    angles = torch.cat([angles, angles], dim=-1)
-    return torch.cos(angles), torch.sin(angles)
+    angles = torch.cat([angles, angles], dim=-1).double()
+    return torch.cos(angles).float(), torch.sin(angles).float()
 
 
 def rotate_half(x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""The port never imports JAX, and chip_smoke.py refuses to run without a
-GPU. Each check runs in a fresh interpreter, since this test process has
-JAX loaded already."""
+"""The port never imports JAX nor any module of the JAX package (not even
+one that imports no JAX), and chip_smoke.py refuses to run without a GPU.
+Each check runs in a fresh interpreter, since this test process has JAX
+loaded already."""
 
 import os
 import subprocess
@@ -19,6 +20,8 @@ for name in names:
     importlib.import_module(name)
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not jax_mods, jax_mods
+jax_pkg = sorted(m for m in sys.modules if m == "leopard_tpu" or m.startswith("leopard_tpu."))
+assert not jax_pkg, jax_pkg
 print(len(names))
 """
 

@@ -50,6 +50,16 @@ def test_layer_norm(shape):
     _close(got, want)
 
 
+def _range_reduction_tol(angles: np.ndarray) -> np.ndarray:
+    """How far an fp32 cos/sin of the fp32 angle x may be from the exact
+    value: a libm finds it by reducing x by k·π/2, and a reduction carried in
+    fp32 arithmetic may err by one rounding of a product of size |x|,
+    |x|·2^-24 (1.2e-3 at |x| = 2·10^4, 5e-6 below |x| = 64), on top of 1e-6
+    for the result's own rounding. Two hosts' libms may each use that room,
+    so a fixed 1e-5 between two tables depends on the host at large angles."""
+    return 1e-6 + np.abs(angles) * 2.0**-24
+
+
 @pytest.mark.parametrize("text_cfg", [
     cfgs.llama3_1_8b(),
     cfgs.mistral_7b(),
@@ -66,8 +76,16 @@ def test_rope(text_cfg):
     x = rng.randn(2, 9, 3, d).astype(np.float32)
     cos_j, sin_j = jrot.rope_cos_sin(jnp.asarray(pos), jnp.asarray(inv_j))
     cos_t, sin_t = trot.rope_cos_sin(torch.from_numpy(pos), torch.from_numpy(inv_t))
-    _close(cos_t, cos_j)
-    _close(sin_t, sin_j)
+    # the float64 oracle, from the same fp32 angles both packages form
+    angles = pos.astype(np.float32)[..., None] * inv_j
+    angles = np.concatenate([angles, angles], axis=-1)
+    tol = _range_reduction_tol(angles)
+    for name, table, oracle in (("cos", (cos_t, cos_j), np.cos(angles.astype(np.float64))),
+                                ("sin", (sin_t, sin_j), np.sin(angles.astype(np.float64)))):
+        port, jax_table = table[0].numpy(), np.asarray(table[1])
+        assert np.all(np.abs(port - oracle) <= tol), f"port {name} vs float64"
+        assert np.all(np.abs(jax_table - oracle) <= tol), f"JAX {name} vs float64"
+        assert np.all(np.abs(port - jax_table) <= 2 * tol), f"port vs JAX {name}"
     # rotation itself, on the same tables
     got = trot.apply_rope(torch.from_numpy(x), torch.tensor(np.asarray(cos_j)),
                           torch.tensor(np.asarray(sin_j)))
