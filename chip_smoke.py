@@ -11,8 +11,11 @@ script exits non-zero without printing a result:
      Triton norms (K3a/K3b) compile at their first launch, in phase 3;
   3. each kernel against its plain version, with its time, the plain
      version's, the time of one PyTorch call computing the same function
-     where there is one, and the card's bound for the work: K1 in bf16 at
-     the serving path's shapes (vision tower and decoder prefill); K2 at the
+     where there is one, and the card's bound for the work (for K1 and K2
+     also their TF/s over attended pairs, the fraction of the bound, and
+     SDPA over the attended rows or segments alone, since the unsegmented
+     SDPA call does up to 2x the work of a kernel that skips tiles): K1 in
+     bf16 at the serving path's shapes (vision tower and decoder prefill); K2 at the
      train path's shapes (the decoder's packed two-segment rows with a
      padding tail, the tower's 16 tiles at head dim 72); K3a/K3b at the
      train path's rows, (8192, 4096) RMSNorm and (16·676, 1152) LayerNorm,
@@ -21,8 +24,8 @@ script exits non-zero without printing a result:
      kernel's GB/s on the packed bytes;
   4. serving at 8B: Engine.generate on Leopard-LLaVA-8B with seeded random
      weights, 2 requests of 16 uint8 364×364 tiles each, 16 greedy tokens;
-     K1's and K3's launch counts, repeatability, TTFT, prefill tok/s and
-     decode ms/step;
+     K1's and K3's launch counts, no K1 input copied (TMA reads every
+     input in place), repeatability, TTFT, prefill tok/s and decode ms/step;
   5. the K1 path against the dense path end to end (one request);
   6. int4 serving at 8B: Engine(quantize="int4") on the same model and
      requests; K1 and K4 launch counts, repeatability, TTFT, decode ms/step;
@@ -39,7 +42,8 @@ script exits non-zero without printing a result:
      group), then 3 steps of `train()` (full recompute, chunked
      cross-entropy, AdamW with warmup from 0): loss and grad norm finite,
      params unchanged by step 1 (lr 0) and changed by steps 2-3, the K1, K2
-     and K3 launch counts of every step against the layer counts, step ms,
+     and K3 launch counts of every step against the layer counts, no K1/K2
+     input copied, step ms,
      tokens/s and peak memory;
  11. no JAX was imported.
 Each engine is freed after its phase, with the phase's peak device memory
@@ -50,6 +54,7 @@ JSON line with every kernel ({"kernels": [...]}) and, last, the JSON line
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import dataclasses
 import itertools
@@ -94,6 +99,23 @@ TRAIN_SEQ = 4096
 TRAIN_ROWS = ((2100, 1900), (1700, 2300))  # sample lengths; the rest is padding
 TRAIN_TILES_PER_SAMPLE = 4
 TRAIN_STEPS = 3
+# phase 3's K1 shapes: the vision tower at 16 and 32 tiles and the decoder
+# prefill of two right-padded rows; rows: each row's segment lengths or None
+K1_SHAPES = {
+    "vision_b16": dict(b=16, s=676, hq=16, hkv=16, d=72, causal=False, rows=None),
+    "vision_b32": dict(b=32, s=676, hq=16, hkv=16, d=72, causal=False, rows=None),
+    "decoder": dict(b=2, s=4096, hq=32, hkv=8, d=128, causal=True, rows=((4096,), (2900,))),
+}
+
+
+def k2_shapes(text, vis):
+    """Phase 3's K2 shapes from the model's text and vision configs: the
+    train phase's packed decoder rows and its tower tiles."""
+    n_tiles = sum(len(row) for row in TRAIN_ROWS) * TRAIN_TILES_PER_SAMPLE
+    return {"decoder": dict(b=len(TRAIN_ROWS), s=TRAIN_SEQ, hq=text.num_heads,
+                            hkv=text.num_kv_heads, d=text.head_dim, causal=True, rows=TRAIN_ROWS),
+            "tower": dict(b=n_tiles, s=vis.tokens_per_tile, hq=vis.num_heads, hkv=vis.num_heads,
+                          d=vis.head_dim, causal=False, rows=None)}
 
 
 def cuda_ms(fn, flush=None) -> float:
@@ -155,39 +177,85 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def sdpa_ms(b, s, hq, hkv, d, causal, device, backward):
-    """The yardstick: one F.scaled_dot_product_attention call (forward, or
-    its backward) at the unsegmented shape. The port never calls it."""
+def sdpa_ms(lengths, hq, hkv, d, causal, device, backward):
+    """The yardstick: F.scaled_dot_product_attention (forward, or its
+    backward) over sequences of the given lengths, one call per distinct
+    length with the sequences of that length as its batch, all timed
+    together. [s] * b is the unsegmented call at the kernel's shape; the
+    valid rows' or packed segments' lengths give the attended work alone,
+    which a kernel that skips tiles should be held to. The port never
+    calls it."""
     import torch
     import torch.nn.functional as F
 
     g = torch.Generator(device=device).manual_seed(SEED)
-    q, k, v = (torch.randn((b, h, s, d), generator=g, device=device, dtype=torch.bfloat16)
-               for h in (hq, hkv, hkv))
     kw = dict(is_causal=causal, enable_gqa=hq != hkv)
+    calls = []
+    for s, b in sorted(collections.Counter(lengths).items()):
+        q, k, v = (torch.randn((b, h, s, d), generator=g, device=device, dtype=torch.bfloat16)
+                   for h in (hq, hkv, hkv))
+        if not backward:
+            calls.append((q, k, v))
+            continue
+        leaves = [t.requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, **kw)
+        calls.append((out, leaves, torch.randn_like(out)))
     if not backward:
+        def run():
+            for q, k, v in calls:
+                F.scaled_dot_product_attention(q, k, v, **kw)
         with torch.no_grad():
-            return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, **kw))
-    leaves = [t.requires_grad_() for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, **kw)
-    dout = torch.randn_like(out)
-    return cuda_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True))
+            return cuda_ms(run)
+
+    def run_backward():
+        for out, leaves, dout in calls:
+            torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    return cuda_ms(run_backward)
 
 
-def kernel_vs_plain(name, b, s, hq, hkv, d, causal, lengths, device, card):
+def ranges_ms(seg, s, causal) -> float:
+    """Host time of one tile_ranges call on segment ids [B, S], device work
+    included (median of 10, each ending in a synchronize). The decoder
+    computes it once per forward and passes it to every layer, and the
+    kernels are timed that way; this is the cost of a call that does not."""
+    from leopard_tpu_torch.ops.flash_attention import tile_ranges
+
+    if seg is None:
+        return 0.0
+    return wall_s(lambda: tile_ranges(seg, seg, sq=s, skv=s, causal=causal,
+                                      device=seg.device), reps=10) * 1e3
+
+
+def achieved(pairs, heads, d, products, ms, bound_ms):
+    """TF/s of useful work (attended pairs only) and the fraction of the
+    card's bound that the time reaches."""
+    return {"tflops": products * 2 * d * pairs * heads / (ms * 1e-3) / 1e12,
+            "bound_fraction": bound_ms / ms}
+
+
+def attn_inputs(b, s, hq, hkv, d, rows, device):
+    """Seeded bf16 q, k, v, dout of one phase-3 shape, and its segment ids
+    (None without rows); dout is 0 on padding rows, as no loss reads them."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+    q, k, v, dout = (torch.randn((b, s, h, d), generator=g, device=device, dtype=torch.bfloat16)
+                     for h in (hq, hkv, hkv, hq))
+    seg = None
+    if rows is not None:
+        seg = segments_of(rows, s, device)
+        dout = dout * (seg != 0)[:, :, None, None].to(dout.dtype)
+    return q, k, v, dout, seg
+
+
+def kernel_vs_plain(name, b, s, hq, hkv, d, causal, rows, device, card):
     """Phase 3 for one shape: max abs error over valid rows, both times."""
     import torch
 
-    from leopard_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+    from leopard_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_ref,
+                                                       tile_ranges)
 
-    g = torch.Generator(device=device).manual_seed(SEED)
-    q = torch.randn((b, s, hq, d), generator=g, device=device, dtype=torch.bfloat16)
-    k = torch.randn((b, s, hkv, d), generator=g, device=device, dtype=torch.bfloat16)
-    v = torch.randn((b, s, hkv, d), generator=g, device=device, dtype=torch.bfloat16)
-    seg = None
-    if lengths is not None:
-        seg = (torch.arange(s, device=device)[None]
-               < torch.tensor(lengths, device=device)[:, None]).to(torch.int32)
+    q, k, v, _, seg = attn_inputs(b, s, hq, hkv, d, rows, device)
     kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
     got = flash_attention(q, k, v, **kw)
     want = flash_attention_ref(q, k, v, **kw)
@@ -198,20 +266,31 @@ def kernel_vs_plain(name, b, s, hq, hkv, d, causal, lengths, device, card):
     err = (got[valid].float() - want[valid].float()).abs().max().item()
     torch.testing.assert_close(got[valid].float(), want[valid].float(), **KERNEL_TOL)
     del want
-    ms = cuda_ms(lambda: flash_attention(q, k, v, **kw))
+    ranges = tile_ranges(seg, seg, sq=s, skv=s, causal=causal, device=device)
+    ms = cuda_ms(lambda: flash_attention(q, k, v, ranges=ranges, **kw))  # as the decoder
     plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw))
+    lone_ranges_ms = ranges_ms(seg, s, causal)
     n_bytes = nbytes(q, k, v, seg, seg, got)
     del q, k, v
-    library_ms = sdpa_ms(b, s, hq, hkv, d, causal, device, backward=False)
-    pairs = attended_pairs([[n] for n in lengths] if lengths else [[s]] * b, causal)
+    segs = rows if rows is not None else [[s]] * b
+    library_ms = sdpa_ms([s] * b, hq, hkv, d, causal, device, backward=False)
+    attended_ms = sdpa_ms([n for row in segs for n in row], hq, hkv, d, causal, device,
+                          backward=False)
+    pairs = attended_pairs(segs, causal)
     bound_ms, bound_by = attn_bound_ms(pairs, hq, d, 2, n_bytes)
+    rate = achieved(pairs, hq, d, 2, ms, bound_ms)
     shape = (f"B={b} S={s} heads={hq}/{hkv} D={d} {'causal' if causal else 'non-causal'}"
-             + (f" lengths={list(lengths)}" if lengths else ""))
+             + (f" lengths={[n for row in rows for n in row]}" if rows else ""))
     print(f"kernel {name}: {shape}: max_abs_err={err:.6g} (tol {KERNEL_TOL}) "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms [{card}]", flush=True)
+          f"kernel {ms:.4f} ms ({rate['tflops']:.1f} TF/s attended, "
+          f"{rate['bound_fraction']:.3f} of the bound), plain {plain_ms:.4f} ms, sdpa "
+          f"{library_ms:.4f} ms (unsegmented), {attended_ms:.4f} ms (attended rows only), "
+          f"bound {bound_ms:.4f} ms; tile ranges of a lone call {lone_ranges_ms:.4f} ms "
+          f"(host) [{card}]", flush=True)
     return {"shape": f"{name}: {shape}", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            "library_ms": library_ms, "library_attended_ms": attended_ms,
+            "tile_ranges_ms": lone_ranges_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, **rate}
 
 
 def segments_of(rows, s, device):
@@ -236,15 +315,7 @@ def flash_bwd_vs_plain(name, b, s, hq, hkv, d, causal, rows, device, card):
 
     from leopard_tpu_torch.ops import flash_attention as fa
 
-    g = torch.Generator(device=device).manual_seed(SEED)
-    q = torch.randn((b, s, hq, d), generator=g, device=device, dtype=torch.bfloat16)
-    k = torch.randn((b, s, hkv, d), generator=g, device=device, dtype=torch.bfloat16)
-    v = torch.randn((b, s, hkv, d), generator=g, device=device, dtype=torch.bfloat16)
-    dout = torch.randn((b, s, hq, d), generator=g, device=device, dtype=torch.bfloat16)
-    seg = None
-    if rows is not None:
-        seg = segments_of(rows, s, device)
-        dout = dout * (seg != 0)[:, :, None, None].to(dout.dtype)  # no loss reads padding rows
+    q, k, v, dout, seg = attn_inputs(b, s, hq, hkv, d, rows, device)
     kw = dict(causal=causal)
     out, lse = fa._launch(q, k, v, q_segment_ids=seg, kv_segment_ids=seg, with_lse=True,
                           sliding_window=None, **kw)
@@ -261,25 +332,33 @@ def flash_bwd_vs_plain(name, b, s, hq, hkv, d, causal, rows, device, card):
     if not all(torch.equal(a, c) for a, c in zip(got, again)):
         raise AssertionError(f"{name}: K2 does not repeat bit for bit")
     del want, got, again
-    ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, seg, seg, out, lse, dout, **kw))
+    ranges = fa.tile_ranges(seg, seg, sq=s, skv=s, causal=causal, device=device)
+    ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, seg, seg, out, lse, dout,
+                                                ranges=ranges, **kw))  # as a train step
     plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, seg, seg, out, lse, dout, **kw))
     # reads q, k, v, out, dout, lse and the segments; writes dq, dk, dv
     n_bytes = nbytes(q, k, v, out, dout, lse, seg, seg, q, k, v)
     del q, k, v, dout, out, lse
     torch.cuda.empty_cache()
-    library_ms = sdpa_ms(b, s, hq, hkv, d, causal, device, backward=True)
-    pairs = attended_pairs(rows if rows is not None else [[s]] * b, causal)
+    segs = rows if rows is not None else [[s]] * b
+    library_ms = sdpa_ms([s] * b, hq, hkv, d, causal, device, backward=True)
+    attended_ms = sdpa_ms([n for row in segs for n in row], hq, hkv, d, causal, device,
+                          backward=True)
+    pairs = attended_pairs(segs, causal)
     bound_ms, bound_by = attn_bound_ms(pairs, hq, d, 5, n_bytes)
+    rate = achieved(pairs, hq, d, 5, ms, bound_ms)
     shape = (f"B={b} S={s} heads={hq}/{hkv} D={d} {'causal' if causal else 'non-causal'}"
              + (f" packed rows={[list(r) for r in rows]}" if rows else ""))
     print(f"kernel flash_attention_bwd {name}: {shape}: max_abs_err "
           + ", ".join(f"{k_}={e:.6g}" for k_, e in errs.items())
-          + f" (tol {K2_TOL}), repeats bit for bit; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa backward {library_ms:.4f} ms (unsegmented), bound {bound_ms:.4f} ms [{card}]",
-          flush=True)
+          + f" (tol {K2_TOL}), repeats bit for bit; kernel {ms:.4f} ms ({rate['tflops']:.1f} "
+          f"TF/s attended, {rate['bound_fraction']:.3f} of the bound), plain {plain_ms:.4f} ms, "
+          f"sdpa backward {library_ms:.4f} ms (unsegmented), {attended_ms:.4f} ms (attended "
+          f"segments only), bound {bound_ms:.4f} ms [{card}]", flush=True)
     return {"shape": f"{name}: {shape}", "max_abs_err": max(errs.values()), "errs": errs,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_attended_ms": attended_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            **rate}
 
 
 def norm_vs_plain(kind, rows, h, device, card, flush):
@@ -381,12 +460,17 @@ def serve(engine, cfg, prompts, tiles, card, label, k4_per_step=0, runs=2, time_
 
     gen = GenerateConfig(max_new_tokens=MAX_NEW_TOKENS)
     expected = cfg.vision.num_layers + cfg.text.num_layers
-    results = []
+    results, copies = [], 0
     for _ in range(runs):
         for counter in (flash_attention, int4_matmul, fused_rms_norm, fused_layer_norm):
             counter.launches = 0
+        flash_attention.copies = 0
         res = engine.generate(prompts, images=tiles, gen_cfg=gen)
         torch.cuda.synchronize()
+        copies += flash_attention.copies
+        if flash_attention.copies:
+            raise AssertionError(f"{label}: K1/K2 copied {flash_attention.copies} inputs that "
+                                 "TMA could not address; the serving path must make none")
         launches = {"flash_attention": flash_attention.launches,
                     "int4_matmul": int4_matmul.launches,
                     "fused_rms_norm": fused_rms_norm.launches,
@@ -413,13 +497,13 @@ def serve(engine, cfg, prompts, tiles, card, label, k4_per_step=0, runs=2, time_
             if not np.array_equal(a, b):
                 raise AssertionError(f"{label}: generate is not repeatable: {a} vs {b}")
     k4_note = f"; K4: 1 + {k4_per_step} x {steps} decode forwards" if k4_per_step else ""
-    print(f"{label}: {runs} generate call(s), launches each {launches} "
+    print(f"{label}: {runs} generate call(s), K1/K2 input copies {copies}, launches each {launches} "
           f"(K1: {cfg.vision.num_layers} vision + {cfg.text.num_layers} decoder prefill{k4_note}; "
           f"K3a: {2 * cfg.text.num_layers + 1} x (1 + {steps}) forwards; "
           f"K3b: {2 * cfg.vision.num_layers + 1}), "
           f"tokens{' identical' if runs > 1 else ''}: {[t.tolist() for t in results[0].tokens]}",
           flush=True)
-    timings = {"launches": launches, "decode_steps": steps}
+    timings = {"launches": launches, "decode_steps": steps, "copies": copies}
     if not time_reps:
         return timings
 
@@ -706,8 +790,13 @@ def train_phase(model, cfg, batch, card):
 
     for c in counters.values():
         c.launches = 0
+    flash_attention.copies = 0
     state = train(cfg, tcfg, state, step_fn, itertools.repeat(batch))
     torch.cuda.synchronize()
+    copies = flash_attention.copies
+    if copies:
+        raise AssertionError(f"train: K1/K2 copied {flash_attention.copies} inputs that TMA "
+                             "could not address; the training path must make none")
     totals = {k: c.launches for k, c in counters.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     for i, r in enumerate(records, start=1):
@@ -734,11 +823,11 @@ def train_phase(model, cfg, batch, card):
     print(f"train: {TRAIN_STEPS} steps of train(), step 1 left the params unchanged (lr 0); "
           f"steps 2-3 changed tensors per group (changed/total): "
           + ", ".join(f"{g}: {c}/{t}" for g, (c, t) in moved.items())
-          + f"; launches per step {want} (K1 2 x ({lt} + {lv}) layers, K2 {lt} + {lv}, "
+          + f"; K1/K2 input copies {copies}; launches per step {want} (K1 2 x ({lt} + {lv}) layers, K2 {lt} + {lv}, "
           f"K3a 2 x 2 x {lt} + 1, K3b 2 x 2 x {lv} + 1), in all {totals}; step "
           f"{step_ms:.1f} ms (mean of steps 2-{TRAIN_STEPS}), {tokens / step_ms * 1e3:.1f} "
           f"tokens/s, peak device memory {peak_gib:.2f} GiB [{card}]", flush=True)
-    return {"steps": records, "launches": totals, "launches_per_step": want,
+    return {"steps": records, "launches": totals, "launches_per_step": want, "copies": copies,
             "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
             "peak_memory_gib": peak_gib, "params_moved": moved}
 
@@ -785,13 +874,8 @@ def main() -> int:
     print(f"build: {', '.join(KERNELS)} in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # phase 3: kernel against its plain version at the serving path's shapes
-    shapes = {
-        "vision_b16": dict(b=16, s=676, hq=16, hkv=16, d=72, causal=False, lengths=None),
-        "vision_b32": dict(b=32, s=676, hq=16, hkv=16, d=72, causal=False, lengths=None),
-        "decoder": dict(b=2, s=4096, hq=32, hkv=8, d=128, causal=True, lengths=(4096, 2900)),
-    }
     per_shape = {name: kernel_vs_plain(name, device=device, card=card, **kw)
-                 for name, kw in shapes.items()}
+                 for name, kw in K1_SHAPES.items()}
     # 1 GiB > L2; reading it keeps the device busy ~0.3 ms while a launch is queued
     flush = torch.empty(2**30 // 4, dtype=torch.float32, device=device)
     k4_shapes = {name: int4_vs_plain(name, 2, k, n, device, card, flush)
@@ -801,12 +885,8 @@ def main() -> int:
     full = leopard_llava_8b()
     text, vis = full.text, full.vision
     n_tiles = sum(len(row) for row in TRAIN_ROWS) * TRAIN_TILES_PER_SAMPLE
-    k2 = {"decoder": flash_bwd_vs_plain(
-              "decoder", len(TRAIN_ROWS), TRAIN_SEQ, text.num_heads, text.num_kv_heads,
-              text.head_dim, True, TRAIN_ROWS, device, card),
-          "tower": flash_bwd_vs_plain(
-              "tower", n_tiles, vis.tokens_per_tile, vis.num_heads, vis.num_heads,
-              vis.head_dim, False, None, device, card)}
+    k2 = {name: flash_bwd_vs_plain(name, device=device, card=card, **kw)
+          for name, kw in k2_shapes(text, vis).items()}
     k3 = {"rms": norm_vs_plain("rms", len(TRAIN_ROWS) * TRAIN_SEQ, text.hidden_size, device,
                                card, flush),
           "ln": norm_vs_plain("ln", n_tiles * vis.tokens_per_tile, vis.hidden_size, device,
@@ -864,8 +944,8 @@ def main() -> int:
 
     # phase 8: int4 weights and the int8 KV cache
     engine = Engine(cfg, model, quantize="int4", quantize_kv=True)
-    serve(engine, cfg, prompts, tiles, card, "serve int4 + int8 KV", k4_per_step,
-          runs=1, time_reps=0)
+    timings_kv8 = serve(engine, cfg, prompts, tiles, card, "serve int4 + int8 KV", k4_per_step,
+                        runs=1, time_reps=0)
     del engine
     peak["int4_kv8"] = phase_memory("serve int4 + int8 KV")
 
@@ -925,6 +1005,11 @@ def main() -> int:
         "bound_by": bound_by(per_generate),
         "library_ms": total(per_generate, "library_ms"),
         "library": "F.scaled_dot_product_attention forward at the same shapes, unsegmented",
+        "library_attended_ms": total(per_generate, "library_attended_ms"),
+        "library_attended": "the same SDPA forward over the valid rows only",
+        "design": "wgmma+tma",
+        "copies": sum(t["copies"] for t in (timings, timings_int4, timings_kv8, timings_int8)),
+        "copies_is": "flash_attention.copies over every generate call of the serving phases",
         "ms_is": "per generate: 27 x vision_b32 + 32 x decoder",
         "launches_train": train_run["launches"]["flash_attention"],
         "shapes": list(per_shape.values()),
@@ -967,6 +1052,11 @@ def main() -> int:
         "bound_by": bound_by(per_train_step),
         "library_ms": total(per_train_step, "library_ms"),
         "library": "backward of F.scaled_dot_product_attention at the same shapes, unsegmented",
+        "library_attended_ms": total(per_train_step, "library_attended_ms"),
+        "library_attended": "the same SDPA backward over each packed segment alone",
+        "design": "wgmma+tma",
+        "copies": train_run["copies"],
+        "copies_is": "flash_attention.copies (K1 and K2 inputs) over the train() run",
         "ms_is": f"per train step: {tcfg.text.num_layers} x decoder + "
                  f"{tcfg.vision.num_layers} x tower",
         "shapes": list(k2.values()),

@@ -45,7 +45,7 @@ from torch import nn
 from leopard_tpu_torch.config import TextConfig
 from leopard_tpu_torch.models.params import Params, new_param, torch_dtype
 from leopard_tpu_torch.ops.attention import attention, attention_quant_kv, make_attention_mask
-from leopard_tpu_torch.ops.flash_attention import flash_attention
+from leopard_tpu_torch.ops.flash_attention import TileRanges, flash_attention, tile_ranges
 from leopard_tpu_torch.ops.norms import rms_norm
 from leopard_tpu_torch.ops.quant import is_quantized, matmul
 from leopard_tpu_torch.ops.remat import remat_wrap
@@ -122,6 +122,7 @@ class DecoderLayer(nn.Module):
         attn_impl: str,
         mask: Optional[torch.Tensor],
         segment_ids: Optional[torch.Tensor],
+        ranges: Optional[TileRanges],          # the flash kernels' tiles to run
         cache: Optional[KVCache],
         layer_idx: int,
         slots: Optional[torch.Tensor],         # [B, S] cache slots of the new tokens
@@ -160,7 +161,7 @@ class DecoderLayer(nn.Module):
             o = flash_attention(
                 q, k, v, causal=True,
                 q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
-                sliding_window=cfg.sliding_window,
+                sliding_window=cfg.sliding_window, ranges=ranges,
             )
         elif quant_kv is not None:
             o = attention_quant_kv(q, *quant_kv, mask=mask)
@@ -287,13 +288,17 @@ class Decoder(nn.Module):
                 kv_segment_ids=segment_ids, sliding_window=cfg.sliding_window,
                 device=dev,
             )
+        ranges = None
+        if attn_impl == "flash":  # one set of tile ranges for every layer's K1 and K2
+            ranges = tile_ranges(segment_ids, segment_ids, sq=s, skv=s, causal=True,
+                                 window=cfg.sliding_window, device=dev)
 
         for i, layer in enumerate(self.layers):
             run = layer if cache is not None else remat_wrap(layer, remat)
             x = run(
                 x, cfg, cos, sin, attn_impl=attn_impl, mask=mask,
-                segment_ids=segment_ids, cache=cache, layer_idx=i, slots=slots,
-                fresh_cache=fresh_cache,
+                segment_ids=segment_ids, ranges=ranges, cache=cache, layer_idx=i,
+                slots=slots, fresh_cache=fresh_cache,
             )
         if cache is not None:
             cache.index = cache.index + (segment_ids != 0).sum(dim=1, dtype=torch.int32)

@@ -99,6 +99,23 @@ def test_packed_segments_and_window(interpret_mode):
     np.testing.assert_allclose(got[valid], want[valid], **TOL)
 
 
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidirectional"])
+def test_recurring_segment_ids(interpret_mode, causal):
+    """Ids that come back in one row (1, 2, 1, 0): a segment id is a label,
+    not a span, so the first and third runs attend each other. The kernels'
+    tile ranges only widen for such ids; these are the semantics the
+    skipping must keep."""
+    q, k, v = _qkv(2, 32, 32, 4, 2, 16, seed=4)
+    seg = np.array([[1] * 8 + [2] * 10 + [1] * 8 + [0] * 6,
+                    [2] * 5 + [1] * 11 + [2] * 16], np.int32)
+    want = _jax_flash(q, k, v, causal=causal, q_segment_ids=jnp.asarray(seg),
+                      kv_segment_ids=jnp.asarray(seg), block_q=8, block_k=8)
+    got = _port(q, k, v, causal=causal, q_segment_ids=torch.from_numpy(seg),
+                kv_segment_ids=torch.from_numpy(seg))
+    valid = seg != 0
+    np.testing.assert_allclose(got[valid], want[valid], **TOL)
+
+
 def test_cpu_path_is_the_plain_version_and_counts_no_launch():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 8, 2, 1, 16))
     before = tflash.flash_attention.launches

@@ -29,11 +29,14 @@ def cuda():
 
 
 def packed_segments(b, s, lengths, device):
-    """Rows packing samples of the given lengths (ids 1, 2, ...), then 0."""
+    """Rows packing samples of the given lengths (ids 1, 2, ...), then 0; a
+    row may instead give (id, count) runs, for ids that recur."""
     seg = torch.zeros((b, s), dtype=torch.int32)
     for r, row in enumerate(lengths):
         start = 0
         for sid, n in enumerate(row, start=1):
+            if isinstance(n, tuple):
+                sid, n = n
             seg[r, start:start + n] = sid
             start += n
     return seg.to(device)
@@ -46,6 +49,20 @@ CASES = {
     "d64_window": (1, 333, 333, 4, 2, 64, True, 50, None),
     "d16_cross_len": (2, 70, 130, 2, 1, 16, False, None, None),
     "decoder_causal_long": (1, 1100, 1100, 4, 1, 128, True, None, None),
+    # ids that recur (1, 2, 1, 0) in one row: the tile ranges only widen
+    "recurring_ids_d128": (1, 300, 300, 4, 2, 128, True, None,
+                           (((1, 70), (2, 90), (1, 60), (0, 80)),)),
+    "recurring_ids_noncausal_d72": (2, 260, 260, 2, 2, 72, False, None,
+                                    (((1, 40), (2, 100), (1, 60), (0, 60)),
+                                     ((2, 130), (1, 130)))),
+    "s70_shorter_than_a_tile_d128": (1, 70, 70, 4, 1, 128, True, None, None),
+    "s129_just_over_a_tile_d72": (2, 129, 129, 2, 2, 72, False, None, None),
+    "s676_d16": (2, 676, 676, 2, 1, 16, False, None, None),
+    "window_starts_mid_tile_d128": (1, 500, 500, 4, 2, 128, True, 100, None),
+    # row 1 is padding from row 120: whole q and kv tiles of it are skipped
+    "padding_tiles_d64": (2, 400, 400, 4, 4, 64, True, None, ((400,), (120,))),
+    **{f"packed_d{d}": (2, 300, 300, 4, 2, d, True, None, ((130, 100), (40, 200, 60)))
+       for d in (16, 64, 72, 128)},
 }
 
 
@@ -121,3 +138,34 @@ def test_autograd_through_kernels_matches_dense(cuda):
         attention(*ref, q_segment_ids=seg, kv_segment_ids=seg, **kw), ref, dout.float())
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         torch.testing.assert_close(a.float(), b, **TOL, msg=name)
+
+
+@pytest.mark.cuda
+def test_skipped_rows_get_exact_zeros_on_card(cuda):
+    """dq, dk and dv come from torch.empty: every padding row, including
+    those of q and kv tiles whose range is empty, must be written as exact
+    zeros."""
+    q, k, v, dout, seg, kw = _inputs("padding_tiles_d64", cuda)
+    out, lse = tflash._launch(q, k, v, q_segment_ids=seg, kv_segment_ids=seg, with_lse=True, **kw)
+    dq, dk, dv = tflash.flash_attention_bwd(q, k, v, seg, seg, out, lse, dout, **kw)
+    pad = seg == 0
+    for name, t in (("dq", dq), ("dk", dk), ("dv", dv)):
+        assert bool((t[pad] == 0).all()), name
+
+
+@pytest.mark.cuda
+def test_cache_views_on_card(cuda):
+    """k and v as the two halves of one [B, S, 2 Hkv, D] buffer, as the
+    decoder's cache views are: read in place, no copy."""
+    q, _, _, dout, seg, kw = _inputs("decoder_packed_gqa_d128", cuda)
+    b, s, _, d = q.shape
+    g = torch.Generator(device=cuda).manual_seed(5)
+    layer_kv = torch.randn((b, s + 40, 4, d), generator=g, device=cuda).to(torch.bfloat16)
+    k, v = layer_kv[:, :s, :2], layer_kv[:, :s, 2:]
+    before = tflash.flash_attention.copies
+    out, lse = tflash._launch(q, k, v, q_segment_ids=seg, kv_segment_ids=seg, with_lse=True, **kw)
+    got = tflash.flash_attention_bwd(q, k, v, seg, seg, out, lse, dout, **kw)
+    assert tflash.flash_attention.copies == before
+    want = tflash.flash_attention_bwd_ref(q, k, v, seg, seg, out, lse, dout, **kw)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), w.float(), **TOL, msg=name)
