@@ -20,8 +20,10 @@ script exits non-zero without printing a result:
      padding tail, the tower's 16 tiles at head dim 72); K3a/K3b at the
      train path's rows, (8192, 4096) RMSNorm and (16·676, 1152) LayerNorm,
      cold L2;
-     K4 at the 8B decode shapes (M = 2, and M = 64 once, cold L2) with the
-     kernel's GB/s on the packed bytes;
+     K4 at the 8B decode shapes (M = 2, and M = 64 once, cold L2) against its
+     plain version and the fp32 oracle, with its GB/s, tinygemm's time
+     (torch._weight_int4pack_mm, bf16 scales), F.linear's on the bf16 weight
+     it replaces, and host µs per call of both, per shape and per step;
   4. serving at 8B: Engine.generate on Leopard-LLaVA-8B with seeded random
      weights, 2 requests of 16 uint8 364×364 tiles each, 16 greedy tokens;
      K1's and K3's launch counts, no K1 input copied (TMA reads every
@@ -78,6 +80,11 @@ MAX_NEW_TOKENS = 16
 # K4 vs its plain version, outputs of std ~1: the plain version rounds each
 # weight to bf16 (2^-9 relative), the kernel keeps it in fp32
 K4_TOL = dict(rtol=1e-2, atol=1e-2)
+# K4 vs the fp32 oracle x_bf16 @ ((q - 8) * s): the same exact operands, fp32
+# sums rounded in another order; bf16 scales would miss it by ~1e-3
+K4_ORACLE_TOL = dict(rtol=1e-4, atol=1e-4)
+# tinygemm vs K4: tinygemm rounds the scales and its output to bf16
+K4_LIBRARY_TOL = dict(rtol=3e-2, atol=3e-2)
 # decode-step matmuls of the 8B decoder, (K, N) and how many per layer
 K4_SHAPES = {"wq_wo": (4096, 4096, 2), "wk_wv": (4096, 1024, 2),
              "gate_up": (4096, 14336, 2), "down": (14336, 4096, 1),
@@ -401,10 +408,53 @@ def norm_vs_plain(kind, rows, h, device, card, flush):
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms}
 
 
-def int4_vs_plain(name, m, k, n, device, card, flush):
-    """Phase 3 for one K4 shape: max abs error, both times, GB/s."""
+def host_us(fn, calls=200, reps=5) -> float:
+    """Host time of one fn() call in µs: a loop of `calls` calls on the host
+    clock while a spin kernel keeps the device ahead, so no call waits for
+    the device (median of `reps` loops)."""
     import torch
 
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)  # ~25-35 ms of device time, longer than the loop
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def tinygemm(x, q4, s):
+    """The yardstick for K4: ATen's int4 matmul (tinygemm,
+    torch._weight_int4pack_mm) on the same nibbles, x · ((q − 8) · s + 0) per
+    group of 128, with scales_and_zeros in bf16 (it takes no fp32 scales).
+    Returns the call, or the error ATen raised. The port never calls it."""
+    import torch
+
+    try:
+        q = torch.cat([q4 & 15, q4 >> 4], dim=0).t().contiguous()  # [N, K] of q + 8
+        packed = (q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8)  # [N, K/2], even k high
+        w = torch._convert_weight_to_int4pack(packed, 8)
+        sz = torch.stack([s, torch.zeros_like(s)], dim=-1).to(torch.bfloat16).contiguous()
+        fn = lambda: torch._weight_int4pack_mm(x, w, 128, sz)  # noqa: E731
+        fn()
+        return fn, None
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"{type(e).__name__}: {e}".splitlines()[0]
+
+
+def int4_vs_plain(name, m, k, n, device, card, flush):
+    """Phase 3 for one K4 shape: the largest error against the plain version
+    and against the fp32 oracle; kernel, plain, tinygemm and dense bf16
+    (F.linear) times with cold L2; GB/s over the bytes the call must move;
+    host µs per call of the decoder's int4 matmul (quant.matmul into K4)
+    and of F.linear."""
+    import torch
+    import torch.nn.functional as F
+
+    from leopard_tpu_torch.models.params import QuantizedWeight
     from leopard_tpu_torch.ops import quant
     from leopard_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_ref
 
@@ -412,7 +462,6 @@ def int4_vs_plain(name, m, k, n, device, card, flush):
     x = torch.randn((m, k), generator=g, device=device, dtype=torch.bfloat16)
     w = torch.randn((n, k), generator=g, device=device, dtype=torch.bfloat16) * k**-0.5
     q = quant.quantize_int4(w)
-    del w
     q4, s = q["q4"], q["s"]
     got = int4_matmul(x, q4, s)
     want = int4_matmul_ref(x, q4, s)
@@ -422,14 +471,40 @@ def int4_vs_plain(name, m, k, n, device, card, flush):
     err = (got - want).abs().max().item()
     torch.testing.assert_close(got, want, **K4_TOL)
     del want
+    oracle = x.float() @ quant._unpack_int4(q4, s)
+    oracle_err = (got - oracle).abs().max().item()
+    torch.testing.assert_close(got, oracle, **K4_ORACLE_TOL)
+    del oracle
     ms = cuda_ms(lambda: int4_matmul(x, q4, s), flush=flush)
     plain_ms = cuda_ms(lambda: int4_matmul_ref(x, q4, s), flush=flush)
-    gbs = q4.numel() / (ms * 1e-3) / 1e9
-    print(f"kernel int4_matmul {name}: M={m} K={k} N={n}: max_abs_err={err:.6g} (tol {K4_TOL}) "
-          f"kernel {ms:.4f} ms ({gbs:.1f} GB/s of packed weight), plain {plain_ms:.4f} ms "
+    lib_fn, lib_error = tinygemm(x, q4, s)
+    library_ms = lib_err = None
+    if lib_fn is not None:
+        lib_out = lib_fn().float()
+        lib_err = (lib_out - got).abs().max().item()
+        torch.testing.assert_close(lib_out, got, **K4_LIBRARY_TOL)
+        del lib_out
+        library_ms = cuda_ms(lib_fn, flush=flush)
+    dense_ms = cuda_ms(lambda: F.linear(x, w), flush=flush)
+    x3, qw = x[:, None], QuantizedWeight(q)
+    k4_host = host_us(lambda: quant.matmul(x3, qw))
+    dense_host = host_us(lambda: F.linear(x3, w))
+    n_bytes = k // 2 * n + k // 128 * n * 4 + m * k * 2 + m * n * 4
+    gbs = n_bytes / (ms * 1e-3) / 1e9
+    lib_note = (f"tinygemm {library_ms:.4f} ms (|diff| {lib_err:.3g})" if lib_fn is not None
+                else f"tinygemm not available ({lib_error})")
+    print(f"kernel int4_matmul {name}: M={m} K={k} N={n}: max_abs_err={err:.6g} (tol {K4_TOL}), "
+          f"vs fp32 oracle {oracle_err:.3g} (tol {K4_ORACLE_TOL}); kernel {ms:.4f} ms "
+          f"({gbs:.1f} GB/s of {n_bytes} bytes, bound {n_bytes / PEAK_BYTES_S * 1e3:.4f} ms), "
+          f"plain {plain_ms:.4f} ms, {lib_note}, dense bf16 F.linear {dense_ms:.4f} ms; "
+          f"host us per call: quant.matmul (K4) {k4_host:.2f}, F.linear {dense_host:.2f} "
           f"[{card}]", flush=True)
-    return {"shape": f"{name}: M={m} K={k} N={n}", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "packed_gb_s": gbs}
+    return {"shape": f"{name}: M={m} K={k} N={n}", "max_abs_err": err,
+            "oracle_max_abs_err": oracle_err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_max_abs_diff": lib_err,
+            "library_error": lib_error, "dense_ms": dense_ms, "host_us": k4_host,
+            "dense_host_us": dense_host, "bytes": n_bytes, "gb_s": gbs,
+            "bound_ms": n_bytes / PEAK_BYTES_S * 1e3}
 
 
 def make_requests(cfg, n_requests, text_lengths, seed=SEED):
@@ -892,20 +967,27 @@ def main() -> int:
           "ln": norm_vs_plain("ln", n_tiles * vis.tokens_per_tile, vis.hidden_size, device,
                               card, flush)}
     del flush
-    # K4's time in one 8B decode step: the seven matmuls of each layer and lm_head
+    # K4 in one 8B decode step: the seven matmuls of each layer and lm_head
     n_layers = leopard_llava_8b().text.num_layers
-    k4_step = {key: sum(n_layers * per * k4_shapes[name][key]
-                        for name, (_, _, per) in K4_SHAPES.items())
-               + k4_shapes["lm_head"][key] for key in ("ms", "plain_ms")}
-    # bytes each decode matmul must move: packed weight, scales, x (bf16), out (f32)
-    k4_bytes = {name: k // 2 * n + k // 128 * n * 4 + 2 * k * 2 + 2 * n * 4
-                for name, (k, n, _) in K4_SHAPES.items()}
-    k4_step["bound_ms"] = (sum(n_layers * per * k4_bytes[name]
-                               for name, (_, _, per) in K4_SHAPES.items())
-                           + k4_bytes["lm_head"]) / PEAK_BYTES_S * 1e3
-    print(f"K4 per 8B decode step (batch 2, cold L2): kernel {k4_step['ms']:.4f} ms, "
-          f"plain {k4_step['plain_ms']:.4f} ms, bound {k4_step['bound_ms']:.4f} ms [{card}]",
-          flush=True)
+    step_calls = {name: n_layers * per + (name == "lm_head")
+                  for name, (_, _, per) in K4_SHAPES.items()}
+
+    def per_step(key):
+        vals = [k4_shapes[name][key] for name in K4_SHAPES]
+        if any(v is None for v in vals):
+            return None
+        return sum(step_calls[name] * k4_shapes[name][key] for name in K4_SHAPES)
+
+    k4_step = {key: per_step(key) for key in ("ms", "plain_ms", "library_ms", "dense_ms",
+                                              "host_us", "dense_host_us", "bound_ms")}
+    lib_step = ("not available" if k4_step["library_ms"] is None
+                else f"{k4_step['library_ms']:.4f} ms")
+    print(f"K4 per 8B decode step (batch 2, {sum(step_calls.values())} calls, cold L2): kernel "
+          f"{k4_step['ms']:.4f} ms, bound {k4_step['bound_ms']:.4f} ms "
+          f"({k4_step['bound_ms'] / k4_step['ms']:.3f} of it), plain {k4_step['plain_ms']:.4f} "
+          f"ms, tinygemm {lib_step}, dense bf16 {k4_step['dense_ms']:.4f} ms; host ms per step: "
+          f"quant.matmul (K4) {k4_step['host_us'] / 1e3:.3f}, F.linear "
+          f"{k4_step['dense_host_us'] / 1e3:.3f} [{card}]", flush=True)
     torch.cuda.empty_cache()
 
     # phase 4: serving at 8B
@@ -1028,8 +1110,25 @@ def main() -> int:
         "plain_ms": k4_step["plain_ms"],
         "bound_ms": k4_step["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": None,
-        "library": "none: no single PyTorch call computes an int4 group-quantized matmul",
+        "library_ms": k4_step["library_ms"],
+        "library": ("torch._weight_int4pack_mm (ATen tinygemm) on the same nibbles, scales "
+                    "and zeros in bf16 (zero 0), bf16 output"
+                    + ("" if k4_step["library_ms"] is not None else ": not available, "
+                       + str(k4_shapes["lm_head"]["library_error"]))),
+        "dense_ms": k4_step["dense_ms"],
+        "dense": "F.linear with the bf16 weight of the same shape, which int4 replaces",
+        "host_us": {"k4_per_step": k4_step["host_us"],
+                    "f_linear_per_step": k4_step["dense_host_us"],
+                    "k4_per_call": {name: r["host_us"] for name, r in k4_shapes.items()},
+                    "f_linear_per_call": {name: r["dense_host_us"]
+                                          for name, r in k4_shapes.items()},
+                    "is": "host µs of quant.matmul (K4) and F.linear, loop of 200 calls "
+                          "with the device kept ahead"},
+        "design": "mma.sync m16n8k16 bf16 (weight columns as MMA rows, x rows as n8) on "
+                  "nibbles unpacked in registers (ldmatrix.trans, prmt, lop3, bf16x2 fma); "
+                  "TMA + bulk-copy ring of 4 stages, one producer warp; exact fp32 group "
+                  "scales per plane; K split in group pairs, summed in split order by the "
+                  "last block: one launch a call",
         "ms_is": "per 8B decode step at batch 2, cold L2: 32 x (2 wq_wo + 2 wk_wv "
                  "+ 2 gate_up + down) + lm_head",
         "shapes": [*k4_shapes.values(), k4_m64],

@@ -1,8 +1,9 @@
 // Pieces shared by the flash-attention forward (flash_attention.cu, K1) and
 // backward (flash_attention_bwd.cu, K2) on Hopper: the tile sizes, the
-// shared-memory layout of a head-dim tile, TMA tensor maps and loads,
-// mbarriers, wgmma descriptors and products, and the mask of one (q, kv)
-// pair. Keeping one copy keeps the forward and the backward in step: a pair
+// shared-memory layout of a head-dim tile, its TMA tensor maps and loads,
+// wgmma descriptors and products, and the mask of one (q, kv) pair
+// (mbarriers and the map encoder come from tma_common.cuh, which the int4
+// matmul shares). Keeping one copy keeps the forward and the backward in step: a pair
 // the forward masked must be masked by the backward, and both read the same
 // tile ranges (ops/flash_attention.py::tile_ranges).
 //
@@ -33,12 +34,13 @@
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "tma_common.cuh"  // shared memory, mbarriers, TMA, the map encoder
 
 namespace leopard_flash {
+
+using namespace leopard_tma;
 
 typedef __nv_bfloat16 bf16;
 
@@ -89,53 +91,6 @@ __device__ __forceinline__ BlockCoords block_coords(int n_tiles, int n_heads, bo
     return {n_tiles - 1 - id / per_tile, (id % per_tile) % n_heads, (id % per_tile) / n_heads};
   }
   return {id % n_tiles, (id / n_tiles) % n_heads, id / (n_tiles * n_heads)};
-}
-
-// ---------------------------------------------------------------- mbarriers
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Add to the transaction count of the barrier's current phase, without
-// arriving
-__device__ __forceinline__ void mbar_add_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait for the completion of the barrier's phase of the given parity.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
 }
 
 // --------------------------------------------------------------------- TMA
@@ -415,31 +370,6 @@ __device__ __forceinline__ bool needs_mask(int q0, int nq, int k0, int nk, int s
 
 // ------------------------------------------------------------ host: maps
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so that
-// nothing more is linked
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
 // The two maps of a bf16 [B, S, H, D] tensor (element strides sb, ss, sh;
 // unit D stride) for R-row tiles: maps[0] 64-column boxes with the 128-byte
 // swizzle, maps[1] 16-column boxes with the 32-byte swizzle. Each is made
@@ -463,13 +393,6 @@ cudaError_t make_maps(CUtensorMap (&maps)[2], const void* base, int B, int S, in
     if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
   }
   return cudaSuccess;
-}
-
-// Shared memory of a kernel: the bytes asked for, plus slack to align the
-// base to 1,024 bytes (the 128-byte swizzle's repeat).
-__device__ __forceinline__ unsigned char* align_smem(unsigned char* raw) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
-                                          ~static_cast<uintptr_t>(1023));
 }
 
 }  // namespace leopard_flash

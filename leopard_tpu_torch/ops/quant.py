@@ -95,12 +95,12 @@ def matmul(x: torch.Tensor, w: Weight) -> torch.Tensor:
     if isinstance(w, torch.Tensor):
         return F.linear(x, w)
     if w.int4:
-        if use_int4_kernel(x, w.q4, w.s):
-            *lead, k = x.shape
-            y = int4_matmul(x.reshape(-1, k), w.q4, w.s)
-            return y.to(x.dtype).reshape(*lead, -1)
+        q4, s = w.q4, w.s
+        if use_int4_kernel(x, q4, s):
+            # [..., K] in, [..., N] out, in x's dtype: one launch a call
+            return int4_matmul(x, q4, s, out_dtype=x.dtype)
         # dense-dequant path: the CPU, prefill (M > 64) and non-128 groups
-        return x @ _unpack_int4(w.q4, w.s).to(x.dtype)
+        return x @ _unpack_int4(q4, s).to(x.dtype)
     y = x @ w.q.to(x.dtype)
     return y * w.s.to(x.dtype)[..., 0, :]
 

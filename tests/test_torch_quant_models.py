@@ -158,9 +158,9 @@ def test_kernel_tier_through_its_plain_version(monkeypatch):
     calls = []
     real = tquant.int4_matmul
 
-    def spy(x, q4, s):
-        calls.append(tuple(x.shape))
-        return real(x, q4, s)
+    def spy(x, q4, s, **kw):
+        calls.append((x.numel() // x.shape[-1], x.shape[-1]))  # (M, K)
+        return real(x, q4, s, **kw)
 
     monkeypatch.setattr(tquant, "int4_matmul", spy)
     with torch.no_grad():
