@@ -35,7 +35,30 @@ script exits non-zero without printing a result:
      bf16 decoder built from the dequantized int4 weights;
   8. int4 weights with the int8 KV cache: one generate, checked;
   9. int8 weights: one checked generate, then TTFT and decode ms/step;
- 10. training at the width of Leopard-LLaVA-8B with the text depth cut to 4
+ 10. prefix: build_prefix of a shared document (16 tiles + text, 3,004
+     tokens; K1 in tower and decoder), two questions with prefix= against
+     generate on the concatenated prompts (first-step logits, cosine per
+     row), the prefix unchanged after, TTFT with and without the prefix;
+ 11. multi-turn: request 0 of phase 4 with return_prefix, then a second turn
+     of 16 new tiles + 300 text tokens into the filled cache (the chunked
+     continuation tier, counted per call) against the re-prefill of the
+     whole conversation (K1, bucket 8,192), index == length == tokens, both
+     turns' TTFT; then chunked_continuation_attention alone at turn 2's
+     shape (float and int8 cache) beside SDPA with the boolean mask;
+ 12. chunked prefill: a 6,408-token prompt (32 tiles) through an engine
+     whose largest bucket is 4,096 (K1, then the continuation tier)
+     against the default engine's single-shot prefill;
+ 13. int4 weights with the int8 KV cache: phase 11's second turn (the
+     continuation tier with scales, K4 at every decode matmul) against the
+     same engine's re-prefill, and a speculative decode with K4 counted
+     per verify round (M = draft + 1);
+ 14. speculative decode (n-gram 2, draft 7, 32 tokens) against plain
+     greedy on a prompt that repeats a 200-token passage (first token
+     equal, rounds, first divergence: random weights accept almost no
+     draft), and beam search (width 4, 16 tokens);
+     phases 10-14 hold logits at cosine >= 0.99 and report, without gating
+     on it, whether the tokens agree;
+ 15. training at the width of Leopard-LLaVA-8B with the text depth cut to 4
      of 32 (the 8B train state, ~18 B a parameter, does not fit one 80 GB
      card), seeded random weights, 2 rows × 4,096 tokens each packing two
      samples (positions restarting per segment, a padding tail) with 16
@@ -47,7 +70,7 @@ script exits non-zero without printing a result:
      and K3 launch counts of every step against the layer counts, no K1/K2
      input copied, step ms,
      tokens/s and peak memory;
- 11. no JAX was imported.
+ 16. no JAX was imported.
 Each engine is freed after its phase, with the phase's peak device memory
 printed. Then the card's name and power limit as nvidia-smi prints them, one
 JSON line with every kernel ({"kernels": [...]}) and, last, the JSON line
@@ -712,6 +735,386 @@ def int4_vs_dense_decode_step(int4_model, cfg, prompt, tiles, device):
     return cos, same_argmax
 
 
+# phases 10-14: prefixes, multi-turn chat, chunked prefill, speculative
+# decode and beam search, at 8B in bf16 (phase 13: int4 weights, int8 KV)
+DOC_TEXT = 299             # shared document: BOS, 16 tiles, 299 text = 3,004 tokens
+QUESTIONS = (40, 90)       # text tokens of the two questions about it
+TURN2_TEXT = 300           # turn 2: 16 new tiles, 300 text = 3,004 tokens
+CHUNKED_TILES, CHUNKED_TEXT = 32, 1000   # 6,408 tokens: two chunks of 4,096
+CHUNKED_BUCKETS = (256, 512, 1024, 2048, 4096)
+SPEC_PASSAGE, SPEC_REPEATS, SPEC_NEW = 200, 3, 32
+BEAM_WIDTH, BEAM_NEW = 4, 16
+
+
+def tile_prompt(cfg, rng, n_tiles, n_text, bos):
+    """[BOS,] n_tiles' image tokens, n_text random text tokens; the tiles
+    as uint8 364x364 pixels."""
+    img = np.full(n_tiles * cfg.anyres.tokens_per_tile, cfg.image_token_id, np.int32)
+    text = rng.randint(0, 128000, size=n_text).astype(np.int32)
+    prompt = np.concatenate([[128000] if bos else [], img, text]).astype(np.int32)
+    size = cfg.vision.image_size
+    return prompt, rng.randint(0, 256, (n_tiles, size, size, 3), dtype=np.uint8)
+
+
+class Launches:
+    """Kernel launch counts (and calls of the chunked continuation tier, a
+    plain-PyTorch function counted here by a wrapper around the decoder's
+    reference to it) over a `with` block: every count is set to 0 on entry
+    and read on exit into `self.counts`."""
+
+    def __init__(self):
+        from leopard_tpu_torch.models import decoder
+        from leopard_tpu_torch.ops.flash_attention import flash_attention
+        from leopard_tpu_torch.ops.fused_norms import fused_layer_norm, fused_rms_norm
+        from leopard_tpu_torch.ops.int4_matmul import int4_matmul
+
+        self.counters = {"flash_attention": flash_attention, "int4_matmul": int4_matmul,
+                         "fused_rms_norm": fused_rms_norm, "fused_layer_norm": fused_layer_norm}
+        self.decoder = decoder
+        self.cont_calls = []
+        real = decoder.chunked_continuation_attention
+
+        def counted(q, k, *args, **kw):
+            self.cont_calls.append((tuple(q.shape), tuple(k.shape), str(k.dtype),
+                                    kw["chunk_size"]))
+            return real(q, k, *args, **kw)
+
+        decoder.chunked_continuation_attention = counted
+        self.counts = {}
+
+    def __enter__(self):
+        import torch
+
+        torch.cuda.synchronize()
+        for c in self.counters.values():
+            c.launches = 0
+        self.cont_calls.clear()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.synchronize()
+        self.counts = {k: c.launches for k, c in self.counters.items()}
+        self.counts["chunked_continuation_attention"] = len(self.cont_calls)
+        return False
+
+
+def expect(label, counts, want):
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def logits_agree(label, got, want):
+    """Per-row cosine of two first-step logits [B, V]; both must be finite
+    and every row at least COSINE_MIN. Returns (cosines, argmax agreement)."""
+    import torch
+
+    got, want = got.float(), want.float()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{label}: non-finite logits")
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).tolist()
+    same = (got.argmax(-1) == want.argmax(-1)).tolist()
+    print(f"{label}: first-step logits cosine per row {[round(c, 6) for c in cos]} "
+          f"(min {COSINE_MIN}), argmax agrees {same}, max |diff| "
+          f"{(got - want).abs().max().item():.4g}", flush=True)
+    if min(cos) < COSINE_MIN:
+        raise AssertionError(f"{label}: cosine {cos} < {COSINE_MIN}")
+    return cos, same
+
+
+def tokens_agree(a, b):
+    """Whether two token lists agree, and where they first differ."""
+    n = min(len(a), len(b))
+    diff = [i for i in range(n) if a[i] != b[i]]
+    first = diff[0] if diff else (None if len(a) == len(b) else n)
+    return first is None, first
+
+
+def check_conversation(label, prefix):
+    """The cache that return_prefix hands back holds every token so far."""
+    index = prefix.cache.index.tolist()
+    valid = int((prefix.cache.seg != 0).sum())
+    if not (index == [prefix.length] and prefix.length == len(prefix.tokens) == valid):
+        raise AssertionError(f"{label}: index {index}, length {prefix.length}, "
+                             f"{len(prefix.tokens)} tokens, {valid} valid slots")
+
+
+def cache_snapshot(prefix):
+    c = prefix.cache
+    return [t.clone() for t in (c.kv, c.seg, c.index, c.kv_scale) if t is not None]
+
+
+def check_unchanged(label, prefix, snap):
+    import torch
+
+    c = prefix.cache
+    now = [t for t in (c.kv, c.seg, c.index, c.kv_scale) if t is not None]
+    if not all(torch.equal(a, b) for a, b in zip(now, snap)):
+        raise AssertionError(f"{label}: the prefix's cache was written")
+
+
+def ttft_s(engine, prompts, images=None, prefix=None):
+    """Median of 3 of a generate with max_new_tokens=1, as phase 4."""
+    from leopard_tpu_torch.config import GenerateConfig
+
+    gen = GenerateConfig(max_new_tokens=1)
+    return wall_s(lambda: engine.generate(prompts, images=images, gen_cfg=gen, prefix=prefix))
+
+
+def prefix_phase(engine, cfg, launches, card):
+    """Phase 10: build_prefix of a shared document, then two questions with
+    prefix=, held against generate on the concatenated prompts."""
+    from leopard_tpu_torch.config import GenerateConfig
+
+    rng = np.random.RandomState(SEED + 10)
+    doc, doc_tiles = tile_prompt(cfg, rng, TILES_PER_REQUEST, DOC_TEXT, bos=True)
+    questions = [rng.randint(0, 128000, size=n).astype(np.int32) for n in QUESTIONS]
+    gen = GenerateConfig(max_new_tokens=MAX_NEW_TOKENS)
+    lt, lv = cfg.text.num_layers, cfg.vision.num_layers
+    with launches:
+        prefix = engine.build_prefix(doc, images=doc_tiles)
+    build = launches.counts
+    expect("build_prefix", build, {"flash_attention": lv + lt, "fused_layer_norm": 2 * lv + 1,
+                                   "fused_rms_norm": 2 * lt + 1})
+    snap = cache_snapshot(prefix)
+    with launches:
+        res = engine.generate(questions, gen_cfg=gen, prefix=prefix)
+    steps = max(min(MAX_NEW_TOKENS, len(t) + 1) for t in res.tokens) - 1
+    # the suffixes (bucket 256) take the dense continuation: no K1, no tower
+    expect("generate(prefix=)", launches.counts,
+           {"flash_attention": 0, "fused_rms_norm": (2 * lt + 1) * (1 + steps),
+            "chunked_continuation_attention": 0})
+    with_prefix = launches.counts
+    full_prompts = [np.concatenate([doc, q]) for q in questions]
+    full_tiles = np.concatenate([doc_tiles] * len(questions))
+    full = engine.generate(full_prompts, images=full_tiles, gen_cfg=gen)
+    lp, _ = engine.prefill(questions, prefix=prefix)
+    lf, _ = engine.prefill(full_prompts, images=full_tiles)
+    cos, _ = logits_agree("prefix vs concatenated prompts", lp, lf)
+    agree = [tokens_agree(a.tolist(), b.tolist()) for a, b in zip(res.tokens, full.tokens)]
+    t_prefix = ttft_s(engine, questions, prefix=prefix)
+    t_full = ttft_s(engine, full_prompts, images=full_tiles)
+    check_unchanged("prefix phase", prefix, snap)
+    print(f"prefix: document {len(doc)} tokens ({TILES_PER_REQUEST} tiles), build_prefix "
+          f"launches {build}; 2 questions of {list(QUESTIONS)} tokens, launches {with_prefix}; "
+          f"tokens agree with the concatenated path (identical, first divergence): {agree}; "
+          f"prefix unchanged after {2 + 3 + 1} generate/prefill calls; TTFT with prefix "
+          f"{t_prefix * 1e3:.1f} ms, concatenated {t_full * 1e3:.1f} ms (median of 3) "
+          f"[{card}]", flush=True)
+    return {"doc_tokens": len(doc), "build_prefix_launches": build,
+            "launches": with_prefix, "cosine": cos, "tokens_agree": agree,
+            "ttft_prefix_s": t_prefix, "ttft_concatenated_s": t_full}
+
+
+def multiturn(engine, cfg, launches, turn1, tiles1, turn2, tiles2, label, k4_per_step=0):
+    """Turn 1 with return_prefix, turn 2 (>= long_seq_threshold tokens into
+    the filled cache: the chunked continuation tier) with prefix= and
+    return_prefix; turn 2's first-step logits against the concatenated
+    conversation's. Returns the turn-2 record and turn 1's prefix."""
+    from leopard_tpu_torch.config import GenerateConfig
+
+    gen = GenerateConfig(max_new_tokens=MAX_NEW_TOKENS)
+    lt, lv = cfg.text.num_layers, cfg.vision.num_layers
+    r1 = engine.generate([turn1], images=tiles1, gen_cfg=gen, return_prefix=True)
+    check_conversation(f"{label} turn 1", r1.prefix)
+    snap = cache_snapshot(r1.prefix)
+    with launches:
+        r2 = engine.generate([turn2], images=tiles2, gen_cfg=gen, prefix=r1.prefix,
+                             return_prefix=True)
+    counts, cont = launches.counts, list(launches.cont_calls)
+    check_conversation(f"{label} turn 2", r2.prefix)
+    check_unchanged(f"{label} turn 1's prefix", r1.prefix, snap)
+    # forwards: the prefill, then one per emitted token (the last included)
+    forwards = 1 + r2.prefix.length - r1.prefix.length - len(turn2)
+    want = {"flash_attention": lv, "chunked_continuation_attention": lt,
+            "fused_rms_norm": (2 * lt + 1) * forwards}
+    if k4_per_step:
+        want["int4_matmul"] = 1 + k4_per_step * (forwards - 1)
+    expect(f"{label} turn 2", counts, want)
+    full = np.concatenate([r1.prefix.tokens, turn2])
+    full_tiles = np.concatenate([tiles1, tiles2])
+    lt2, _ = engine.prefill([turn2], images=tiles2, prefix=r1.prefix)
+    lre, _ = engine.prefill([full], images=full_tiles)
+    cos, _ = logits_agree(f"{label}: turn 2 vs the re-prefilled conversation", lt2, lre)
+    again = engine.generate([full], images=full_tiles, gen_cfg=gen)
+    agree = tokens_agree(r2.tokens[0].tolist(), again.tokens[0].tolist())
+    print(f"{label}: turn 1 {len(turn1)} tokens -> prefix {r1.prefix.length}; turn 2 "
+          f"{len(turn2)} tokens -> prefix {r2.prefix.length} (index == length == tokens, "
+          f"turn 1's prefix unchanged); turn 2 launches {counts}, chunked continuation "
+          f"calls {cont[:1]} x {len(cont)}; tokens agree with the re-prefill (identical, "
+          f"first divergence): {agree}", flush=True)
+    return {"turn1_tokens": len(turn1), "turn2_tokens": len(turn2),
+            "prefix_lengths": [r1.prefix.length, r2.prefix.length], "launches": counts,
+            "continuation_calls": cont[:1], "cosine": cos, "tokens_agree": agree,
+            "conversation_tokens": len(full)}, r1.prefix
+
+
+def multiturn_phase(engine, cfg, launches, prompts, tiles, card):
+    """Phase 11: bf16 multi-turn, then turn 2's TTFT against the re-prefill
+    of the whole conversation."""
+    rng = np.random.RandomState(SEED + 11)
+    turn2, tiles2 = tile_prompt(cfg, rng, TILES_PER_REQUEST, TURN2_TEXT, bos=False)
+    tiles1 = tiles[:TILES_PER_REQUEST]
+    rec, prefix = multiturn(engine, cfg, launches, prompts[0], tiles1, turn2, tiles2,
+                            "multi-turn bf16")
+    full, full_tiles = np.concatenate([prefix.tokens, turn2]), np.concatenate([tiles1, tiles2])
+    rec["ttft_turn2_s"] = ttft_s(engine, [turn2], images=tiles2, prefix=prefix)
+    rec["ttft_reprefill_s"] = ttft_s(engine, [full], images=full_tiles)
+    print(f"multi-turn timing [{card}]: turn 2 TTFT {rec['ttft_turn2_s'] * 1e3:.1f} ms "
+          f"({len(turn2)} new tokens over a {prefix.length}-token prefix), re-prefill of the "
+          f"{len(full)}-token conversation {rec['ttft_reprefill_s'] * 1e3:.1f} ms "
+          f"(median of 3)", flush=True)
+    return rec, (prefix, turn2, tiles2)
+
+
+def chunked_phase(model, engine, cfg, launches, card):
+    """Phase 12: a 6,408-token prompt through an engine whose largest bucket
+    is 4,096 (two chunks: K1, then the chunked continuation tier), against
+    the default engine's single-shot prefill."""
+    from leopard_tpu_torch.config import GenerateConfig
+    from leopard_tpu_torch.inference.engine import Engine
+
+    rng = np.random.RandomState(SEED + 12)
+    prompt, ptiles = tile_prompt(cfg, rng, CHUNKED_TILES, CHUNKED_TEXT, bos=False)
+    small = Engine(cfg, model, seq_buckets=CHUNKED_BUCKETS)
+    gen = GenerateConfig(max_new_tokens=MAX_NEW_TOKENS)
+    lt, lv = cfg.text.num_layers, cfg.vision.num_layers
+    with launches:
+        res = small.generate([prompt], images=ptiles, gen_cfg=gen)
+    counts = launches.counts
+    expect("chunked prefill", counts, {"flash_attention": lv + lt,
+                                       "chunked_continuation_attention": lt})
+    lc, _ = small.prefill([prompt], images=ptiles)
+    ls, _ = engine.prefill([prompt], images=ptiles)
+    cos, _ = logits_agree("chunked prefill vs single shot", lc, ls)
+    single = engine.generate([prompt], images=ptiles, gen_cfg=gen)
+    agree = tokens_agree(res.tokens[0].tolist(), single.tokens[0].tolist())
+    t_chunked = ttft_s(small, [prompt], images=ptiles)
+    t_single = ttft_s(engine, [prompt], images=ptiles)
+    print(f"chunked prefill: {len(prompt)} tokens ({CHUNKED_TILES} tiles), largest bucket "
+          f"{CHUNKED_BUCKETS[-1]}: launches {counts}; tokens agree with single shot "
+          f"(identical, first divergence): {agree}; TTFT chunked {t_chunked * 1e3:.1f} ms, "
+          f"single shot {t_single * 1e3:.1f} ms (median of 3) [{card}]", flush=True)
+    del small
+    return {"prompt_tokens": len(prompt), "launches": counts, "cosine": cos,
+            "tokens_agree": agree, "ttft_chunked_s": t_chunked, "ttft_single_s": t_single}
+
+
+def spec_prompt(rng):
+    passage = rng.randint(0, 128000, size=SPEC_PASSAGE).astype(np.int32)
+    return np.concatenate([[128000]] + [passage] * SPEC_REPEATS).astype(np.int32)
+
+
+def spec_phase(engine, cfg, launches, card, label, k4_per_step=0):
+    """Speculative decode (n-gram 2, draft 7) against plain greedy on a
+    prompt that repeats a passage; with int4 weights, K4 per verify round."""
+    from leopard_tpu_torch.config import GenerateConfig
+    from leopard_tpu_torch.inference.speculative import SpecConfig
+
+    prompt = spec_prompt(np.random.RandomState(SEED + 14))
+    gen = GenerateConfig(max_new_tokens=SPEC_NEW)
+    plain = engine.generate([prompt], gen_cfg=gen)
+    with launches:
+        sp = engine.generate([prompt], gen_cfg=gen, spec=SpecConfig(ngram=2, draft=7))
+    counts, rounds = launches.counts, sp.spec_rounds
+    got, want = sp.tokens[0].tolist(), plain.tokens[0].tolist()
+    if not got or got[0] != want[0]:
+        raise AssertionError(f"{label}: first token {got[:1]} != plain greedy's {want[:1]}")
+    if not 1 <= rounds <= len(got):
+        raise AssertionError(f"{label}: {rounds} rounds for {len(got)} tokens")
+    lt = cfg.text.num_layers
+    want_counts = {"fused_rms_norm": (2 * lt + 1) * (1 + rounds)}
+    if k4_per_step:
+        want_counts["int4_matmul"] = 1 + k4_per_step * rounds
+    expect(label, counts, want_counts)
+    same, first = tokens_agree(got, want)
+    print(f"{label}: prompt {len(prompt)} tokens ({SPEC_REPEATS} x a {SPEC_PASSAGE}-token "
+          f"passage), {len(got)} tokens in {rounds} verify rounds ({len(got) / rounds:.3f} "
+          f"tokens a round; random weights accept almost no draft, so this measures the "
+          f"mechanism, not a gain), first token equals plain greedy's, identical to plain "
+          f"greedy {same}, first divergence {first}; launches {counts} [{card}]", flush=True)
+    return {"tokens": len(got), "rounds": rounds, "tokens_per_round": len(got) / rounds,
+            "identical_to_greedy": same, "first_divergence": first, "launches": counts}
+
+
+def beam_phase(engine, cfg, launches, card):
+    from leopard_tpu_torch.inference.beam import beam_search
+
+    prompt = spec_prompt(np.random.RandomState(SEED + 14))
+    with launches:
+        out = beam_search(engine, prompt, beam_width=BEAM_WIDTH, max_new_tokens=BEAM_NEW)
+    out = np.asarray(out)
+    if not (out.ndim == 1 and len(out) <= BEAM_NEW
+            and np.all((out >= 0) & (out < cfg.text.vocab_size))
+            and not np.isin(out, (128001, 128009)).any()):
+        raise AssertionError(f"beam search returned {out}")
+    expect("beam search", launches.counts,
+           {"fused_rms_norm": (2 * cfg.text.num_layers + 1) * BEAM_NEW})
+    print(f"beam search: width {BEAM_WIDTH}, {BEAM_NEW} new tokens: {len(out)} tokens "
+          f"{out.tolist()}, launches {launches.counts} [{card}]", flush=True)
+    return {"tokens": out.tolist(), "launches": launches.counts}
+
+
+def continuation_timing(cfg, prefix_len, new_tokens, device, card):
+    """chunked_continuation_attention's own time per call at turn 2's shape
+    (one layer: the new tokens' queries over a cache of round_up(prefix +
+    bucket + 16, 512) slots), float and int8 cache, beside SDPA on the same
+    inputs with the equivalent boolean mask (kv heads repeated to the q
+    heads), and the largest difference from SDPA over the valid queries."""
+    import torch
+    import torch.nn.functional as F
+
+    from leopard_tpu_torch.models.decoder import _q8
+    from leopard_tpu_torch.ops.chunked_attention import (chunked_continuation_attention,
+                                                          pick_chunk)
+
+    t = cfg.text
+    bucket = 4096
+    s_max = -(-(prefix_len + bucket + MAX_NEW_TOKENS) // 512) * 512
+    chunk = pick_chunk(s_max, t.attn_chunk_size)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    q = torch.randn((1, bucket, t.num_heads, t.head_dim), generator=g, device=device,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((1, s_max, t.num_kv_heads, t.head_dim), generator=g, device=device,
+                        dtype=torch.bfloat16) for _ in range(2))
+    valid = torch.zeros((1, s_max), dtype=torch.int32, device=device)
+    valid[0, : prefix_len + new_tokens] = 1
+    pos = prefix_len + torch.arange(bucket, device=device)[None]
+    kq, ks = _q8(k)
+    vq, vs = _q8(v)
+    run = {
+        "float": lambda: chunked_continuation_attention(q, k, v, valid, pos, chunk_size=chunk),
+        "int8": lambda: chunked_continuation_attention(q, kq, vq, valid, pos, k_scale=ks,
+                                                       v_scale=vs, chunk_size=chunk),
+    }
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = run["float"]()
+    extra_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    ms = {name: cuda_ms(fn) for name, fn in run.items()}
+    slot = torch.arange(s_max, device=device)
+    mask = ((pos[0, :, None] >= slot[None]) & (valid[0] != 0)[None])[None, None]
+    group = t.num_heads // t.num_kv_heads
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k.repeat_interleave(group, 2),
+                                               v.repeat_interleave(group, 2)))
+    with torch.no_grad():
+        ref = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask).transpose(1, 2)
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    rows = slice(0, new_tokens)
+    err = (out[:, rows].float() - ref[:, rows].float()).abs().max().item()
+    print(f"chunked_continuation_attention at turn 2's shape (q [1, {bucket}, {t.num_heads}, "
+          f"{t.head_dim}], cache {s_max} slots, {prefix_len + new_tokens} valid, chunk "
+          f"{chunk}): float cache {ms['float']:.3f} ms, int8 cache {ms['int8']:.3f} ms a call "
+          f"(one layer; {ms['float'] * t.num_layers:.1f} ms for {t.num_layers}), SDPA with "
+          f"the boolean mask {sdpa_ms:.3f} ms; max |diff| vs SDPA over the {new_tokens} valid "
+          f"queries {err:.4g}; working memory {extra_gib:.2f} GiB [{card}]", flush=True)
+    return {"ms_float": ms["float"], "ms_int8": ms["int8"], "sdpa_masked_ms": sdpa_ms,
+            "max_abs_diff_vs_sdpa": err, "s_max": s_max, "chunk": chunk,
+            "working_gib": extra_gib}
+
+
 def train_config():
     """Leopard-LLaVA-8B at full width with the text depth cut to
     TRAIN_TEXT_LAYERS (the one cut: the 8B train state does not fit)."""
@@ -1037,7 +1440,39 @@ def main() -> int:
     del engine
     peak["int8"] = phase_memory("serve int8")
 
-    # phase 10: training at 8B width, text depth 4
+    # phases 10-14: prefixes, multi-turn chat, chunked prefill, int4 + int8
+    # KV over a second turn, speculative decode and beam search
+    launches = Launches()
+    features = {}
+    engine = Engine(cfg, model)
+    features["prefix"] = prefix_phase(engine, cfg, launches, card)
+    peak["prefix"] = phase_memory("prefix")
+    features["multiturn"], (prefix1, turn2, tiles2) = multiturn_phase(
+        engine, cfg, launches, prompts, tiles, card)
+    features["continuation_timing"] = continuation_timing(cfg, prefix1.length, len(turn2),
+                                                          device, card)
+    del prefix1
+    peak["multiturn"] = phase_memory("multi-turn")
+    features["chunked"] = chunked_phase(model, engine, cfg, launches, card)
+    peak["chunked"] = phase_memory("chunked prefill")
+    del engine
+    model.text._head_f32 = None
+    engine = Engine(cfg, model, quantize="int4", quantize_kv=True)
+    features["multiturn_int4_kv8"], _ = multiturn(
+        engine, cfg, launches, prompts[0], tiles[:TILES_PER_REQUEST], turn2, tiles2,
+        "multi-turn int4 + int8 KV", k4_per_step)
+    features["spec_int4_kv8"] = spec_phase(engine, cfg, launches, card,
+                                           "speculative int4 + int8 KV", k4_per_step)
+    del engine
+    peak["multiturn_int4_kv8"] = phase_memory("multi-turn + speculative, int4 + int8 KV")
+    engine = Engine(cfg, model)
+    features["spec"] = spec_phase(engine, cfg, launches, card, "speculative bf16")
+    features["beam"] = beam_phase(engine, cfg, launches, card)
+    del engine
+    model.text._head_f32 = None
+    peak["spec_beam"] = phase_memory("speculative + beam, bf16")
+
+    # phase 15: training at 8B width, text depth 4
     del model
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1054,7 +1489,7 @@ def main() -> int:
     del model, batch
     peak["train"] = phase_memory("train")
 
-    # phase 11: no JAX
+    # phase 16: no JAX
     if "jax" in sys.modules or any(m.split(".")[0] == "leopard_tpu" for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
     print("no jax: ok", flush=True)
@@ -1094,6 +1529,9 @@ def main() -> int:
         "copies_is": "flash_attention.copies over every generate call of the serving phases",
         "ms_is": "per generate: 27 x vision_b32 + 32 x decoder",
         "launches_train": train_run["launches"]["flash_attention"],
+        "launches_build_prefix": features["prefix"]["build_prefix_launches"]["flash_attention"],
+        "launches_turn2": features["multiturn"]["launches"]["flash_attention"],
+        "launches_chunked_prefill": features["chunked"]["launches"]["flash_attention"],
         "shapes": list(per_shape.values()),
         "card": card,
         "serve": timings,
@@ -1134,6 +1572,9 @@ def main() -> int:
         "shapes": [*k4_shapes.values(), k4_m64],
         "card": card,
         "serve_int4": timings_int4,
+        "launches_turn2_int4_kv8": features["multiturn_int4_kv8"]["launches"]["int4_matmul"],
+        "launches_spec_int4_kv8": features["spec_int4_kv8"]["launches"]["int4_matmul"],
+        "spec_rounds_int4_kv8": features["spec_int4_kv8"]["rounds"],
         "serve_int8": timings_int8,
         "end_to_end_cosine": cos4,
         "end_to_end_argmax_agrees": same_argmax4,
@@ -1169,6 +1610,8 @@ def main() -> int:
         "replaces": f"leopard_tpu/ops/pallas/norms.py:{line}",
         "launches": train_run["launches"][name],
         "launches_per_generate": timings["launches"][name],
+        "launches_serving_features": {phase: rec["launches"][name] for phase, rec in
+                                      features.items() if "launches" in rec},
         "max_abs_err": k3[kind]["max_abs_err"],
         "ms": k3[kind]["ms"],
         "plain_ms": k3[kind]["plain_ms"],
@@ -1181,6 +1624,7 @@ def main() -> int:
     } for name, kind, line, library in (
         ("fused_rms_norm", "rms", 54, "F.rms_norm"),
         ("fused_layer_norm", "ln", 88, "F.layer_norm"))]]}
+    print(json.dumps({"serving_features": features}), flush=True)
     print(smi.splitlines()[0], flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

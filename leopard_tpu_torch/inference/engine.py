@@ -2,21 +2,36 @@
 (port of leopard_tpu/inference/engine.py).
 
 Prompt lengths and tile counts are rounded up to buckets as in the JAX
-engine. `generate` encodes the images, prefills a fresh cache in one pass
-(flash tier at long prompts, decoder.py), then decodes greedily or by
-sampling until every row has emitted eos or `max_new_tokens` is reached. The
-decode loop runs eagerly in Python and checks for "all rows done" after each
-step, where the JAX engine runs one `lax.while_loop`.
+engine. `generate` encodes the images, prefills the cache, then decodes
+greedily or by sampling until every row has emitted eos or `max_new_tokens`
+is reached. The decode loop runs eagerly in Python and checks for "all rows
+done" after each step, where the JAX engine runs one `lax.while_loop`.
+
+  - Prefill of a prompt within the largest bucket is one pass into a fresh
+    cache (flash tier at long prompts, decoder.py). A longer prompt is
+    prefilled in chunks of the largest bucket against the growing cache:
+    the first chunk fresh, later ones through the continuation tiers, with
+    per-row feature offsets for image tiles that straddle a chunk boundary.
+  - Shared prefixes: `build_prefix` prefills a prompt once into a one-row
+    cache; `generate(prefix=...)` copies it into every row (slot ==
+    absolute position, so the suffix lands at the right positions) and
+    prefills only the suffix, as a continuation. `return_prefix=True` hands
+    the post-decode cache back as the next turn's prefix (multi-turn chat).
+    The cache is written in place here, where the JAX engine donates a new
+    one, so a prefix is always copied into a generate's cache, never
+    aliased: it comes out of any number of calls unchanged.
+  - `spec=SpecConfig(...)` decodes by prompt lookup (speculative.py);
+    `beam.py` holds beam search over the same prefill.
 
 `quantize="int8"|"int4"` serves from a new model whose text decoder holds
 quantized weights (ops/quant.py) and shares every other tensor with the
 caller's model, which is left as it is; `quantize_kv=True` keeps the KV cache
 in int8 (models/decoder.py).
 
-Not in this slice (they raise): a device mesh, speculative decoding, shared
-prefixes (`prefix`, `return_prefix`) and the chunked prefill of prompts above
-the largest bucket. NaViT patch masks, `build_prefix` and `max_cache` are not
-ported either.
+Not in the port: a device mesh (raises), and NaViT patch masks (`generate`
+and `build_prefix` take no `patch_mask`). Where the JAX engine clamps a
+cache write that falls outside a too-small `max_cache`, this engine raises
+before it writes anything.
 """
 
 from __future__ import annotations
@@ -29,6 +44,7 @@ import torch
 
 from leopard_tpu_torch.config import GenerateConfig, VLMConfig
 from leopard_tpu_torch.inference.sampling import sample
+from leopard_tpu_torch.inference.speculative import _spec_decode
 from leopard_tpu_torch.models.decoder import KVCache
 from leopard_tpu_torch.models.vlm import LeopardVLM
 from leopard_tpu_torch.ops.quant import quantize_tree
@@ -38,21 +54,31 @@ def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _prefill(model: LeopardVLM, tokens, seg, cache: KVCache, image_features=None):
-    """Prefill into a fresh cache. Returns the logits at each row's last
-    valid position [B, V] and the cache (written in place). Unembedding runs
-    only at those positions."""
+def _prefill(model: LeopardVLM, tokens, seg, cache: KVCache, image_features=None,
+             fresh: bool = False, feat_offsets=None):
+    """Prefill into the cache (written in place). Returns the logits at each
+    row's last valid position [B, V] and the cache. Unembedding runs only at
+    those positions. `fresh=True`: the cache is just created and empty, so
+    attention runs over these tokens through the uncached tiers;
+    `feat_offsets` [B] maps this chunk's image tokens to their feature rows
+    in a chunked prefill."""
     lengths = (seg != 0).sum(dim=1)
     logits, cache = model(
         tokens, image_features=image_features, segment_ids=seg, cache=cache,
-        logits_indices=(lengths - 1).clamp(min=0), fresh_cache=True,
+        logits_indices=(lengths - 1).clamp(min=0), fresh_cache=fresh,
+        feature_row_offsets=feat_offsets,
     )
     return logits[:, 0], cache
 
 
 def _decode(model: LeopardVLM, gen_cfg: GenerateConfig, first_logits, prompt_tokens,
-            prompt_seg, cache: KVCache, generator: torch.Generator, max_new_tokens: int):
-    """Decode loop. Returns (gen_buf, gen_mask, lp_buf) [B, max_new_tokens]."""
+            prompt_seg, cache: KVCache, generator: torch.Generator, max_new_tokens: int,
+            write_last: bool = False):
+    """Decode loop. Returns (gen_buf, gen_mask, lp_buf) [B, max_new_tokens].
+    Each emitted token's forward writes its KV; the forward of the last
+    token (at `max_new_tokens`, or once every row is done) runs only with
+    `write_last`, when the cache outlives the call (JAX engine.py:86-124
+    runs it always)."""
     b = first_logits.shape[0]
     dev = first_logits.device
     eos = torch.tensor(gen_cfg.eos_token_ids, dtype=torch.int32, device=dev)
@@ -77,11 +103,43 @@ def _decode(model: LeopardVLM, gen_cfg: GenerateConfig, first_logits, prompt_tok
         step_seg = (~done).to(torch.int32)[:, None]  # eos itself is a valid slot
         done = done | is_eos
         # stop once every row is done: a batch ends at its longest answer
-        if i + 1 == max_new_tokens or bool(done.all()):
+        last = i + 1 == max_new_tokens or bool(done.all())
+        if last and not write_last:
             break
         step_logits, cache = model(tok[:, None], segment_ids=step_seg, cache=cache)
         logits = step_logits[:, 0]
+        if last:
+            break
     return gen_buf, gen_mask, lp_buf
+
+
+@dataclasses.dataclass
+class Prefix:
+    """A prefilled, reusable prompt prefix (system prompt, shared document,
+    an earlier conversation turn): a one-row cache whose slots [0, length)
+    hold the prefix's KV (JAX engine.py:134-148)."""
+
+    cache: KVCache        # batch-1 cache
+    length: int           # real prefix tokens
+    tokens: np.ndarray    # the prefix ids
+
+
+def _seed_prefix(cache: KVCache, pre: KVCache, p_len: int, sp_keep: int) -> None:
+    """Copy the first `sp_keep` slots of the one-row prefix cache into every
+    row of `cache` and set each row's index to the prefix length (JAX
+    engine.py:151-173). Slots in [p_len, sp_keep) carry seg 0 and are
+    overwritten by the suffix prefill. Copies, so the prefix is never
+    written by the generate that reads it."""
+    if pre.quantized != cache.quantized:
+        raise ValueError(
+            f"the prefix's KV cache is {'int8' if pre.quantized else 'float'} but this "
+            f"engine's is {'int8' if cache.quantized else 'float'} (quantize_kv differs)"
+        )
+    cache.kv[:, :, :sp_keep] = pre.kv[:, :1, :sp_keep]
+    cache.seg[:, :sp_keep] = pre.seg[:1, :sp_keep]
+    if cache.quantized:
+        cache.kv_scale[:, :, :sp_keep] = pre.kv_scale[:, :1, :sp_keep]
+    cache.index.fill_(p_len)
 
 
 @dataclasses.dataclass
@@ -89,6 +147,11 @@ class GenerationResult:
     tokens: List[np.ndarray]          # generated ids per row (trimmed at eos)
     prompt_lengths: List[int]
     logprobs: Optional[List[np.ndarray]] = None  # per-token logprob, same trim
+    # return_prefix=True: the post-decode KV as the next turn's Prefix
+    prefix: Optional[Prefix] = None
+    # speculative decode: verify forwards run (emitted tokens / spec_rounds
+    # is the tokens gained per weight read)
+    spec_rounds: Optional[int] = None
 
 
 class Engine:
@@ -131,6 +194,25 @@ class Engine:
                 return bkt
         return round_up(x, buckets[-1])
 
+    def _pack(self, prompts: Sequence[np.ndarray]):
+        """Right-padded tokens and segment ids [B, bucket] (numpy), the
+        prompt lengths and the bucket."""
+        lengths = [len(p) for p in prompts]
+        s = self._bucket(max(lengths), self.seq_buckets)
+        tokens = np.zeros((len(prompts), s), np.int32)
+        seg = np.zeros((len(prompts), s), np.int32)
+        for i, p in enumerate(prompts):
+            tokens[i, : len(p)] = p
+            seg[i, : len(p)] = 1
+        return tokens, seg, lengths, s
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _new_cache(self, batch: int, length: int) -> KVCache:
+        return KVCache.create(self.cfg.text, batch, length, device=self.device,
+                              quantized=self.quantize_kv)
+
     @torch.inference_mode()
     def encode_images(self, pixel_values) -> torch.Tensor:
         """pixel_values: [N, 3, H, W] float or [N, H, W, 3] uint8, numpy or
@@ -143,51 +225,137 @@ class Engine:
             x = torch.cat([x, x.new_zeros((nb - n,) + tuple(x.shape[1:]))], dim=0)
         return self.model.encode_images(x.to(self.device))
 
+    def _features(self, images) -> Optional[torch.Tensor]:
+        if images is None or images.shape[0] == 0:
+            return None
+        return self.encode_images(images)
+
+    @torch.inference_mode()
+    def build_prefix(self, prompt: np.ndarray, images=None) -> Prefix:
+        """Prefill a shared prompt prefix once, for reuse across generate()
+        calls; its images' features splice during this prefill and live in
+        the KV like any other position (JAX engine.py:252-275)."""
+        prompt = np.asarray(prompt, np.int32)
+        tokens, seg, _, s = self._pack([prompt])
+        cache = self._new_cache(1, round_up(s, 512))
+        _, cache = _prefill(self.model, self._tensor(tokens), self._tensor(seg), cache,
+                            self._features(images), fresh=True)
+        return Prefix(cache=cache, length=len(prompt), tokens=prompt)
+
+    def _prefill_packed(self, tokens, seg, lengths, images, prefix: Optional[Prefix],
+                        cache_len: int):
+        """Seed the prefix (if any) into a new cache of `cache_len` slots and
+        prefill the packed prompts: in one pass within the largest bucket,
+        else chunk by chunk (JAX engine.py:345-397). Returns (first-step
+        logits [B, V], cache)."""
+        b, s = tokens.shape
+        cache = self._new_cache(b, cache_len)
+        if prefix is not None:
+            p_len = prefix.length
+            sp_keep = min(round_up(p_len, 512), prefix.cache.kv.shape[2], cache_len)
+            _seed_prefix(cache, prefix.cache, p_len, sp_keep)
+        feats = self._features(images)
+        chunk = self.seq_buckets[-1]
+        if s <= chunk:
+            # with a prefix the suffix is a continuation: it attends over the
+            # seeded cache from positions that start at the prefix length
+            return _prefill(self.model, self._tensor(tokens), self._tensor(seg), cache,
+                            feats, fresh=prefix is None)
+        # chunked prefill above the largest bucket: row r's image tokens of
+        # chunk j take the feature rows after those of rows < r and of its
+        # own earlier chunks
+        img_cum = np.cumsum(tokens == self.cfg.image_token_id, axis=1)
+        global_base = np.concatenate([[0], np.cumsum(img_cum[:, -1])[:-1]])
+        final_chunk = (np.maximum(np.asarray(lengths), 1) - 1) // chunk
+        first_logits = None
+        for j in range(s // chunk):
+            sl = slice(j * chunk, (j + 1) * chunk)
+            offs = global_base + (img_cum[:, j * chunk - 1] if j else 0)
+            logits_j, cache = _prefill(
+                self.model, self._tensor(tokens[:, sl]), self._tensor(seg[:, sl]), cache,
+                feats, fresh=j == 0 and prefix is None,
+                feat_offsets=self._tensor(offs) if feats is not None else None,
+            )
+            # keep the logits from the chunk holding each row's last token;
+            # rows that ended earlier write seg-0 slots in later chunks
+            pick = self._tensor(final_chunk == j)[:, None]
+            first_logits = logits_j if first_logits is None else torch.where(
+                pick, logits_j, first_logits)
+        return first_logits, cache
+
+    @torch.inference_mode()
+    def prefill(self, prompts: Sequence[np.ndarray], images=None,
+                prefix: Optional[Prefix] = None):
+        """The prefill of `generate` alone: the first-step logits [B, V] fp32
+        and the filled cache, of round_up(prefix + bucket, 512) slots."""
+        tokens, seg, lengths, s = self._pack(prompts)
+        p_len = prefix.length if prefix is not None else 0
+        return self._prefill_packed(tokens, seg, lengths, images, prefix,
+                                    round_up(p_len + s, 512))
+
     @torch.inference_mode()
     def generate(
         self,
         prompts: Sequence[np.ndarray],
         images=None,                      # [N_tiles, ...], batch-ordered
         gen_cfg: Optional[GenerateConfig] = None,
-        spec=None,
-        prefix=None,
-        return_prefix: bool = False,
+        max_cache: Optional[int] = None,
+        spec=None,                        # SpecConfig: speculative decode
+        prefix: Optional[Prefix] = None,  # a shared prefilled prefix
+        return_prefix: bool = False,      # one row: the post-decode KV as
+        #                                   the next turn's prefix
     ) -> GenerationResult:
-        if spec is not None:
-            raise NotImplementedError("speculative decoding is not in the port yet")
-        if prefix is not None or return_prefix:
-            raise NotImplementedError("prefix caching is not in the port yet")
         gen_cfg = gen_cfg or self.gen_cfg
+        # what the JAX engine refuses (engine.py:290-308)
+        if return_prefix and (len(prompts) != 1 or spec is not None):
+            raise ValueError("return_prefix is for single-row conversations without "
+                             "speculative decoding")
+        if spec is not None and not (gen_cfg.greedy and gen_cfg.repetition_penalty == 1.0):
+            raise ValueError("speculative decoding is greedy-only (inference/speculative.py)")
+        if prefix is not None and spec is not None:
+            raise ValueError("prefix caching + speculative decode not supported (the n-gram "
+                             "history buffer would need the prefix tokens)")
+        if prefix is not None and gen_cfg.repetition_penalty != 1.0:
+            raise ValueError("repetition_penalty scans only the suffix tokens; with a prefix "
+                             "the penalty would silently ignore prefix tokens")
         b = len(prompts)
-        lengths = [len(p) for p in prompts]
-        s = self._bucket(max(lengths), self.seq_buckets)
-        if s > self.seq_buckets[-1]:
-            raise NotImplementedError(
-                f"prompt of {max(lengths)} tokens is above the largest bucket "
-                f"({self.seq_buckets[-1]}); chunked prefill is not in the port yet"
-            )
-        tokens = np.zeros((b, s), np.int32)
-        seg = np.zeros((b, s), np.int32)
-        for i, p in enumerate(prompts):
-            tokens[i, : len(p)] = p
-            seg[i, : len(p)] = 1
-        tokens_t = torch.from_numpy(tokens).to(self.device)
-        seg_t = torch.from_numpy(seg).to(self.device)
+        max_new = gen_cfg.max_new_tokens
+        tokens, seg, lengths, s = self._pack(prompts)
         # round to 512 rather than to the next bucket: a bucket-sized prompt
-        # plus new tokens would otherwise nearly double the cache
-        cache_len = round_up(s + gen_cfg.max_new_tokens, 512)
-        cache = KVCache.create(self.cfg.text, b, cache_len, device=self.device,
-                               quantized=self.quantize_kv)
-
-        feats = None
-        if images is not None and images.shape[0] > 0:
-            feats = self.encode_images(images)
-        first_logits, cache = _prefill(self.model, tokens_t, seg_t, cache, feats)
-        generator = torch.Generator(device=self.device).manual_seed(gen_cfg.seed)
-        gen_buf, gen_mask, lp_buf = _decode(
-            self.model, gen_cfg, first_logits, tokens_t, seg_t, cache,
-            generator, gen_cfg.max_new_tokens,
-        )
+        # plus new tokens would otherwise nearly double the cache. A verify
+        # block of speculative decode writes draft + 1 slots from the last
+        # token, hence the headroom (JAX engine.py:318-344)
+        spec_pad = spec.draft if spec is not None else 0
+        p_len = prefix.length if prefix is not None else 0
+        need = p_len + s + max_new + spec_pad
+        cache_len = max_cache or round_up(need, 512)
+        if cache_len < need:
+            # checked before any write, where the JAX engine clamps the
+            # writes into live slots: an index store outside the cache would
+            # raise a device-side assert on the card
+            raise ValueError(
+                f"max_cache {cache_len} < prefix {p_len} + bucket {s} + max_new {max_new}"
+                + (f" + {spec_pad}, the verify-block headroom of speculative decode"
+                   if spec_pad else ""))
+        first_logits, cache = self._prefill_packed(tokens, seg, lengths, images, prefix,
+                                                   cache_len)
+        spec_rounds = None
+        if spec is not None:
+            # history buffer for the n-gram lookup: the prompt, then the
+            # generated tokens appended per row
+            hist0 = np.zeros((b, s + max_new), np.int32)
+            hist0[:, :s] = tokens
+            gen_buf, gen_mask, lp_buf, spec_rounds = _spec_decode(
+                self.model, gen_cfg, first_logits, self._tensor(hist0),
+                self._tensor(np.asarray(lengths, np.int32)), cache, max_new,
+                spec.ngram, spec.draft,
+            )
+        else:
+            generator = torch.Generator(device=self.device).manual_seed(gen_cfg.seed)
+            gen_buf, gen_mask, lp_buf = _decode(
+                self.model, gen_cfg, first_logits, self._tensor(tokens), self._tensor(seg),
+                cache, generator, max_new, write_last=return_prefix,
+            )
         gen_buf, gen_mask, lp_buf = (t.cpu().numpy() for t in (gen_buf, gen_mask, lp_buf))
         out, out_lp = [], []
         for i in range(b):
@@ -199,4 +367,15 @@ class Engine:
                 row, lps = row[:n], lps[:n]
             out.append(row)
             out_lp.append(lps)
-        return GenerationResult(tokens=out, prompt_lengths=lengths, logprobs=out_lp)
+        new_prefix = None
+        if return_prefix:
+            # the cache holds prefix + prompt + every emitted token's KV, the
+            # eos included (a valid turn-end position)
+            emitted = gen_buf[0][gen_mask[0]]
+            p_tokens = prefix.tokens if prefix is not None else np.zeros((0,), np.int32)
+            new_prefix = Prefix(
+                cache=cache, length=int(p_len + lengths[0] + emitted.size),
+                tokens=np.concatenate([p_tokens, np.asarray(prompts[0], np.int32), emitted]),
+            )
+        return GenerationResult(tokens=out, prompt_lengths=lengths, logprobs=out_lp,
+                                prefix=new_prefix, spec_rounds=spec_rounds)

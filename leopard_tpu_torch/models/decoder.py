@@ -7,15 +7,19 @@ invariant, slot == absolute position, but is updated IN PLACE: each layer
 scatters its new tokens into the stacked buffer (the JAX package threads an
 immutable cache through its layer scan instead).
 
-Attention tiers (JAX decoder.py:482-504): a continuation step into a
-non-empty cache (decode) is the dense masked sweep over the cache; a
-sequence of at least `long_seq_threshold` tokens without a cache, or into a
-fresh cache, takes the flash tier; shorter ones take dense. On a CUDA tensor
-the flash tier is the Hopper kernel; on a CPU tensor it is the kernel's plain
-version, which stands in for the JAX package's CPU chunked tier (the same
-function). `attn_impl="dense"` and `"flash"` force a tier. Not in this slice
-(they raise): MoE, tied embeddings, the chunked continuation tier; context
-parallelism is not ported either.
+Attention tiers (JAX decoder.py:482-504): a continuation into a non-empty
+cache of fewer than `long_seq_threshold` tokens (a decode step, a verify
+block, a short suffix) is the dense masked sweep over the cache; a longer
+one (a second turn, a later chunk of a chunked prefill) takes the chunked
+continuation tier, `ops/chunked_attention.py`, which holds the scores of
+one kv chunk at a time. A sequence of at least `long_seq_threshold` tokens
+without a cache, or into a fresh cache, takes the flash tier; shorter ones
+take dense. On a CUDA tensor the flash tier is the Hopper kernel; on a CPU
+tensor it is the kernel's plain version, which stands in for the JAX
+package's CPU chunked tier (the same function). `attn_impl="dense"` and
+`"flash"` force a tier for uncached and fresh-cache calls. Not in the port
+(they raise): MoE, tied embeddings; context parallelism is not ported
+either.
 
 Training (JAX decoder.py:435-634 with `return_hidden` and `remat`): packed
 rows carry multi-valued segment ids and positions that restart in each
@@ -45,6 +49,7 @@ from torch import nn
 from leopard_tpu_torch.config import TextConfig
 from leopard_tpu_torch.models.params import Params, new_param, torch_dtype
 from leopard_tpu_torch.ops.attention import attention, attention_quant_kv, make_attention_mask
+from leopard_tpu_torch.ops.chunked_attention import chunked_continuation_attention, pick_chunk
 from leopard_tpu_torch.ops.flash_attention import TileRanges, flash_attention, tile_ranges
 from leopard_tpu_torch.ops.norms import rms_norm
 from leopard_tpu_torch.ops.quant import is_quantized, matmul
@@ -127,6 +132,7 @@ class DecoderLayer(nn.Module):
         layer_idx: int,
         slots: Optional[torch.Tensor],         # [B, S] cache slots of the new tokens
         fresh_cache: bool,
+        positions: Optional[torch.Tensor] = None,  # [B, S] (chunked_cont)
     ) -> torch.Tensor:
         b, s, _ = x.shape
         a = self.attn
@@ -162,6 +168,14 @@ class DecoderLayer(nn.Module):
                 q, k, v, causal=True,
                 q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
                 sliding_window=cfg.sliding_window, ranges=ranges,
+            )
+        elif attn_impl == "chunked_cont":
+            # the layer's cache slice after this call's writes (JAX decoder.py:373-390)
+            ck, ck_s, cv, cv_s = quant_kv if quant_kv is not None else (k, None, v, None)
+            o = chunked_continuation_attention(
+                q, ck, cv, cache.seg, positions, k_scale=ck_s, v_scale=cv_s,
+                sliding_window=cfg.sliding_window,
+                chunk_size=pick_chunk(ck.shape[1], cfg.attn_chunk_size),
             )
         elif quant_kv is not None:
             o = attention_quant_kv(q, *quant_kv, mask=mask)
@@ -221,12 +235,7 @@ class Decoder(nn.Module):
     def _attn_impl(self, s: int, cache: Optional[KVCache], fresh_cache: bool) -> str:
         cfg = self.cfg
         if cache is not None and not fresh_cache:
-            if s >= cfg.long_seq_threshold:
-                raise NotImplementedError(
-                    "continuation prefill into a filled cache (the chunked "
-                    "continuation tier) is not in the port yet"
-                )
-            return "dense"
+            return "chunked_cont" if s >= cfg.long_seq_threshold else "dense"
         impl = cfg.attn_impl
         if impl == "auto":
             impl = "flash" if s >= cfg.long_seq_threshold else "dense"
@@ -274,8 +283,8 @@ class Decoder(nn.Module):
             rows = torch.arange(b, device=dev)[:, None]
             cache.seg[rows, slots] = segment_ids.to(torch.int32)
 
-        mask = None
-        if cache is not None and not fresh_cache:
+        mask = None  # chunked_cont masks each kv chunk from the positions and the seg
+        if attn_impl == "dense" and cache is not None and not fresh_cache:
             # slot == absolute position (see KVCache)
             kv_pos = torch.arange(cache.seg.shape[1], device=dev)[None, :]
             mask = (positions[:, :, None] >= kv_pos[:, None, :]) & (cache.seg != 0)[:, None, :]
@@ -298,7 +307,7 @@ class Decoder(nn.Module):
             x = run(
                 x, cfg, cos, sin, attn_impl=attn_impl, mask=mask,
                 segment_ids=segment_ids, ranges=ranges, cache=cache, layer_idx=i,
-                slots=slots, fresh_cache=fresh_cache,
+                slots=slots, fresh_cache=fresh_cache, positions=positions,
             )
         if cache is not None:
             cache.index = cache.index + (segment_ids != 0).sum(dim=1, dtype=torch.int32)

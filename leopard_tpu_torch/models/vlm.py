@@ -84,17 +84,21 @@ class LeopardVLM(nn.Module):
         return_hidden: bool = False,
         remat=False,                                    # "none" | "full"
         remat_vision=None,                              # None: same as remat
+        feature_row_offsets: Optional[torch.Tensor] = None,  # [B] chunked prefill
     ):
         """Returns (logits [B, S, V] fp32, the cache or None); with
         `return_hidden`, the decoder's final-normed hidden states in place of
-        the logits (JAX vlm.py:105-168)."""
+        the logits (JAX vlm.py:105-168). `feature_row_offsets` maps one
+        chunk's image tokens to their rows of the whole prompt's features
+        (see splice_image_features)."""
         embeds = F.embedding(tokens.clamp(min=0), self.text.embed_tokens)
         if image_features is None and images is not None:
             image_features = self.encode_images(
                 images, remat=remat if remat_vision is None else remat_vision)
         if image_features is not None:
             embeds = splice_image_features(
-                embeds, image_features, tokens == self.cfg.image_token_id
+                embeds, image_features, tokens == self.cfg.image_token_id,
+                row_offsets=feature_row_offsets,
             )
         return self.text(
             input_embeds=embeds, positions=positions, segment_ids=segment_ids, cache=cache,

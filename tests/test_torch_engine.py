@@ -24,6 +24,7 @@ from leopard_tpu.models import vlm as jvlm
 from leopard_tpu_torch.convert.from_jax import state_dict_from_jax
 from leopard_tpu_torch.inference import sampling as tsampling
 from leopard_tpu_torch.inference.engine import Engine
+from leopard_tpu_torch.inference.speculative import SpecConfig
 from leopard_tpu_torch.models import decoder as tdecoder
 from leopard_tpu_torch.models import vlm as tvlm
 
@@ -137,19 +138,35 @@ def test_engine_rejects_an_unknown_quantize_mode(engines):
         Engine(teng.cfg, teng.model, quantize="fp8")
 
 
-@pytest.mark.parametrize("kw", [dict(spec=object()), dict(prefix=object()),
-                                dict(return_prefix=True)], ids=["spec", "prefix", "return_prefix"])
+@pytest.mark.parametrize("kw", ["spec", "prefix", "return_prefix"])
 def test_generate_rejects_what_the_port_lacks(engines, kw):
+    """Speculative decode, prefixes and return_prefix are ported; what the
+    JAX engine refuses of them (engine.py:290-308), the port refuses too:
+    speculative decode with sampling, a prefix with a repetition penalty,
+    return_prefix over more than one row."""
     _, teng = engines
     prompts, _ = _requests(teng.cfg)
-    with pytest.raises(NotImplementedError):
-        teng.generate(prompts[2:], **kw)
+    args = {
+        "spec": dict(spec=SpecConfig(), gen_cfg=GenerateConfig(greedy=False, temperature=0.7)),
+        "prefix": dict(prefix=teng.build_prefix(prompts[2]),
+                       gen_cfg=GenerateConfig(repetition_penalty=1.2)),
+        "return_prefix": dict(return_prefix=True),
+    }[kw]
+    rows = prompts[1:] if kw == "return_prefix" else prompts[2:]
+    with pytest.raises(ValueError):
+        teng.generate(rows, **args)
 
 
 def test_generate_rejects_prompts_above_the_largest_bucket(engines):
-    _, teng = engines
-    with pytest.raises(NotImplementedError, match="chunked prefill"):
-        teng.generate([np.ones(SEQ_BUCKETS[-1] + 1, np.int32)])
+    """A prompt above the largest bucket is prefilled in chunks; with a
+    `max_cache` too small for its chunks it is refused before any write
+    (the JAX engine would clamp the writes into the cache's last slots)."""
+    jeng, teng = engines
+    prompt = np.arange(1, SEQ_BUCKETS[-1] + 2, dtype=np.int32)
+    with pytest.raises(ValueError, match="max_cache"):
+        teng.generate([prompt], max_cache=SEQ_BUCKETS[-1] + 8)
+    gen = GenerateConfig(max_new_tokens=3, eos_token_ids=(128001,))
+    _assert_same(jeng.generate([prompt], gen_cfg=gen), teng.generate([prompt], gen_cfg=gen))
 
 
 def _logits(seed, b=3, v=50):

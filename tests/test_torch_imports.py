@@ -22,8 +22,12 @@ jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not jax_mods, jax_mods
 jax_pkg = sorted(m for m in sys.modules if m == "leopard_tpu" or m.startswith("leopard_tpu."))
 assert not jax_pkg, jax_pkg
-print(len(names))
+print(" ".join(names))
 """
+# modules that must exist and import without JAX (each slice adds its own)
+REQUIRED = ("ops.flash_attention", "ops.int4_matmul", "ops.fused_norms",
+            "ops.chunked_attention", "inference.engine", "inference.speculative",
+            "inference.beam", "training.trainer")
 
 
 def _run(args, cwd):
@@ -35,7 +39,10 @@ def _run(args, cwd):
 def test_port_imports_every_module_without_jax():
     proc = _run(["-c", IMPORT_ALL], cwd=REPO)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15  # every module of the package
+    names = set(proc.stdout.split())
+    assert len(names) >= 15  # every module of the package
+    missing = [m for m in REQUIRED if "leopard_tpu_torch." + m not in names]
+    assert not missing, missing
 
 
 def test_chip_smoke_fails_without_a_gpu():
