@@ -15,12 +15,14 @@ script exits non-zero without printing a result:
      also their TF/s over attended pairs, the fraction of the bound, and
      SDPA over the attended rows or segments alone, since the unsegmented
      SDPA call does up to 2x the work of a kernel that skips tiles): K1 in
-     bf16 at the serving path's shapes (vision tower and decoder prefill); K2 at the
+     bf16 at the serving path's shapes (vision tower, decoder prefill, and
+     the decoder prefills that phase 16's pool stages); K2 at the
      train path's shapes (the decoder's packed two-segment rows with a
      padding tail, the tower's 16 tiles at head dim 72); K3a/K3b at the
      train path's rows, (8192, 4096) RMSNorm and (16·676, 1152) LayerNorm,
      cold L2;
-     K4 at the 8B decode shapes (M = 2, and M = 64 once, cold L2) against its
+     K4 at the 8B decode shapes (M = 2, M = 8 as in the slot pool's decode,
+     and M = 64 once, cold L2) against its
      plain version and the fp32 oracle, with its GB/s, tinygemm's time
      (torch._weight_int4pack_mm, bf16 scales), F.linear's on the bf16 weight
      it replaces, and host µs per call of both, per shape and per step;
@@ -58,7 +60,29 @@ script exits non-zero without printing a result:
      draft), and beam search (width 4, 16 tokens);
      phases 10-14 hold logits at cosine >= 0.99 and report, without gating
      on it, whether the tokens agree;
- 15. training at the width of Leopard-LLaVA-8B with the text depth cut to 4
+ 15. the HTTP server (GenerationServer on 127.0.0.1, a free port, in a
+     thread; bf16): /api/generate with two text prompts (bucket 4,096, K1 in
+     the decoder) against Engine.generate on the same ids, a two-turn
+     /api/chat against generate(return_prefix=True) and generate(prefix=),
+     two seeded noise PNGs through anyres tiling where Pillow imports
+     against generate on the server's own _prepare_row output (K1 in the
+     tower counted), and Predictor.predict_file against
+     generate_and_post_process; the smoke's own byte-level tokenizer;
+ 16. continuous batching (bf16): ContinuousEngine with 8 slots over 16
+     requests (4 of 16 tiles + 300 text tokens, 12 of 100-1,800 text
+     tokens, budgets from {8, 16, 32, 64}): every budget met, the image
+     requests' first tokens equal to serial generate's, the staged
+     prefills' first-step logits against Engine.prefill (cosine per row),
+     K1/K3 launch counts against the staged buckets and segments, every
+     decoder shape K1 ran at held in phase 3, no K1 input copied; per request, agreement with serial greedy (reported,
+     not gated); tokens/s, TTFT p50/p99, the pool's stats, and the same
+     queue served statically in groups of 8;
+ 17. continuous batching with int4 weights, the int8 KV cache and a shared
+     1,000-token prefix: 8 text requests, K4 launches per decode step and
+     prefill, every (M, matmul) K4 ran at held in phase 3, staged logits against Engine.prefill(prefix=), a request
+     whose bucket would run past the cache refused with ValueError, then
+     the same queue served again token for token;
+ 18. training at the width of Leopard-LLaVA-8B with the text depth cut to 4
      of 32 (the 8B train state, ~18 B a parameter, does not fit one 80 GB
      card), seeded random weights, 2 rows × 4,096 tokens each packing two
      samples (positions restarting per segment, a padding tail) with 16
@@ -70,7 +94,7 @@ script exits non-zero without printing a result:
      and K3 launch counts of every step against the layer counts, no K1/K2
      input copied, step ms,
      tokens/s and peak memory;
- 16. no JAX was imported.
+ 19. no JAX was imported.
 Each engine is freed after its phase, with the phase's peak device memory
 printed. Then the card's name and power limit as nvidia-smi prints them, one
 JSON line with every kernel ({"kernels": [...]}) and, last, the JSON line
@@ -129,12 +153,22 @@ TRAIN_SEQ = 4096
 TRAIN_ROWS = ((2100, 1900), (1700, 2300))  # sample lengths; the rest is padding
 TRAIN_TILES_PER_SAMPLE = 4
 TRAIN_STEPS = 3
-# phase 3's K1 shapes: the vision tower at 16 and 32 tiles and the decoder
-# prefill of two right-padded rows; rows: each row's segment lengths or None
+# phase 3's K1 shapes: the vision tower at 16 and 32 tiles, the decoder
+# prefill of two right-padded rows, the decoder prefills that phase 16's
+# pool stages (an image request alone, text blocks of 2 and 4 rows at bucket
+# 2,048, with that queue's prompt lengths) and phase 15's PNG request (one
+# row at 2,048); rows: each row's segment lengths or None. Phase 16 fails if
+# its pool runs K1 at a decoder (rows, bucket) that is not here.
 K1_SHAPES = {
     "vision_b16": dict(b=16, s=676, hq=16, hkv=16, d=72, causal=False, rows=None),
     "vision_b32": dict(b=32, s=676, hq=16, hkv=16, d=72, causal=False, rows=None),
     "decoder": dict(b=2, s=4096, hq=32, hkv=8, d=128, causal=True, rows=((4096,), (2900,))),
+    "decoder_b1": dict(b=1, s=4096, hq=32, hkv=8, d=128, causal=True, rows=((3004,),)),
+    "decoder_b1_2048": dict(b=1, s=2048, hq=32, hkv=8, d=128, causal=True, rows=((1412,),)),
+    "decoder_b2_2048": dict(b=2, s=2048, hq=32, hkv=8, d=128, causal=True,
+                            rows=((1238,), (1520,))),
+    "decoder_b4_2048": dict(b=4, s=2048, hq=32, hkv=8, d=128, causal=True,
+                            rows=((612,), (1043,), (294,), (1660,))),
 }
 
 
@@ -1115,6 +1149,416 @@ def continuation_timing(cfg, prefix_len, new_tokens, device, card):
             "working_gib": extra_gib}
 
 
+# phases 15-17: the serving front end (HTTP server, text API) and the slot
+# pool of continuous batching, at 8B (phase 17: int4 weights, int8 KV and a
+# shared prefix)
+CHAT_TEXT = (3000, 300)            # characters of the two chat turns
+SERVER_TEXT = (1500, 3000)         # characters of the two /api/generate prompts
+SERVER_BUDGETS = [8, 16]
+SERVER_PNGS = ((728, 364), (364, 1092))   # (width, height) of the posted images
+POOL = dict(slots=8, cache_len=4608, max_new_cap=64, segment_steps=16)
+POOL_QUEUE, POOL_IMAGE_AT = 16, (0, 5, 10, 15)
+POOL_TEXT = (100, 1800)            # text requests' lengths, drawn uniformly
+POOL_BUDGETS = (8, 16, 32, 64)
+POOL_INT4 = dict(slots=8, cache_len=2560, max_new_cap=32, segment_steps=16)
+POOL_INT4_PREFIX, POOL_INT4_TEXT, POOL_INT4_BUDGETS = 1000, (100, 900), (8, 32)
+NO_EOS = 999999                    # an eos id no request reaches: each ends by its budget
+
+
+class ByteTokenizer:
+    """The smoke's own tokenizer: a character is ord(c) % 1000; the Llama-3
+    header and eot strings and the reserved tokens are their ids; decode
+    joins the ids. add_special_tokens puts BOS first."""
+
+    bos_token_id = 128000
+    SPECIALS = {"<|start_header_id|>": 128006, "<|end_header_id|>": 128007,
+                "<|eot_id|>": 128009}
+
+    def __call__(self, text, add_special_tokens=False):
+        ids = [self.bos_token_id] if add_special_tokens else []
+        i = 0
+        while i < len(text):
+            special = next((s for s in self.SPECIALS if text.startswith(s, i)), None)
+            if special is not None:
+                ids.append(self.SPECIALS[special])
+                i += len(special)
+            else:
+                ids.append(ord(text[i]) % 1000)
+                i += 1
+        return {"input_ids": ids}
+
+    def convert_tokens_to_ids(self, tok):
+        import re
+
+        m = re.fullmatch(r"<\|reserved_special_token_(\d+)\|>", tok)
+        return 128010 + int(m.group(1)) - 5 if m else None
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(str(i) for i in ids)
+
+
+def random_text(rng, n):
+    return "".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz ,."), size=n))
+
+
+def noise_png(rng, w, h) -> str:
+    import base64
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(rng.randint(0, 256, (h, w, 3), dtype=np.uint8)).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def http_call(url, payload=None):
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    with urllib.request.urlopen(urllib.request.Request(url, data=data), timeout=300) as r:
+        return r.status, json.loads(r.read())
+
+
+def server_phase(engine, cfg, launches, card):
+    """Phase 15: GenerationServer over HTTP on 127.0.0.1 (bf16): two text
+    prompts, a two-turn chat, two PNGs where Pillow imports, and
+    Predictor.predict_file, each against the engine called directly."""
+    import tempfile
+    import threading
+    import urllib.error
+
+    from leopard_tpu_torch.config import GenerateConfig
+    from leopard_tpu_torch.inference.api import Predictor, generate_and_post_process
+    from leopard_tpu_torch.inference.server import GenerationServer
+
+    tok = ByteTokenizer()
+    rng = np.random.RandomState(SEED + 15)
+    lt, lv = cfg.text.num_layers, cfg.vision.num_layers
+    server = GenerationServer(engine, tok, host="127.0.0.1", port=0)
+    httpd = server.http_server()
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    rec = {}
+    try:
+        deadline = time.perf_counter() + 30
+        while True:
+            try:
+                if http_call(url + "/health") == (200, {"status": "ok"}):
+                    break
+            except (urllib.error.URLError, ConnectionError):
+                if time.perf_counter() > deadline:
+                    raise
+            time.sleep(0.05)
+
+        # (a) two text prompts, packed at bucket 4,096: K1 in the decoder
+        prompts = [random_text(rng, n) for n in SERVER_TEXT]
+        payload = {"prompts": prompts, "max_new_tokens": SERVER_BUDGETS, "greedy": True,
+                   "eos_token_ids": [NO_EOS]}
+        with launches:
+            status, out = http_call(url + "/api/generate", payload)
+        counts = launches.counts
+        ids = [np.asarray(tok(p, add_special_tokens=True)["input_ids"], np.int32)
+               for p in prompts]
+        steps = max(SERVER_BUDGETS)
+        direct = engine.generate(ids, gen_cfg=GenerateConfig(max_new_tokens=steps,
+                                                             eos_token_ids=(NO_EOS,)))
+        want = [t[:b].tolist() for t, b in zip(direct.tokens, SERVER_BUDGETS)]
+        if status != 200 or out["tokens"] != want:
+            raise AssertionError(f"/api/generate: {status}, tokens {out.get('tokens')} != {want}")
+        expect("/api/generate", counts, {"flash_attention": lt, "fused_layer_norm": 0,
+                                         "fused_rms_norm": (2 * lt + 1) * steps})
+        rec["generate"] = {"prompt_tokens": [len(i) for i in ids], "launches": counts}
+
+        # (b) a two-turn chat against generate(return_prefix / prefix=)
+        sid = "smoke"
+        turns = [random_text(rng, n) for n in CHAT_TEXT]
+        gen = GenerateConfig(max_new_tokens=8, eos_token_ids=(NO_EOS,))
+        prefix, chat = None, []
+        for text in turns:
+            status, out = http_call(url + "/api/chat", {
+                "session_id": sid, "prompt": text, "max_new_tokens": 8, "greedy": True,
+                "eos_token_ids": [NO_EOS]})
+            turn_ids = np.asarray(tok(text, add_special_tokens=True)["input_ids"], np.int32)
+            res = engine.generate([turn_ids], gen_cfg=gen, prefix=prefix, return_prefix=True)
+            prefix = res.prefix
+            if (status != 200 or out["tokens"] != res.tokens[0].tolist()
+                    or out["context_tokens"] != prefix.length):
+                raise AssertionError(f"/api/chat turn {len(chat) + 1}: {status} {out} != "
+                                     f"{res.tokens[0].tolist()}, context {prefix.length}")
+            chat.append(out["context_tokens"])
+        if http_call(url + "/api/chat", {"session_id": sid, "reset": True}) != (
+                200, {"status": "reset"}) or sid in server._sessions:
+            raise AssertionError("/api/chat reset failed")
+        rec["chat_context_tokens"] = chat
+
+        # (c) two PNGs, where Pillow imports on this machine
+        try:
+            import PIL  # noqa: F401
+            pil = True
+        except ImportError:
+            pil = False
+        rec["pil"] = pil
+        if pil:
+            from leopard_tpu_torch.inference.server import _decode_images
+
+            pngs = [noise_png(rng, w, h) for w, h in SERVER_PNGS]
+            text = "<image> and <image>: " + random_text(rng, 200)
+            payload = {"prompts": [text], "images": [pngs], "max_new_tokens": 8,
+                       "greedy": True, "eos_token_ids": [NO_EOS]}
+            with launches:
+                status, out = http_call(url + "/api/generate", payload)
+            counts = launches.counts
+            row_ids, tiles = server._prepare_row(text, _decode_images(pngs))
+            res = engine.generate([row_ids], images=tiles, gen_cfg=gen)
+            if status != 200 or out["tokens"] != [res.tokens[0].tolist()]:
+                raise AssertionError(f"/api/generate with images: {status} {out} != "
+                                     f"{res.tokens[0].tolist()}")
+            bucket = engine._bucket(len(row_ids), engine.seq_buckets)
+            expect("/api/generate with images", counts, {
+                "flash_attention": lv + (lt if bucket >= cfg.text.long_seq_threshold else 0),
+                "fused_layer_norm": 2 * lv + 1})
+            rec["images"] = {"tiles": int(tiles.shape[0]), "prompt_tokens": len(row_ids),
+                             "bucket": bucket, "launches": counts}
+
+        # (d) Predictor.predict_file against generate_and_post_process
+        lines = [random_text(rng, n) for n in (60, 200, 120, 30)]
+        with tempfile.TemporaryDirectory() as tmp:
+            src, dst = Path(tmp) / "in.jsonl", Path(tmp) / "out.jsonl"
+            src.write_text("".join(json.dumps({"prompt": p}) + "\n" for p in lines))
+            Predictor(engine, tok, gen).predict_file(str(src), str(dst), batch_size=2)
+            got = [json.loads(line) for line in dst.read_text().splitlines()]
+        want = [text for i in (0, 2) for text in
+                generate_and_post_process(engine, tok, lines[i:i + 2], gen).texts]
+        if [g["prompt"] for g in got] != lines or [g["output"] for g in got] != want:
+            raise AssertionError(f"predict_file: {got} != {want}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    print(f"server: HTTP on 127.0.0.1; /api/generate 2 prompts {rec['generate']['prompt_tokens']} "
+          f"tokens, budgets {SERVER_BUDGETS}, launches {rec['generate']['launches']}; "
+          f"/api/chat 2 turns, context {chat} tokens; images {json.dumps({'pil': pil})} "
+          f"{rec.get('images', '')}; predict_file 4 lines equal generate_and_post_process; "
+          f"tokens identical to the engine's [{card}]", flush=True)
+    return rec
+
+
+def pool_queue(cfg, rng):
+    """Phase 16's queue: 16 requests, image ones (16 uint8 tiles + 300 text
+    tokens) at POOL_IMAGE_AT, text ones of POOL_TEXT tokens; budgets drawn
+    from POOL_BUDGETS."""
+    from leopard_tpu_torch.inference.continuous import Request
+
+    reqs = []
+    for i in range(POOL_QUEUE):
+        budget = int(rng.choice(POOL_BUDGETS))
+        if i in POOL_IMAGE_AT:
+            prompt, tiles = tile_prompt(cfg, rng, TILES_PER_REQUEST, 300, bos=False)
+            reqs.append(Request(prompt=prompt, max_new_tokens=budget, images=tiles))
+        else:
+            n = int(rng.randint(POOL_TEXT[0], POOL_TEXT[1] + 1))
+            reqs.append(Request(prompt=rng.randint(0, 128000, n).astype(np.int32),
+                                max_new_tokens=budget))
+    return reqs
+
+
+def staged_logits_agree(label, cont, reqs, prefix=None):
+    """First-step logits of the pool's staged prefills (_prefill_one per
+    image request, _prefill_block over the text requests in blocks of at
+    most 8) against Engine.prefill of each prompt alone."""
+    import torch
+
+    eng = cont.engine
+    got, want = [], []
+    text = [r for r in reqs if r.images is None]
+    for r in reqs:
+        if r.images is not None:
+            got.append(cont._prefill_one(r, prefix)[0])
+            want.append(eng.prefill([r.prompt], images=r.images, prefix=prefix)[0])
+    for i in range(0, len(text), 8):
+        part = text[i:i + 8]
+        nb = 1 << (len(part) - 1).bit_length()
+        got.append(cont._prefill_block(part, nb, prefix)[0][: len(part)])
+        want += [eng.prefill([r.prompt], prefix=prefix)[0] for r in part]
+    cos, _ = logits_agree(label, torch.cat(got), torch.cat(want))
+    return cos
+
+
+def run_pool(cont, reqs, launches, gen, prefix=None):
+    """One timed run of the pool, with every kernel counted."""
+    import torch
+
+    from leopard_tpu_torch.ops.flash_attention import flash_attention
+
+    flash_attention.copies = 0
+    with launches:
+        t0 = time.perf_counter()
+        out = cont.run(reqs, gen_cfg=gen, prefix=prefix)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, wall, launches.counts, flash_attention.copies
+
+
+def pool_report(cont, reqs, wall):
+    """Tokens/s, TTFT percentiles, and the host ms a segment step: the run's
+    wall time less staging and refills, over the segments' steps."""
+    ttft = sorted(cont.ttft.values())
+    tokens = sum(r.max_new_tokens for r in reqs)
+    st = cont.stats
+    steps = cont.segment_steps * st["segments"]
+    return {"wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "segment_step_ms": (wall - st["stage_s"] - st["refill_s"]) / steps * 1e3,
+            "ttft_p50_s": float(np.percentile(ttft, 50)),
+            "ttft_p99_s": float(np.percentile(ttft, 99)),
+            "stats": dict(cont.stats)}
+
+
+def continuous_phase(engine, cfg, launches, card):
+    """Phase 16: the slot pool in bf16 over a queue of image and text
+    requests; launch counts, budgets, the image requests' first tokens and
+    the staged prefills' logits; then throughput, TTFT and the same queue
+    served statically in groups of 8."""
+    from leopard_tpu_torch.config import GenerateConfig
+    from leopard_tpu_torch.inference.continuous import ContinuousEngine
+
+    reqs = pool_queue(cfg, np.random.RandomState(SEED + 16))
+    cont = ContinuousEngine(engine, **POOL)
+    gen = GenerateConfig(eos_token_ids=(NO_EOS,))
+    out, wall1, counts, copies = run_pool(cont, reqs, launches, gen)
+    staged = [tuple(shape) for shape in cont.stats["staged_shapes"]]
+    got = [c.tokens.tolist() for c in out]
+    if [len(t) for t in got] != [r.max_new_tokens for r in reqs]:
+        raise AssertionError(f"pool: lengths {[len(t) for t in got]} != budgets "
+                             f"{[r.max_new_tokens for r in reqs]}")
+    if copies:
+        raise AssertionError(f"pool: K1 copied {copies} inputs")
+    lt, lv = cfg.text.num_layers, cfg.vision.num_layers
+    thr = cfg.text.long_seq_threshold
+    n_img = sum(r.images is not None for r in reqs)
+    forwards = len(staged) + POOL["segment_steps"] * cont.stats["segments"]
+    # K1: the tower of each image request, the decoder of each staged prefill
+    # whose bucket reaches the flash tier (at 8B: 59 an image request, 32 a
+    # text block of bucket 2,048)
+    flash = [(rows, bucket) for rows, bucket in staged if bucket >= thr]
+    expect("pool", counts, {
+        "flash_attention": lv * n_img + lt * len(flash),
+        "fused_layer_norm": (2 * lv + 1) * n_img,
+        "fused_rms_norm": (2 * lt + 1) * forwards})
+    checked = {(kw["b"], kw["s"]) for kw in K1_SHAPES.values() if kw["causal"]}
+    if set(flash) - checked:
+        raise AssertionError(f"pool: K1 ran in the decoder at [rows, bucket] "
+                             f"{sorted(set(flash) - checked)}, which phase 3 did not hold "
+                             f"against the plain version (it held {sorted(checked)})")
+    serial = [engine.generate([r.prompt], images=r.images, gen_cfg=dataclasses.replace(
+        gen, max_new_tokens=r.max_new_tokens)).tokens[0].tolist() for r in reqs]
+    for i in POOL_IMAGE_AT:
+        if got[i][:1] != serial[i][:1]:
+            raise AssertionError(f"pool: image request {i} first token {got[i][:1]} != serial "
+                                 f"{serial[i][:1]}")
+    agree = [tokens_agree(g, s) for g, s in zip(got, serial)]
+    cos = staged_logits_agree("pool staged prefills vs Engine.prefill", cont, reqs)
+    # the timed run, which must repeat the first
+    out2, wall, _, _ = run_pool(cont, reqs, launches, gen)
+    if [c.tokens.tolist() for c in out2] != got:
+        raise AssertionError("pool: a second run gave other tokens")
+    rec = pool_report(cont, reqs, wall)
+    # the same queue served statically: groups of 8 in queue order, each run
+    # to its largest budget
+    groups = [reqs[i:i + POOL["slots"]] for i in range(0, len(reqs), POOL["slots"])]
+
+    def static():
+        for grp in groups:
+            imgs = [r.images for r in grp if r.images is not None]
+            engine.generate([r.prompt for r in grp],
+                            images=np.concatenate(imgs) if imgs else None,
+                            gen_cfg=dataclasses.replace(
+                                gen, max_new_tokens=max(r.max_new_tokens for r in grp)))
+    static_s = wall_s(static, reps=1)
+    rec.update({"static_wall_s": static_s, "static_tokens_per_s": rec["tokens"] / static_s,
+                "first_run_wall_s": wall1, "launches": counts, "cosine": cos,
+                "tokens_agree_serial": agree, "prompt_tokens": [len(r.prompt) for r in reqs],
+                "budgets": [r.max_new_tokens for r in reqs]})
+    print(f"pool bf16: {len(reqs)} requests ({len(POOL_IMAGE_AT)} with {TILES_PER_REQUEST} "
+          f"tiles), prompts {rec['prompt_tokens']}, budgets {rec['budgets']}, {POOL}; every "
+          f"request got its budget; launches {counts} (staged [rows, bucket] {staged}, "
+          f"{cont.stats['segments']} segments); identical to serial greedy (identical, first "
+          f"divergence) {agree}", flush=True)
+    print(f"pool bf16 timing [{card}]: {rec['tokens']} tokens in {wall:.3f} s = "
+          f"{rec['tokens_per_s']:.1f} tok/s (first run {wall1:.3f} s), "
+          f"{rec['segment_step_ms']:.2f} ms a segment step; TTFT p50 "
+          f"{rec['ttft_p50_s'] * 1e3:.1f} ms, p99 {rec['ttft_p99_s'] * 1e3:.1f} ms; static "
+          f"groups of {POOL['slots']}: {static_s:.3f} s = {rec['static_tokens_per_s']:.1f} "
+          f"tok/s; stats {rec['stats']}", flush=True)
+    return rec
+
+
+def continuous_int4_phase(engine, cfg, launches, card, k4_checked):
+    """Phase 17: the slot pool with int4 weights, the int8 KV cache and a
+    shared 1,000-token prefix; K4 counted per decode step and prefill; a
+    request whose bucket would run past the cache is refused, and the pool
+    then serves the same queue again token for token."""
+    import torch
+
+    from leopard_tpu_torch.config import GenerateConfig
+    from leopard_tpu_torch.inference.continuous import ContinuousEngine, Request
+
+    rng = np.random.RandomState(SEED + 17)
+    prefix = engine.build_prefix(rng.randint(0, 128000, POOL_INT4_PREFIX).astype(np.int32))
+    snap = cache_snapshot(prefix)
+    reqs = [Request(prompt=rng.randint(0, 128000, int(rng.randint(*POOL_INT4_TEXT) + 1))
+                    .astype(np.int32),
+                    max_new_tokens=int(rng.randint(POOL_INT4_BUDGETS[0],
+                                                   POOL_INT4_BUDGETS[1] + 1)))
+            for _ in range(8)]
+    cont = ContinuousEngine(engine, **POOL_INT4)
+    gen = GenerateConfig(eos_token_ids=(NO_EOS,))
+    out, wall, counts, _ = run_pool(cont, reqs, launches, gen, prefix=prefix)
+    staged = [tuple(shape) for shape in cont.stats["staged_shapes"]]
+    got = [c.tokens.tolist() for c in out]
+    if [len(t) for t in got] != [r.max_new_tokens for r in reqs]:
+        raise AssertionError(f"pool int4: lengths {[len(t) for t in got]}")
+    lt = cfg.text.num_layers
+    prefills = len(staged)
+    k4 = (7 * lt + 1) * POOL_INT4["segment_steps"] * cont.stats["segments"] + prefills
+    expect("pool int4 + int8 KV", counts, {"int4_matmul": k4, "flash_attention": 0,
+                                           "chunked_continuation_attention": 0})
+    # K4 runs every decode matmul at M = slots and each prefill's lm_head at
+    # M = the block's rows
+    ran = ({(POOL_INT4["slots"], name) for name in K4_SHAPES}
+           | {(rows, "lm_head") for rows, _ in staged})
+    if ran - k4_checked:
+        raise AssertionError(f"pool int4: K4 ran at (M, matmul) {sorted(ran - k4_checked)}, "
+                             f"which phase 3 did not hold against the plain version")
+    rec = pool_report(cont, reqs, wall)
+    cos = staged_logits_agree("pool int4 staged prefills vs Engine.prefill(prefix=)", cont,
+                              reqs, prefix)
+    too_long = Request(prompt=rng.randint(0, 128000, 1100).astype(np.int32), max_new_tokens=8)
+    try:
+        cont.run([too_long], gen_cfg=gen, prefix=prefix)
+        raise AssertionError("pool int4: a 1,100-token request past the cache was admitted")
+    except ValueError as e:
+        refusal = str(e)
+    torch.cuda.synchronize()
+    check_unchanged("pool int4 prefix", prefix, snap)
+    again = [c.tokens.tolist() for c in cont.run(reqs, gen_cfg=gen, prefix=prefix)]
+    if again != got:
+        raise AssertionError("pool int4: the run after the refusal gave other tokens")
+    rec.update({"launches": counts, "cosine": cos, "refusal": refusal,
+                "prompt_tokens": [len(r.prompt) for r in reqs],
+                "budgets": [r.max_new_tokens for r in reqs]})
+    print(f"pool int4 + int8 KV: prefix {POOL_INT4_PREFIX} tokens, 8 requests "
+          f"{rec['prompt_tokens']}, budgets {rec['budgets']}, {POOL_INT4}; launches {counts} "
+          f"(K4: {7 * lt + 1} x {POOL_INT4['segment_steps']} x {cont.stats['segments']} "
+          f"segments + {prefills} prefills); refused: {refusal}; the next run repeats the "
+          f"tokens, prefix unchanged; {rec['tokens']} tokens in {wall:.3f} s = "
+          f"{rec['tokens_per_s']:.1f} tok/s, {rec['segment_step_ms']:.2f} ms a segment step, "
+          f"TTFT p50 {rec['ttft_p50_s'] * 1e3:.1f} ms, p99 "
+          f"{rec['ttft_p99_s'] * 1e3:.1f} ms [{card}]", flush=True)
+    return rec
+
+
 def train_config():
     """Leopard-LLaVA-8B at full width with the text depth cut to
     TRAIN_TEXT_LAYERS (the one cut: the 8B train state does not fit)."""
@@ -1358,7 +1802,13 @@ def main() -> int:
     flush = torch.empty(2**30 // 4, dtype=torch.float32, device=device)
     k4_shapes = {name: int4_vs_plain(name, 2, k, n, device, card, flush)
                  for name, (k, n, _) in K4_SHAPES.items()}
+    # the slot pool's decode (phase 17) runs every matmul at M = slots
+    m_pool = POOL_INT4["slots"]
+    k4_pool = {name: int4_vs_plain(f"{name}_m{m_pool}", m_pool, k, n, device, card, flush)
+               for name, (k, n, _) in K4_SHAPES.items()}
     k4_m64 = int4_vs_plain("gate_up_m64", 64, 4096, 14336, device, card, flush)
+    k4_checked = ({(2, name) for name in K4_SHAPES} | {(m_pool, name) for name in K4_SHAPES}
+                  | {(64, "gate_up")})
     # K2 at the train path's shapes, K3 at its rows
     full = leopard_llava_8b()
     text, vis = full.text, full.vision
@@ -1375,14 +1825,16 @@ def main() -> int:
     step_calls = {name: n_layers * per + (name == "lm_head")
                   for name, (_, _, per) in K4_SHAPES.items()}
 
-    def per_step(key):
-        vals = [k4_shapes[name][key] for name in K4_SHAPES]
+    def per_step(shapes, key):
+        vals = [shapes[name][key] for name in K4_SHAPES]
         if any(v is None for v in vals):
             return None
-        return sum(step_calls[name] * k4_shapes[name][key] for name in K4_SHAPES)
+        return sum(step_calls[name] * shapes[name][key] for name in K4_SHAPES)
 
-    k4_step = {key: per_step(key) for key in ("ms", "plain_ms", "library_ms", "dense_ms",
-                                              "host_us", "dense_host_us", "bound_ms")}
+    step_keys = ("ms", "plain_ms", "library_ms", "dense_ms", "host_us", "dense_host_us",
+                 "bound_ms")
+    k4_step = {key: per_step(k4_shapes, key) for key in step_keys}
+    k4_step_pool = {key: per_step(k4_pool, key) for key in step_keys}
     lib_step = ("not available" if k4_step["library_ms"] is None
                 else f"{k4_step['library_ms']:.4f} ms")
     print(f"K4 per 8B decode step (batch 2, {sum(step_calls.values())} calls, cold L2): kernel "
@@ -1391,6 +1843,10 @@ def main() -> int:
           f"ms, tinygemm {lib_step}, dense bf16 {k4_step['dense_ms']:.4f} ms; host ms per step: "
           f"quant.matmul (K4) {k4_step['host_us'] / 1e3:.3f}, F.linear "
           f"{k4_step['dense_host_us'] / 1e3:.3f} [{card}]", flush=True)
+    print(f"K4 per 8B decode step at M={m_pool} (the slot pool's): kernel "
+          f"{k4_step_pool['ms']:.4f} ms, bound {k4_step_pool['bound_ms']:.4f} ms, plain "
+          f"{k4_step_pool['plain_ms']:.4f} ms, dense bf16 {k4_step_pool['dense_ms']:.4f} ms "
+          f"[{card}]", flush=True)
     torch.cuda.empty_cache()
 
     # phase 4: serving at 8B
@@ -1472,7 +1928,21 @@ def main() -> int:
     model.text._head_f32 = None
     peak["spec_beam"] = phase_memory("speculative + beam, bf16")
 
-    # phase 15: training at 8B width, text depth 4
+    # phases 15-17: the HTTP server and text API, then the slot pool of
+    # continuous batching in bf16 and with int4 weights, int8 KV and a prefix
+    engine = Engine(cfg, model)
+    features["server"] = server_phase(engine, cfg, launches, card)
+    peak["server"] = phase_memory("server")
+    features["pool"] = continuous_phase(engine, cfg, launches, card)
+    del engine
+    model.text._head_f32 = None
+    peak["pool"] = phase_memory("pool bf16")
+    engine = Engine(cfg, model, quantize="int4", quantize_kv=True)
+    features["pool_int4_kv8"] = continuous_int4_phase(engine, cfg, launches, card, k4_checked)
+    del engine
+    peak["pool_int4_kv8"] = phase_memory("pool int4 + int8 KV")
+
+    # phase 18: training at 8B width, text depth 4
     del model
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1489,7 +1959,7 @@ def main() -> int:
     del model, batch
     peak["train"] = phase_memory("train")
 
-    # phase 16: no JAX
+    # phase 19: no JAX
     if "jax" in sys.modules or any(m.split(".")[0] == "leopard_tpu" for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
     print("no jax: ok", flush=True)
@@ -1501,6 +1971,15 @@ def main() -> int:
 
     def total(parts, key):
         return sum(n * r[key] for n, r in parts)
+
+    def new_paths(name):
+        """A kernel's launches on phases 15-17's paths."""
+        server = features["server"]
+        return {"launches_server_generate": server["generate"]["launches"][name],
+                "launches_server_images": (server["images"]["launches"][name]
+                                           if "images" in server else None),
+                "launches_pool": features["pool"]["launches"][name],
+                "launches_pool_int4_kv8": features["pool_int4_kv8"]["launches"][name]}
 
     def bound_by(parts):
         """What bounds a sum of calls: the side holding most of its bound."""
@@ -1532,6 +2011,7 @@ def main() -> int:
         "launches_build_prefix": features["prefix"]["build_prefix_launches"]["flash_attention"],
         "launches_turn2": features["multiturn"]["launches"]["flash_attention"],
         "launches_chunked_prefill": features["chunked"]["launches"]["flash_attention"],
+        **new_paths("flash_attention"),
         "shapes": list(per_shape.values()),
         "card": card,
         "serve": timings,
@@ -1543,7 +2023,8 @@ def main() -> int:
         "source": "leopard_tpu_torch/csrc/int4_matmul.cu",
         "replaces": "leopard_tpu/ops/pallas/int4_matmul.py:76",
         "launches": timings_int4["launches"]["int4_matmul"],
-        "max_abs_err": max(r["max_abs_err"] for r in [*k4_shapes.values(), k4_m64]),
+        "max_abs_err": max(r["max_abs_err"] for r in [*k4_shapes.values(),
+                                                       *k4_pool.values(), k4_m64]),
         "ms": k4_step["ms"],
         "plain_ms": k4_step["plain_ms"],
         "bound_ms": k4_step["bound_ms"],
@@ -1569,12 +2050,15 @@ def main() -> int:
                   "last block: one launch a call",
         "ms_is": "per 8B decode step at batch 2, cold L2: 32 x (2 wq_wo + 2 wk_wv "
                  "+ 2 gate_up + down) + lm_head",
-        "shapes": [*k4_shapes.values(), k4_m64],
+        "per_step_pool": k4_step_pool,
+        "per_step_pool_is": f"the same step at M = {m_pool}, the slot pool's decode",
+        "shapes": [*k4_shapes.values(), *k4_pool.values(), k4_m64],
         "card": card,
         "serve_int4": timings_int4,
         "launches_turn2_int4_kv8": features["multiturn_int4_kv8"]["launches"]["int4_matmul"],
         "launches_spec_int4_kv8": features["spec_int4_kv8"]["launches"]["int4_matmul"],
         "spec_rounds_int4_kv8": features["spec_int4_kv8"]["rounds"],
+        **new_paths("int4_matmul"),
         "serve_int8": timings_int8,
         "end_to_end_cosine": cos4,
         "end_to_end_argmax_agrees": same_argmax4,
@@ -1612,6 +2096,7 @@ def main() -> int:
         "launches_per_generate": timings["launches"][name],
         "launches_serving_features": {phase: rec["launches"][name] for phase, rec in
                                       features.items() if "launches" in rec},
+        **new_paths(name),
         "max_abs_err": k3[kind]["max_abs_err"],
         "ms": k3[kind]["ms"],
         "plain_ms": k3[kind]["plain_ms"],

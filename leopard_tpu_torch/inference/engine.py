@@ -94,7 +94,9 @@ def _decode(model: LeopardVLM, gen_cfg: GenerateConfig, first_logits, prompt_tok
             prev_mask = torch.cat([prompt_seg != 0, gen_mask], dim=1)
         tok = sample(logits, generator, gen_cfg, prev_tokens, prev_mask)
         is_eos = (tok[:, None] == eos[None, :]).any(dim=1)
-        tok = torch.where(done, eos[0], tok)
+        # a done row's token is masked out and its forward writes segment id
+        # 0; it takes id 0, since eos[0] may lie outside the vocab (999999)
+        tok = torch.where(done, 0, tok)
         logp = torch.log_softmax(logits.float(), dim=-1)
         tok_lp = logp.gather(1, tok[:, None].long())[:, 0]
         gen_buf[:, i] = tok

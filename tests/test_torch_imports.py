@@ -1,5 +1,6 @@
 """The port never imports JAX nor any module of the JAX package (not even
-one that imports no JAX), and chip_smoke.py refuses to run without a GPU.
+one that imports no JAX), nor Pillow or transformers at import time, and
+chip_smoke.py refuses to run without a GPU.
 Each check runs in a fresh interpreter, since this test process has JAX
 loaded already."""
 
@@ -22,12 +23,16 @@ jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not jax_mods, jax_mods
 jax_pkg = sorted(m for m in sys.modules if m == "leopard_tpu" or m.startswith("leopard_tpu."))
 assert not jax_pkg, jax_pkg
+# Pillow and transformers load only inside the functions that need them
+host_libs = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "transformers"))
+assert not host_libs, host_libs
 print(" ".join(names))
 """
 # modules that must exist and import without JAX (each slice adds its own)
 REQUIRED = ("ops.flash_attention", "ops.int4_matmul", "ops.fused_norms",
             "ops.chunked_attention", "inference.engine", "inference.speculative",
-            "inference.beam", "training.trainer")
+            "inference.beam", "training.trainer", "data.anyres", "data.chat",
+            "data.tokenizer", "inference.continuous", "inference.server", "inference.api")
 
 
 def _run(args, cwd):

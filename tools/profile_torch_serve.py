@@ -2,6 +2,7 @@
 """Profile the PyTorch port's serving path on one NVIDIA GPU.
 
     python3 tools/profile_torch_serve.py [--trace-dir traces/] [--quantize int4] [--quantize-kv]
+    python3 tools/profile_torch_serve.py --pool
 
 Builds Leopard-LLaVA-8B with seeded random weights on the card and the same
 two requests as chip_smoke.py (16 uint8 tiles each, bucket 4,096), with the
@@ -9,6 +10,8 @@ Engine's weight and KV quantization flags as given, warms up,
 then traces with torch.profiler (CPU + CUDA activities):
   - prefill: one generate with max_new_tokens=1 (the TTFT window);
   - decode: one generate with 16 greedy tokens.
+With --pool it traces instead one ContinuousEngine.run of chip_smoke.py's
+phase-16 queue (16 requests, 8 slots), after one untraced run.
 For each window it prints the host wall time, the device busy time (the
 union of kernel and copy intervals), the device idle share (1 - busy /
 wall) and the kernels that take the most device time. Chrome traces go to
@@ -69,6 +72,8 @@ def main() -> int:
     ap.add_argument("--trace-dir", type=Path, default=None)
     ap.add_argument("--quantize", choices=("int8", "int4"), default=None)
     ap.add_argument("--quantize-kv", action="store_true")
+    ap.add_argument("--pool", action="store_true",
+                    help="trace the slot pool over phase 16's queue instead")
     args = ap.parse_args()
 
     import dataclasses
@@ -97,6 +102,19 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
           f"quantize={args.quantize}, quantize_kv={args.quantize_kv}", flush=True)
+    if args.pool:
+        import numpy as np
+
+        from chip_smoke import NO_EOS, POOL, pool_queue
+        from leopard_tpu_torch.inference.continuous import ContinuousEngine
+
+        reqs = pool_queue(cfg, np.random.RandomState(SEED + 16))
+        pool = ContinuousEngine(engine, **POOL)
+        pool_gen = GenerateConfig(eos_token_ids=(NO_EOS,))
+        pool.run(reqs, gen_cfg=pool_gen)  # warm-up
+        _window("pool", lambda: pool.run(reqs, gen_cfg=pool_gen), args.trace_dir)
+        print(f"pool stats: {pool.stats}", flush=True)
+        return 0
     engine.generate(prompts, images=tiles, gen_cfg=gen)  # warm-up: build, cuBLAS plans
 
     _window("prefill", lambda: engine.generate(
