@@ -15,14 +15,15 @@ script exits non-zero without printing a result:
      also their TF/s over attended pairs, the fraction of the bound, and
      SDPA over the attended rows or segments alone, since the unsegmented
      SDPA call does up to 2x the work of a kernel that skips tiles): K1 in
-     bf16 at the serving path's shapes (vision tower, decoder prefill, and
+     bf16 at the serving path's shapes (vision tower at 8, 16 and 32 tiles,
+     decoder prefill, and
      the decoder prefills that phase 16's pool stages); K2 at the
      train path's shapes (the decoder's packed two-segment rows with a
      padding tail, the tower's 16 tiles at head dim 72); K3a/K3b at the
      train path's rows, (8192, 4096) RMSNorm and (16·676, 1152) LayerNorm,
      cold L2;
      K4 at the 8B decode shapes (M = 2, M = 8 as in the slot pool's decode,
-     and M = 64 once, cold L2) against its
+     M = 1 as in one request's decode, and M = 64 once, cold L2) against its
      plain version and the fp32 oracle, with its GB/s, tinygemm's time
      (torch._weight_int4pack_mm, bf16 scales), F.linear's on the bf16 weight
      it replaces, and host µs per call of both, per shape and per step;
@@ -82,9 +83,29 @@ script exits non-zero without printing a result:
      prefill, every (M, matmul) K4 ran at held in phase 3, staged logits against Engine.prefill(prefix=), a request
      whose bucket would run past the cache refused with ValueError, then
      the same queue served again token for token;
- 18. training at the width of Leopard-LLaVA-8B with the text depth cut to 4
+ 18. HF conversion at the full width and depth of Leopard-LLaVA-8B, in
+     memory: export_leopard_llava then convert_leopard_llava onto the card
+     equal to the model bit for bit, the export adding no device memory
+     beyond a few MB (it makes views); then transformers' LlamaForCausalLM
+     and SiglipVisionModel built from the port's configs on the meta device
+     and loaded with the exported tensors (assign=True; the rotary table and
+     position ids rebuilt on the card, nothing left on meta): logits on
+     2 x 4,096 tokens against the port's decoder (K1, K3a) and the last
+     hidden state of 16 tiles against its tower (K1, K3b), cosine >= 0.995,
+     with the top-1 agreement and each layer's hidden-state cosine;
+ 19. from a checkpoint on disk, at 8B widths with the text depth cut to 4
+     of 32: the seeded model written by the port's export as two
+     safetensors shards and an index, loaded (time, host peak RSS, device
+     peak) equal bit for bit; the convert CLI hf2native then native2hf, the
+     fp32 file equal to the original tensors; the generate CLI on two
+     seeded PNGs (728x364, 364x1,092), 16 greedy tokens, against
+     Engine.generate on the model in memory and the same process_eval
+     output; the serve CLI with --quantize int4 on a free port, one image
+     request over HTTP against an int4 Engine on the same weights, K4 at
+     M = 1 and every K1 shape held in phase 3;
+ 20. training at the width of Leopard-LLaVA-8B with the text depth cut to 4
      of 32 (the 8B train state, ~18 B a parameter, does not fit one 80 GB
-     card), seeded random weights, 2 rows × 4,096 tokens each packing two
+     card), seeded random weights, 2 rows x 4,096 tokens each packing two
      samples (positions restarting per segment, a padding tail) with 16
      tiles: first one step's gradients through K1 + K2 against the same
      step with dense attention in text and tower (cosine per parameter
@@ -94,7 +115,14 @@ script exits non-zero without printing a result:
      and K3 launch counts of every step against the layer counts, no K1/K2
      input copied, step ms,
      tokens/s and peak memory;
- 19. no JAX was imported.
+ 21. the train CLI from a jsonl manifest of 8 samples (1-3 seeded PNGs and
+     a two-turn conversation each), --init-from phase 19's checkpoint, 3
+     steps at 2 x 4,096 through the TrainDataLoader with the native index
+     builder loaded: losses finite, step 1's against vlm_loss on the
+     loader's first batch with the model loaded from the checkpoint, the
+     loader's K1/K2 shapes held in phase 3, the launches against the layer
+     counts, step ms, tokens/s, the loader's host ms a batch, peak memory;
+ 22. no JAX was imported.
 Each engine is freed after its phase, with the phase's peak device memory
 printed. Then the card's name and power limit as nvidia-smi prints them, one
 JSON line with every kernel ({"kernels": [...]}) and, last, the JSON line
@@ -108,9 +136,12 @@ import concurrent.futures
 import dataclasses
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -153,13 +184,15 @@ TRAIN_SEQ = 4096
 TRAIN_ROWS = ((2100, 1900), (1700, 2300))  # sample lengths; the rest is padding
 TRAIN_TILES_PER_SAMPLE = 4
 TRAIN_STEPS = 3
-# phase 3's K1 shapes: the vision tower at 16 and 32 tiles, the decoder
+# phase 3's K1 shapes: the vision tower at 8 (phase 19's two PNGs, 7 crops),
+# 16 and 32 tiles, the decoder
 # prefill of two right-padded rows, the decoder prefills that phase 16's
 # pool stages (an image request alone, text blocks of 2 and 4 rows at bucket
 # 2,048, with that queue's prompt lengths) and phase 15's PNG request (one
 # row at 2,048); rows: each row's segment lengths or None. Phase 16 fails if
 # its pool runs K1 at a decoder (rows, bucket) that is not here.
 K1_SHAPES = {
+    "vision_b8": dict(b=8, s=676, hq=16, hkv=16, d=72, causal=False, rows=None),
     "vision_b16": dict(b=16, s=676, hq=16, hkv=16, d=72, causal=False, rows=None),
     "vision_b32": dict(b=32, s=676, hq=16, hkv=16, d=72, causal=False, rows=None),
     "decoder": dict(b=2, s=4096, hq=32, hkv=8, d=128, causal=True, rows=((4096,), (2900,))),
@@ -1559,6 +1592,606 @@ def continuous_int4_phase(engine, cfg, launches, card, k4_checked):
     return rec
 
 
+# phases 18, 19 and 21: the checkpoint and training-data entry points. Phase
+# 18 holds the HF converter at full 8B width and depth (in memory) and the
+# port against transformers' own Llama and SigLIP; phase 19 writes the
+# depth-4 train model (TRAIN_TEXT_LAYERS) as a published-layout checkpoint of
+# two safetensors shards and drives the convert, generate and int4 serve CLIs
+# from it; phase 21 fine-tunes from it through the train CLI.
+HF_COSINE_MIN = 0.995
+HF_ROWS, HF_TOKENS, HF_TILES = 2, 4096, 16
+EXPORT_MAX_BYTES = 8 * 2**20       # what an export may add on the card: it only makes views
+CKPT_SHARDS = 2
+GEN_QUESTION_TEXT = 200            # characters of phase 19's question after its two images
+GEN_TOKENS, SERVE_TOKENS = 16, 8
+# phase 21's manifest: 8 samples of 1-3 images (by sample index), whose
+# crops (5 or 6 a sample) put every batch of two at tile bucket 16, and an
+# answer long enough to put every sample in sequence bucket 4,096
+MANIFEST_SAMPLES = 8
+MANIFEST_IMAGES = {1: ((728, 728),), 2: ((728, 364), (364, 728)),
+                   3: ((364, 364), (364, 364), (728, 364))}
+MANIFEST_ANSWER = (1300, 1600)     # characters, drawn uniformly
+TRAIN_CLI_STEPS = 3
+# step 1's loss in the train CLI against vlm_loss on the same batch and the
+# model loaded straight from the checkpoint: the same weights and kernels,
+# once under autograd with recompute and once without gradients
+TRAIN_CLI_LOSS_RTOL = 1e-4
+
+
+class HostPeak:
+    """The largest resident set size of this process over a `with` block,
+    sampled from /proc/self/statm every 5 ms."""
+
+    @staticmethod
+    def rss_gib() -> float:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+    def __enter__(self):
+        self.start_gib = self.peak_gib = self.rss_gib()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.005):
+                self.peak_gib = max(self.peak_gib, self.rss_gib())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak_gib = max(self.peak_gib, self.rss_gib())
+        return False
+
+
+def cosine(a, b, dim=-1):
+    import torch
+
+    return torch.nn.functional.cosine_similarity(a.float(), b.float(), dim=dim)
+
+
+def row_cosine(a, b):
+    """The cosine of a[i] and b[i] over all their elements, for each i of
+    the leading dim, summed in float64 (an fp32 sum over 5e8 elements would
+    blur the third decimal)."""
+    out = []
+    for x, y in zip(a, b):
+        x, y = x.reshape(-1).double(), y.reshape(-1).double()
+        out.append((x @ y / (x @ x * (y @ y)).sqrt()).item())
+    return out
+
+
+def hf_llama_config(cfg):
+    """transformers' LlamaConfig for the port's TextConfig (llama3 RoPE
+    scaling), in the form the installed transformers takes."""
+    import inspect
+
+    from transformers import LlamaConfig
+
+    t = cfg.text
+    rope = {"rope_type": "llama3", "factor": t.rope_scaling_factor,
+            "low_freq_factor": t.rope_low_freq_factor,
+            "high_freq_factor": t.rope_high_freq_factor,
+            "original_max_position_embeddings": t.rope_original_max_position}
+    kw = dict(vocab_size=t.vocab_size, hidden_size=t.hidden_size,
+              intermediate_size=t.intermediate_size, num_hidden_layers=t.num_layers,
+              num_attention_heads=t.num_heads, num_key_value_heads=t.num_kv_heads,
+              head_dim=t.head_dim, rms_norm_eps=t.rms_norm_eps,
+              max_position_embeddings=t.max_position_embeddings, tie_word_embeddings=False,
+              attention_bias=False, mlp_bias=False, attn_implementation="sdpa")
+    if "rope_parameters" in inspect.signature(LlamaConfig.__init__).parameters:
+        kw["rope_parameters"] = {**rope, "rope_theta": t.rope_theta}
+    else:
+        kw.update(rope_scaling=rope, rope_theta=t.rope_theta)
+    return LlamaConfig(**kw)
+
+
+def on_meta(module):
+    return [n for n, x in [*module.named_parameters(), *module.named_buffers()] if x.is_meta]
+
+
+def hf_phase(model, cfg, launches, card, device):
+    """Phase 18: (a) export_leopard_llava, then convert_leopard_llava onto
+    the card, bit for bit, the export adding (almost) no device memory;
+    (b) transformers' Llama and SigLIP on the exported tensors (meta build,
+    assign=True) against the port's decoder (K1, K3a) and tower (K1, K3b)."""
+    import torch
+    from transformers import LlamaForCausalLM, SiglipVisionConfig, SiglipVisionModel
+    from transformers.models.llama.modeling_llama import LlamaRotaryEmbedding
+
+    from leopard_tpu_torch.convert import hf as chf
+    from leopard_tpu_torch.ops.rotary import compute_inv_freq
+
+    rec = {}
+    state = model.state_dict()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    exported = chf.export_leopard_llava(model, cfg)
+    torch.cuda.synchronize()
+    added = torch.cuda.max_memory_allocated() - before
+    back = chf.convert_leopard_llava(exported, cfg, device=device)
+    if back.keys() != state.keys():
+        raise AssertionError(f"HF round trip: keys differ: {sorted(back.keys() ^ state.keys())[:5]}")
+    differ = [k for k in state if back[k].dtype != state[k].dtype or not torch.equal(back[k], state[k])]
+    if differ:
+        raise AssertionError(f"HF round trip: {len(differ)} tensors differ, e.g. {differ[:5]}")
+    if added > EXPORT_MAX_BYTES:
+        raise AssertionError(f"export added {added} bytes on the card (at most {EXPORT_MAX_BYTES})")
+    shared = sum(back[k].data_ptr() == state[k].data_ptr() for k in state)
+    n_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    rec["round_trip"] = {"tensors": len(state), "hf_keys": len(exported), "bytes": n_bytes,
+                         "export_added_bytes": added, "same_storage": shared}
+    print(f"HF round trip at 8B: export_leopard_llava → {len(exported)} HF keys, then "
+          f"convert_leopard_llava onto the card: {len(state)} tensors ({n_bytes} bytes) equal "
+          f"bit for bit, {shared} of them the model's own storage; the export added {added} "
+          f"bytes of device memory (peak; limit {EXPORT_MAX_BYTES}) [{card}]", flush=True)
+    del back
+
+    # (b) transformers' Llama on the exported decoder tensors
+    lcfg = hf_llama_config(cfg)
+    with torch.device("meta"):
+        llama = LlamaForCausalLM(lcfg)
+    text_sd = chf.export_decoder(model.text, cfg.text, "model.")
+    llama.load_state_dict(text_sd, strict=True, assign=True)
+    llama.model.rotary_emb = LlamaRotaryEmbedding(config=lcfg, device=device)
+    if on_meta(llama):
+        raise AssertionError(f"HF Llama: left on the meta device: {on_meta(llama)[:5]}")
+    llama.eval()
+    inv = llama.model.rotary_emb.inv_freq.float()
+    want_inv = torch.from_numpy(compute_inv_freq(cfg.text)).to(device).float()
+    torch.testing.assert_close(inv, want_inv, rtol=1e-5, atol=0)
+    rng = np.random.RandomState(SEED + 18)
+    tokens = torch.from_numpy(rng.randint(0, 128000, (HF_ROWS, HF_TOKENS))).to(device)
+    hf_out, layer_cos = [], []
+
+    def keep_hf(_, __, out):
+        hf_out.append(out[0] if isinstance(out, tuple) else out)
+
+    def compare(i):
+        def hook(_, __, out):
+            layer_cos.append(min(row_cosine(out, hf_out[i])))
+            hf_out[i] = None
+        return hook
+
+    hooks = [layer.register_forward_hook(keep_hf) for layer in llama.model.layers]
+    with torch.inference_mode():
+        want = llama(input_ids=tokens, use_cache=False).logits
+        for h in hooks:
+            h.remove()
+        hooks = [layer.register_forward_hook(compare(i))
+                 for i, layer in enumerate(model.text.layers)]
+        with launches:
+            got, _ = model.text(tokens)
+        for h in hooks:
+            h.remove()
+    expect("HF Llama vs decoder", launches.counts,
+           {"flash_attention": cfg.text.num_layers, "fused_rms_norm": 2 * cfg.text.num_layers + 1})
+    text_cos = row_cosine(got, want)
+    top1 = (got.argmax(-1) == want.argmax(-1)).float().mean(-1).tolist()
+    pos_cos = cosine(got, want)
+    rec["llama"] = {"rows": HF_ROWS, "tokens": HF_TOKENS, "cosine_per_row": text_cos,
+                    "top1_agreement_per_row": top1, "position_cosine_min": pos_cos.min().item(),
+                    "position_cosine_mean": pos_cos.mean().item(),
+                    "layer_cosine_min": layer_cos, "launches": launches.counts}
+    print(f"HF LlamaForCausalLM (transformers, sdpa, bf16, llama3 RoPE θ {cfg.text.rope_theta}) "
+          f"vs the port's decoder on {HF_ROWS} x {HF_TOKENS} tokens: logits cosine per row "
+          f"{[round(c, 6) for c in text_cos]} (min {HF_COSINE_MIN}), top-1 agreement per row "
+          f"{[round(a, 4) for a in top1]}, per position min {pos_cos.min().item():.6f} mean "
+          f"{pos_cos.mean().item():.6f}; hidden states after each layer, cosine (min over "
+          f"rows) {[round(c, 5) for c in layer_cos]}; launches {launches.counts} [{card}]",
+          flush=True)
+    del want, got, pos_cos, llama, text_sd, hf_out
+    if min(text_cos) < HF_COSINE_MIN:
+        raise AssertionError(f"HF Llama disagrees with the port: cosine {text_cos}")
+
+    # transformers' SigLIP on the exported tower tensors
+    v = cfg.vision
+    scfg = SiglipVisionConfig(
+        hidden_size=v.hidden_size, intermediate_size=v.intermediate_size,
+        num_hidden_layers=v.num_layers, num_attention_heads=v.num_heads,
+        num_channels=v.num_channels, image_size=v.image_size, patch_size=v.patch_size,
+        layer_norm_eps=v.layer_norm_eps, hidden_act=v.hidden_act, vision_use_head=False,
+        attn_implementation="sdpa")
+    with torch.device("meta"):
+        siglip = SiglipVisionModel(scfg)
+    siglip.load_state_dict(chf.export_siglip_vision(model.vision, v, "vision_model."),
+                           strict=True, assign=True)
+    emb = siglip.vision_model.embeddings
+    emb.register_buffer("position_ids", torch.arange(emb.num_positions, device=device)[None],
+                        persistent=False)
+    if on_meta(siglip):
+        raise AssertionError(f"HF SigLIP: left on the meta device: {on_meta(siglip)[:5]}")
+    siglip.eval()
+    g = torch.Generator(device=device).manual_seed(SEED + 18)
+    pixels = torch.randn((HF_TILES, 3, v.image_size, v.image_size), generator=g,
+                         device=device).to(torch.bfloat16)
+    with torch.inference_mode():
+        want = siglip(pixel_values=pixels).last_hidden_state
+        with launches:
+            got = model.vision(pixels)
+    expect("HF SigLIP vs tower", launches.counts,
+           {"flash_attention": v.num_layers, "fused_layer_norm": 2 * v.num_layers + 1})
+    vis_cos = row_cosine(got[None], want[None])[0]
+    tile_cos = min(row_cosine(got, want))
+    rec["siglip"] = {"tiles": HF_TILES, "cosine": vis_cos, "tile_cosine_min": tile_cos,
+                     "max_abs_diff": (got.float() - want.float()).abs().max().item(),
+                     "launches": launches.counts}
+    print(f"HF SiglipVisionModel (transformers, sdpa, bf16, no head) vs the port's tower on "
+          f"{HF_TILES} tiles: last_hidden_state cosine {vis_cos:.6f} (min {HF_COSINE_MIN}), "
+          f"per tile min {tile_cos:.6f}, max |diff| {rec['siglip']['max_abs_diff']:.4g}; "
+          f"launches {launches.counts} [{card}]", flush=True)
+    del want, got, siglip, exported, state
+    if vis_cos < HF_COSINE_MIN:
+        raise AssertionError(f"HF SigLIP disagrees with the port: cosine {vis_cos}")
+    return rec
+
+
+def write_hf_checkpoint(model, cfg, directory, shards=CKPT_SHARDS):
+    """The model as a published-layout HF checkpoint, written from the port's
+    export: `shards` safetensors files of about equal bytes and
+    model.safetensors.index.json. Returns the bytes written."""
+    from safetensors.torch import save_file
+
+    from leopard_tpu_torch.convert.hf import export_leopard_llava
+
+    directory.mkdir(parents=True)
+    sd = export_leopard_llava(model, cfg)
+    sizes = {k: t.numel() * t.element_size() for k, t in sd.items()}
+    total = sum(sizes.values())
+    parts, acc = [[] for _ in range(shards)], 0
+    for k in sd:
+        parts[min(shards - 1, acc * shards // total)].append(k)
+        acc += sizes[k]
+    weight_map = {}
+    for i, part in enumerate(parts):
+        name = f"model-{i + 1:05d}-of-{shards:05d}.safetensors"
+        save_file({k: sd[k].to("cpu") for k in part}, str(directory / name),
+                  metadata={"format": "pt"})
+        weight_map.update({k: name for k in part})
+    (directory / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}))
+    return total
+
+
+def noise_png_file(path, rng, w, h):
+    import base64
+
+    path.write_bytes(base64.b64decode(noise_png(rng, w, h)))
+    return str(path)
+
+
+def k1_held():
+    """The K1 shapes phase 3 holds: ("tower", tiles) and ("decoder", rows,
+    bucket)."""
+    return ({("tower", kw["b"]) for kw in K1_SHAPES.values() if not kw["causal"]}
+            | {("decoder", kw["b"], kw["s"]) for kw in K1_SHAPES.values() if kw["causal"]})
+
+
+def k1_ran(tiles, rows, bucket, cfg):
+    """The K1 shapes of one forward: the tower at its tile bucket, and the
+    decoder at (rows, bucket) where the bucket takes the flash tier."""
+    ran = {("tower", tiles)}
+    if bucket >= cfg.text.long_seq_threshold:
+        ran.add(("decoder", rows, bucket))
+    return ran
+
+
+def held(label, kernel, ran, checked):
+    """Fail if a kernel ran at a shape that phase 3 did not hold against its
+    plain version."""
+    missing = sorted(set(ran) - set(checked))
+    if missing:
+        raise AssertionError(f"{label}: {kernel} ran at {missing}, which phase 3 did not hold "
+                             "against the plain version")
+
+
+def checkpoint_phase(cfg, launches, card, k4_checked, tmp, device):
+    """Phase 19: the depth-4 train model written as an HF checkpoint of two
+    shards, then loaded (time, host peak RSS, device peak); (a) the convert
+    CLI both ways, bit for bit; (b) the generate CLI on two PNGs against
+    Engine.generate on the model in memory; (c) the serve CLI with int4
+    weights over HTTP against an int4 Engine on the same weights."""
+    import shutil
+    import urllib.error
+
+    import torch
+    from PIL import Image
+    from safetensors import safe_open
+
+    from leopard_tpu_torch.cli import convert_checkpoint, generate, serve
+    from leopard_tpu_torch.config import GenerateConfig
+    from leopard_tpu_torch.convert.hf import export_leopard_llava, load_leopard_llava
+    from leopard_tpu_torch.data.processor import LeopardProcessor
+    from leopard_tpu_torch.inference.engine import Engine
+    from leopard_tpu_torch.inference.server import _decode_images
+    from leopard_tpu_torch.models import vlm
+
+    lt, lv = cfg.text.num_layers, cfg.vision.num_layers
+    on = ["--device", device.type]
+    rec = {}
+    model = vlm.init_params(cfg, torch.Generator(device=device).manual_seed(SEED))
+    state = model.state_dict()
+    hf_dir = tmp / "hf"
+    t0 = time.perf_counter()
+    n_bytes = write_hf_checkpoint(model, cfg, hf_dir)
+    write_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with HostPeak() as rss:
+        t0 = time.perf_counter()
+        loaded = load_leopard_llava(str(hf_dir), cfg, device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    device_peak = torch.cuda.max_memory_allocated()
+    got = loaded.state_dict()
+    differ = [k for k in state if got[k].dtype != state[k].dtype or not torch.equal(got[k], state[k])]
+    if got.keys() != state.keys() or differ:
+        raise AssertionError(f"checkpoint load: {len(differ)} tensors differ, e.g. {differ[:5]}")
+    del loaded, got
+    rec["load"] = {"bytes": n_bytes, "write_s": write_s, "load_s": load_s,
+                   "host_rss_start_gib": rss.start_gib, "host_rss_peak_gib": rss.peak_gib,
+                   "device_peak_gib": device_peak / 2**30,
+                   "device_added_gib": (device_peak - base) / 2**30}
+    print(f"checkpoint: 8B widths, {lt} of 32 text layers, {n_bytes} bytes in {CKPT_SHARDS} "
+          f"safetensors shards + index, written in {write_s:.2f} s; load_leopard_llava onto "
+          f"the card in {load_s:.3f} s, equal bit for bit; host RSS {rss.start_gib:.2f} GiB "
+          f"before, peak {rss.peak_gib:.2f} GiB during the load; device peak "
+          f"{device_peak / 2**30:.2f} GiB ({(device_peak - base) / 2**30:.2f} GiB above the "
+          f"model already there) [{card}]", flush=True)
+
+    # (a) convert_checkpoint both ways; the fp32 file holds the tensors exactly
+    native, out = tmp / "native", tmp / "out"
+    t0 = time.perf_counter()
+    convert_checkpoint.convert(convert_checkpoint.parse_args(
+        ["--direction", "hf2native", "--input", str(hf_dir), "--output", str(native), *on]),
+        cfg=cfg)
+    hf2native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    convert_checkpoint.convert(convert_checkpoint.parse_args(
+        ["--direction", "native2hf", "--input", str(native), "--output", str(out), *on]),
+        cfg=cfg)
+    native2hf_s = time.perf_counter() - t0
+    shutil.rmtree(native)
+    want = export_leopard_llava(model, cfg)
+    with safe_open(str(out / "model.safetensors"), framework="pt", device=str(device)) as f:
+        if set(f.keys()) != set(want):
+            raise AssertionError("native2hf: other keys than the export's")
+        differ = [k for k in want if not torch.equal(f.get_tensor(k), want[k].float())]
+    out_bytes = (out / "model.safetensors").stat().st_size
+    shutil.rmtree(out)
+    if differ:
+        raise AssertionError(f"convert round trip: {len(differ)} tensors differ: {differ[:5]}")
+    rec["convert"] = {"hf2native_s": hf2native_s, "native2hf_s": native2hf_s,
+                      "fp32_file_bytes": out_bytes}
+    print(f"convert_checkpoint: hf2native {hf2native_s:.2f} s, native2hf {native2hf_s:.2f} s "
+          f"({out_bytes} bytes of fp32), every tensor equal to the original bit for bit; "
+          f"both removed [{card}]", flush=True)
+
+    # (b) the generate CLI against Engine.generate on the model in memory
+    tok = ByteTokenizer()
+    rng = np.random.RandomState(SEED + 19)
+    pngs = [noise_png_file(tmp / f"gen{i}.png", rng, w, h) for i, (w, h) in enumerate(SERVER_PNGS)]
+    question = "<image> and <image>: " + random_text(rng, GEN_QUESTION_TEXT)
+    args = generate.parse_args(["--checkpoint", str(hf_dir), "--question", question,
+                                "--images", *pngs, "--max-new-tokens", str(GEN_TOKENS), *on])
+    with launches:
+        got = generate.generate(args, tokenizer=tok, cfg=cfg)
+    counts = launches.counts
+    images = [Image.open(p).convert("RGB") for p in pngs]
+    prompt, pixels = LeopardProcessor(cfg, tok, layout="eval").process_eval(question, images)
+    gen_cfg = GenerateConfig(max_new_tokens=GEN_TOKENS, greedy=True, eos_token_ids=(128001, 128009))
+    engine = Engine(cfg, model, gen_cfg)
+    want = engine.generate([prompt], images=pixels, gen_cfg=gen_cfg).tokens[0]
+    tiles, bucket = (engine._bucket(pixels.shape[0], engine.tile_buckets),
+                     engine._bucket(len(prompt), engine.seq_buckets))
+    del engine
+    model.text._head_f32 = None
+    if got.tolist() != want.tolist():
+        raise AssertionError(f"generate CLI: tokens {got.tolist()} != the engine's {want.tolist()}")
+    long = bucket >= cfg.text.long_seq_threshold
+    expect("generate CLI", counts, {"flash_attention": lv + (lt if long else 0),
+                                    "fused_layer_norm": 2 * lv + 1})
+    held("generate CLI", "K1", k1_ran(tiles, 1, bucket, cfg), k1_held())
+    rec["generate"] = {"crops": int(pixels.shape[0]), "tile_bucket": tiles,
+                       "prompt_tokens": len(prompt), "bucket": bucket, "tokens": len(got),
+                       "launches": counts}
+    print(f"generate CLI: {len(pngs)} PNGs {list(SERVER_PNGS)} → {pixels.shape[0]} crops (tile "
+          f"bucket {tiles}), prompt {len(prompt)} tokens (bucket {bucket}), {len(got)} greedy "
+          f"tokens identical to Engine.generate on the model in memory; launches {counts} "
+          f"[{card}]", flush=True)
+
+    # (c) the serve CLI with int4 weights (and so the int8 KV cache) over HTTP
+    args = serve.parse_args(["--checkpoint", str(hf_dir), "--host", "127.0.0.1", "--port", "0",
+                             "--quantize", "int4", *on])
+    server = serve.build_server(args, tokenizer=tok, cfg=cfg)
+    httpd = server.http_server()
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    b64 = [noise_png(rng, w, h) for w, h in SERVER_PNGS]
+    text = "<image> and <image>: " + random_text(rng, GEN_QUESTION_TEXT)
+    try:
+        deadline = time.perf_counter() + 30
+        while True:
+            try:
+                if http_call(url + "/health") == (200, {"status": "ok"}):
+                    break
+            except (urllib.error.URLError, ConnectionError):
+                if time.perf_counter() > deadline:
+                    raise
+            time.sleep(0.05)
+        with launches:
+            status, out = http_call(url + "/api/generate", {
+                "prompts": [text], "images": [b64], "max_new_tokens": SERVE_TOKENS,
+                "greedy": True, "eos_token_ids": [NO_EOS]})
+        counts = launches.counts
+        row_ids, row_tiles = server._prepare_row(text, _decode_images(b64))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise AssertionError("serve CLI: the HTTP thread did not stop")
+    del server, httpd
+    engine = Engine(cfg, model, quantize="int4", quantize_kv=True)
+    want = engine.generate([row_ids], images=row_tiles, gen_cfg=GenerateConfig(
+        max_new_tokens=SERVE_TOKENS, eos_token_ids=(NO_EOS,))).tokens[0].tolist()
+    tiles, bucket = (engine._bucket(row_tiles.shape[0], engine.tile_buckets),
+                     engine._bucket(len(row_ids), engine.seq_buckets))
+    del engine
+    if status != 200 or out["tokens"] != [want]:
+        raise AssertionError(f"serve CLI int4: {status} {out} != the int4 engine's {want}")
+    long = bucket >= cfg.text.long_seq_threshold
+    # K4: the prefill's lm_head at M = 1, then every decode matmul at M = 1
+    # for each of the SERVE_TOKENS - 1 decode forwards
+    k4 = 1 + (7 * lt + 1) * (SERVE_TOKENS - 1)
+    expect("serve CLI int4", counts, {"int4_matmul": k4, "fused_layer_norm": 2 * lv + 1,
+                                      "flash_attention": lv + (lt if long else 0)})
+    held("serve CLI int4", "K1", k1_ran(tiles, 1, bucket, cfg), k1_held())
+    held("serve CLI int4", "K4 at (M, matmul)", {(1, name) for name in K4_SHAPES}, k4_checked)
+    rec["serve_int4"] = {"crops": int(row_tiles.shape[0]), "tile_bucket": tiles,
+                         "prompt_tokens": len(row_ids), "bucket": bucket, "launches": counts}
+    print(f"serve CLI --quantize int4 (int8 KV): one request of 2 PNGs over HTTP, prompt "
+          f"{len(row_ids)} tokens (bucket {bucket}), {SERVE_TOKENS} tokens identical to an int4 "
+          f"Engine on the same weights; launches {counts} (K4 1 + {7 * lt + 1} x "
+          f"{SERVE_TOKENS - 1} at M = 1) [{card}]", flush=True)
+    del model, state
+    return rec, hf_dir
+
+
+def write_manifest(directory, rng):
+    """MANIFEST_SAMPLES rows of MANIFEST_IMAGES seeded noise PNGs and a
+    two-turn conversation with a long answer."""
+    (directory / "imgs").mkdir(parents=True)
+    rows = []
+    for i in range(MANIFEST_SAMPLES):
+        names = []
+        for j, (w, h) in enumerate(MANIFEST_IMAGES[1 + i % 3]):
+            names.append(f"{i}_{j}.png")
+            noise_png_file(directory / "imgs" / names[-1], rng, w, h)
+        question = "<image> " * len(names) + random_text(rng, 60)
+        answer = random_text(rng, int(rng.randint(*MANIFEST_ANSWER)))
+        rows.append({"conversations": [{"from": "human", "value": question},
+                                       {"from": "gpt", "value": answer}], "images": names})
+    path = directory / "data.jsonl"
+    path.write_text("".join(json.dumps(r) + "\n" for r in rows))
+    return str(path), str(directory / "imgs")
+
+
+def train_cli_phase(hf_dir, card, tmp, device):
+    """Phase 21: train_leopard_llava from a jsonl manifest, --init-from the
+    phase-19 checkpoint, through the real TrainDataLoader (native index
+    builder loaded): every loss finite, step 1's loss against vlm_loss on
+    the loader's first batch with the model loaded from the checkpoint, each
+    K1/K2 shape of the loader's buckets held in phase 3, and the launches of
+    the steps against the layer counts."""
+    import torch
+
+    from leopard_tpu_torch import config as cfgs
+    from leopard_tpu_torch.cli import train_leopard_llava
+    from leopard_tpu_torch.convert.hf import load_leopard_llava
+    from leopard_tpu_torch.data import native
+    from leopard_tpu_torch.data.dataset import DataState, JsonlSftDataset, TrainDataLoader
+    from leopard_tpu_torch.data.processor import LeopardProcessor
+    from leopard_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from leopard_tpu_torch.ops.fused_norms import fused_layer_norm, fused_rms_norm
+    from leopard_tpu_torch.training.trainer import vlm_loss
+
+    if not native.native_available():
+        raise AssertionError("the native index builder did not build or load")
+    tok = ByteTokenizer()
+    manifest, images = write_manifest(tmp / "manifest", np.random.RandomState(SEED + 21))
+    argv = ["--manifest", manifest, "--image-folder", images, "--tokenizer", "(the smoke's own)",
+            "--init-from", str(hf_dir), "--checkpoint-dir", str(tmp / "run"),
+            "--seq-len", str(TRAIN_SEQ), "--global-batch-size", "2",
+            "--train-steps", str(TRAIN_CLI_STEPS), "--set", f"text.num_layers={TRAIN_TEXT_LAYERS}",
+            "--device", device.type]
+    args = train_leopard_llava.parse_args(argv)
+    cfg = cfgs.apply_overrides(cfgs.leopard_llava_8b(),
+                               train_leopard_llava.parse_overrides(args.set))
+    train_cfg = cfgs.TrainConfig()
+    lt, lv = cfg.text.num_layers, cfg.vision.num_layers
+
+    # the loader's batches, as the CLI will draw them
+    loader = TrainDataLoader(JsonlSftDataset(manifest, images), LeopardProcessor(cfg, tok),
+                             batch_size=2, seq_len=TRAIN_SEQ, state=DataState(seed=train_cfg.seed))
+    t0 = time.perf_counter()
+    it = iter(loader)
+    batches = [next(it) for _ in range(TRAIN_CLI_STEPS)]
+    loader_ms = (time.perf_counter() - t0) / TRAIN_CLI_STEPS * 1e3
+    shapes = sorted({(b.tokens.shape, b.images.shape[0]) for b in batches})
+    ran = set().union(*(k1_ran(tiles, *tokens, cfg) for tokens, tiles in shapes))
+    k2 = k2_shapes(cfg.text, cfg.vision).values()
+    k2_held = ({("tower", kw["b"]) for kw in k2 if not kw["causal"]}
+               | {("decoder", kw["b"], kw["s"]) for kw in k2 if kw["causal"]})
+    held("train CLI", "K1", ran, k1_held())
+    held("train CLI", "K2", ran, k2_held)
+    ref = load_leopard_llava(str(hf_dir), cfg, device)
+    first = {k: torch.from_numpy(v).to(device) for k, v in batches[0].as_dict().items()}
+    with torch.no_grad():
+        ref_loss = vlm_loss(ref, cfg, first, remat=train_cfg.remat,
+                            loss_chunk=train_cfg.loss_chunk)[0].item()
+    del ref, first
+    torch.cuda.empty_cache()
+
+    counters = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+                "fused_rms_norm": fused_rms_norm, "fused_layer_norm": fused_layer_norm}
+    per_step = {"flash_attention": 2 * (lt + lv), "flash_attention_bwd": lt + lv,
+                "fused_rms_norm": 2 * 2 * lt + 1, "fused_layer_norm": 2 * 2 * lv + 1}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    flash_attention.copies = 0
+    t0 = time.perf_counter()
+    state = train_leopard_llava.train_main(args, tokenizer=tok)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    totals = {k: c.launches for k, c in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    copies = flash_attention.copies
+    del state
+    with open(tmp / "run" / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in rows]
+    if [r["step"] for r in rows] != list(range(1, TRAIN_CLI_STEPS + 1)):
+        raise AssertionError(f"train CLI: logged steps {[r['step'] for r in rows]}")
+    if not all(np.isfinite(losses)) or any(r["nan_iters"] for r in rows):
+        raise AssertionError(f"train CLI: non-finite losses {losses}")
+    rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    if rel > TRAIN_CLI_LOSS_RTOL:
+        raise AssertionError(f"train CLI: step 1 loss {losses[0]} vs vlm_loss {ref_loss} "
+                             f"(rel {rel:.3g} > {TRAIN_CLI_LOSS_RTOL})")
+    expect("train CLI", totals, {k: TRAIN_CLI_STEPS * n for k, n in per_step.items()})
+    if copies:
+        raise AssertionError(f"train CLI: K1/K2 copied {copies} inputs")
+    step_ms = statistics.mean(r["step_time"] for r in rows[1:]) * 1e3
+    tokens = 2 * TRAIN_SEQ
+    rec = {"losses": losses, "vlm_loss": ref_loss, "loss_rel_diff": rel,
+           "batch_shapes": [[list(s), t] for s, t in shapes],
+           "tokens_in_loss": [r["tokens_in_loss"] for r in rows],
+           "step_ms": [r["step_time"] * 1e3 for r in rows], "step_ms_mean_2_3": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3, "loader_ms_per_batch": loader_ms,
+           "data_ms": [r["data_time"] * 1e3 for r in rows], "wall_s": wall,
+           "peak_memory_gib": peak_gib, "launches": totals, "launches_per_step": per_step}
+    print(f"train CLI: {MANIFEST_SAMPLES}-sample manifest, --init-from the phase-19 checkpoint, "
+          f"{TRAIN_CLI_STEPS} steps at batch 2 x {TRAIN_SEQ} (loader batches {rec['batch_shapes']} "
+          f"as ((rows, bucket), tile bucket), native index builder loaded): losses "
+          f"{[round(x, 6) for x in losses]}, step 1 vs vlm_loss on the model loaded from the "
+          f"checkpoint {ref_loss:.6f} (rel {rel:.3g}, tol {TRAIN_CLI_LOSS_RTOL}); launches "
+          f"{totals} = {TRAIN_CLI_STEPS} x {per_step}; step {step_ms:.1f} ms (mean of steps "
+          f"2-{TRAIN_CLI_STEPS}), {tokens / step_ms * 1e3:.1f} tokens/s (padded), loader "
+          f"{loader_ms:.1f} ms a batch on the host, the loop's data wait "
+          f"{[round(x, 1) for x in rec['data_ms']]} ms; the whole CLI {wall:.2f} s; peak device "
+          f"memory {peak_gib:.2f} GiB [{card}]", flush=True)
+    return rec
+
+
 def train_config():
     """Leopard-LLaVA-8B at full width with the text depth cut to
     TRAIN_TEXT_LAYERS (the one cut: the 8B train state does not fit)."""
@@ -1611,7 +2244,7 @@ def param_group(name):
 
 
 def train_grads_vs_dense(model, cfg, batch, card):
-    """Phase 10a: one step's gradients through K1 + K2 against the same step
+    """Phase 20, first: one step's gradients through K1 + K2 against the same step
     with attn_impl="dense" in text and tower (plain attention under
     autograd), on the same weights; cosine per parameter group."""
     import torch
@@ -1659,7 +2292,7 @@ def train_grads_vs_dense(model, cfg, batch, card):
 
 
 def train_phase(model, cfg, batch, card):
-    """Phase 10b: TRAIN_STEPS steps of train() through the user's entry
+    """Phase 20, then: TRAIN_STEPS steps of train() through the user's entry
     points, each step timed and its kernel launches counted."""
     import torch
 
@@ -1807,8 +2440,11 @@ def main() -> int:
     k4_pool = {name: int4_vs_plain(f"{name}_m{m_pool}", m_pool, k, n, device, card, flush)
                for name, (k, n, _) in K4_SHAPES.items()}
     k4_m64 = int4_vs_plain("gate_up_m64", 64, 4096, 14336, device, card, flush)
+    # a single request's decode (phase 19's int4 server) runs every matmul at M = 1
+    k4_m1 = {name: int4_vs_plain(f"{name}_m1", 1, k, n, device, card, flush)
+             for name, (k, n, _) in K4_SHAPES.items()}
     k4_checked = ({(2, name) for name in K4_SHAPES} | {(m_pool, name) for name in K4_SHAPES}
-                  | {(64, "gate_up")})
+                  | {(1, name) for name in K4_SHAPES} | {(64, "gate_up")})
     # K2 at the train path's shapes, K3 at its rows
     full = leopard_llava_8b()
     text, vis = full.text, full.vision
@@ -1942,24 +2578,43 @@ def main() -> int:
     del engine
     peak["pool_int4_kv8"] = phase_memory("pool int4 + int8 KV")
 
-    # phase 18: training at 8B width, text depth 4
+    # phase 18: HF conversion at full 8B width and depth, in memory, and
+    # transformers' Llama and SigLIP on the exported tensors
+    features["hf"] = hf_phase(model, cfg, launches, card, device)
+    peak["hf"] = phase_memory("HF conversion and transformers")
     del model
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    tcfg = train_config()
-    model = vlm.init_params(tcfg, torch.Generator(device=device).manual_seed(SEED))
-    batch = train_batch(tcfg, device)
-    n_train = sum(p.numel() for p in model.parameters())
-    print(f"train model: Leopard-LLaVA-8B widths, {TRAIN_TEXT_LAYERS} of 32 text layers, "
-          f"{n_train} parameters; batch {len(TRAIN_ROWS)} x {TRAIN_SEQ} tokens packing "
-          f"{[list(r) for r in TRAIN_ROWS]}, {batch['images'].shape[0]} tiles", flush=True)
-    grads_check = train_grads_vs_dense(model, tcfg, batch, card)
-    torch.cuda.empty_cache()
-    train_run = train_phase(model, tcfg, batch, card)
-    del model, batch
-    peak["train"] = phase_memory("train")
 
-    # phase 19: no JAX
+    # phases 19-21 at 8B widths with the text depth cut to 4 of 32 (the 8B
+    # train state, ~18 B a parameter, does not fit one card); phase 21
+    # fine-tunes from the checkpoint that phase 19 writes
+    tcfg = train_config()
+    with tempfile.TemporaryDirectory(prefix="leopard_smoke_") as tmp:
+        # phase 19: from a checkpoint on disk, through the convert, generate
+        # and serve CLIs
+        features["checkpoint"], hf_dir = checkpoint_phase(tcfg, launches, card, k4_checked,
+                                                          Path(tmp), device)
+        peak["checkpoint"] = phase_memory("checkpoint and the convert, generate, serve CLIs")
+
+        # phase 20: training at 8B width, text depth 4, on a synthetic batch
+        model = vlm.init_params(tcfg, torch.Generator(device=device).manual_seed(SEED))
+        batch = train_batch(tcfg, device)
+        n_train = sum(p.numel() for p in model.parameters())
+        print(f"train model: Leopard-LLaVA-8B widths, {TRAIN_TEXT_LAYERS} of 32 text layers, "
+              f"{n_train} parameters; batch {len(TRAIN_ROWS)} x {TRAIN_SEQ} tokens packing "
+              f"{[list(r) for r in TRAIN_ROWS]}, {batch['images'].shape[0]} tiles", flush=True)
+        grads_check = train_grads_vs_dense(model, tcfg, batch, card)
+        torch.cuda.empty_cache()
+        train_run = train_phase(model, tcfg, batch, card)
+        del model, batch
+        peak["train"] = phase_memory("train")
+
+        # phase 21: the train CLI from a manifest, --init-from phase 19's
+        # checkpoint, through the data pipeline
+        features["train_cli"] = train_cli_phase(hf_dir, card, Path(tmp), device)
+        peak["train_cli"] = phase_memory("train CLI")
+
+    # phase 22: no JAX
     if "jax" in sys.modules or any(m.split(".")[0] == "leopard_tpu" for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
     print("no jax: ok", flush=True)
@@ -1973,13 +2628,18 @@ def main() -> int:
         return sum(n * r[key] for n, r in parts)
 
     def new_paths(name):
-        """A kernel's launches on phases 15-17's paths."""
-        server = features["server"]
+        """A kernel's launches on phases 15-19's and 21's paths."""
+        server, hf, ckpt = features["server"], features["hf"], features["checkpoint"]
         return {"launches_server_generate": server["generate"]["launches"][name],
                 "launches_server_images": (server["images"]["launches"][name]
                                            if "images" in server else None),
                 "launches_pool": features["pool"]["launches"][name],
-                "launches_pool_int4_kv8": features["pool_int4_kv8"]["launches"][name]}
+                "launches_pool_int4_kv8": features["pool_int4_kv8"]["launches"][name],
+                "launches_hf_llama": hf["llama"]["launches"][name],
+                "launches_hf_siglip": hf["siglip"]["launches"][name],
+                "launches_generate_cli": ckpt["generate"]["launches"][name],
+                "launches_serve_cli_int4": ckpt["serve_int4"]["launches"][name],
+                "launches_train_cli": features["train_cli"]["launches"].get(name, 0)}
 
     def bound_by(parts):
         """What bounds a sum of calls: the side holding most of its bound."""
@@ -2024,7 +2684,8 @@ def main() -> int:
         "replaces": "leopard_tpu/ops/pallas/int4_matmul.py:76",
         "launches": timings_int4["launches"]["int4_matmul"],
         "max_abs_err": max(r["max_abs_err"] for r in [*k4_shapes.values(),
-                                                       *k4_pool.values(), k4_m64]),
+                                                       *k4_pool.values(), k4_m64,
+                                                       *k4_m1.values()]),
         "ms": k4_step["ms"],
         "plain_ms": k4_step["plain_ms"],
         "bound_ms": k4_step["bound_ms"],
@@ -2052,7 +2713,7 @@ def main() -> int:
                  "+ 2 gate_up + down) + lm_head",
         "per_step_pool": k4_step_pool,
         "per_step_pool_is": f"the same step at M = {m_pool}, the slot pool's decode",
-        "shapes": [*k4_shapes.values(), *k4_pool.values(), k4_m64],
+        "shapes": [*k4_shapes.values(), *k4_pool.values(), k4_m64, *k4_m1.values()],
         "card": card,
         "serve_int4": timings_int4,
         "launches_turn2_int4_kv8": features["multiturn_int4_kv8"]["launches"]["int4_matmul"],
@@ -2083,6 +2744,7 @@ def main() -> int:
         "copies_is": "flash_attention.copies (K1 and K2 inputs) over the train() run",
         "ms_is": f"per train step: {tcfg.text.num_layers} x decoder + "
                  f"{tcfg.vision.num_layers} x tower",
+        "launches_train_cli": features["train_cli"]["launches"]["flash_attention_bwd"],
         "shapes": list(k2.values()),
         "card": card,
         "train": train_run,

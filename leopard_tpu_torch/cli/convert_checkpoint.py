@@ -1,0 +1,84 @@
+"""Checkpoint conversion, HF ↔ the port's native checkpoint (port of
+tools/convert_checkpoint.py), both directions:
+
+  # HF → native (CheckpointManager, parameters alone, step 0)
+  python -m leopard_tpu_torch.cli.convert_checkpoint --direction hf2native \
+      --arch leopard_llava --input /ckpts/leopard-llava-hf --output ckpt/
+
+  # native → HF (fp32 tensors in one model.safetensors)
+  python -m leopard_tpu_torch.cli.convert_checkpoint --direction native2hf \
+      --arch leopard_llava --input ckpt/ --output /ckpts/export/
+
+`--arch llama` converts the text decoder alone (`model.*` keys).
+`convert(args, cfg)` is the whole path for a caller with its own config.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Optional, Sequence
+
+from leopard_tpu_torch.cli import add_device_arg, resolve_device
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--direction", choices=["hf2native", "native2hf"], required=True)
+    p.add_argument("--arch", default="leopard_llava",
+                   choices=["leopard_llava", "leopard_idefics2", "llama", "mistral"])
+    p.add_argument("--input", required=True)
+    p.add_argument("--output", required=True)
+    add_device_arg(p)
+    return p.parse_args(argv)
+
+
+def convert(args: argparse.Namespace, cfg=None) -> None:
+    """hf2native: read the HF tensors onto the device, convert them to the
+    config's dtype there, save them. native2hf: restore the parameters on
+    the host and write them as fp32."""
+    device = resolve_device(args.device)
+    from leopard_tpu_torch.config import leopard_llava_8b
+    from leopard_tpu_torch.convert import hf as chf
+    from leopard_tpu_torch.training.checkpoint import CheckpointManager
+
+    if args.arch not in ("leopard_llava", "llama"):
+        raise NotImplementedError(chf.IDEFICS2_PENDING)
+    cfg = cfg or leopard_llava_8b()  # llama: its text part only
+
+    if args.direction == "hf2native":
+        sd = chf.load_hf_state_dict(args.input, device)
+        if args.arch == "leopard_llava":
+            params = chf.convert_leopard_llava(sd, cfg, device=device)
+        else:
+            params = {"text." + k: v for k, v in
+                      chf.convert_decoder(sd, cfg.text, "model.", device=device).items()}
+        mgr = CheckpointManager(args.output, async_save=False)
+        mgr.save(0, params, config={"arch": args.arch})
+        mgr.close()
+        print(f"saved native checkpoint to {args.output}", flush=True)
+        return
+
+    from safetensors.torch import save_file
+
+    mgr = CheckpointManager(args.input, async_save=False)
+    params, _ = mgr.restore()
+    mgr.close()
+    if args.arch == "leopard_llava":
+        sd = chf.export_leopard_llava(params, cfg)
+    else:
+        sd = chf.export_decoder({k[len("text."):]: v for k, v in params.items()
+                                 if k.startswith("text.")}, cfg.text, "model.")
+    del params
+    os.makedirs(args.output, exist_ok=True)
+    save_file({k: v.float().contiguous() for k, v in sd.items()},
+              os.path.join(args.output, "model.safetensors"))
+    print(f"exported {len(sd)} tensors to {args.output}", flush=True)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    convert(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

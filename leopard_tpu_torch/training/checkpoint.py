@@ -6,7 +6,8 @@ host memory (synchronously, since the train step updates the state's tensors
 in place) and writes it with `torch.save` on one worker thread, so training
 goes on while the file is written. Layout:
 
-    <dir>/<step>/state.pt          {"step", "params", "opt_state"}
+    <dir>/<step>/state.pt          {"step", "params", "opt_state"}, or
+                                   {"step", "params"} for parameters alone
     <dir>/<step>/data_state.json   when given
     <dir>/<step>/config.json       when given
     <dir>/latest_checkpointed_iteration.txt
@@ -21,7 +22,7 @@ import concurrent.futures
 import json
 import os
 import shutil
-from typing import Optional
+from typing import Mapping, Optional, Union
 
 import torch
 
@@ -45,17 +46,21 @@ class CheckpointManager:
         self._pool = concurrent.futures.ThreadPoolExecutor(1) if async_save else None
         self._pending: Optional[concurrent.futures.Future] = None
 
-    def save(self, step: int, state: TrainState, data_state: Optional[dict] = None,
-             config: Optional[dict] = None) -> None:
+    def save(self, step: int, state: Union[TrainState, Mapping[str, torch.Tensor]],
+             data_state: Optional[dict] = None, config: Optional[dict] = None) -> None:
         """Finish the previous save, snapshot `state` to host memory, and
-        write it (on the worker thread when saving asynchronously)."""
+        write it (on the worker thread when saving asynchronously). `state`
+        is a TrainState, or parameters alone as {name: tensor}."""
         self.wait_until_finished()
-        opt = state.opt_state
-        payload = {
-            "step": int(state.step),
-            "params": _host(state.params),
-            "opt_state": {"count": int(opt.count), "mu": _host(opt.mu), "nu": _host(opt.nu)},
-        }
+        if isinstance(state, TrainState):
+            opt = state.opt_state
+            payload = {
+                "step": int(state.step),
+                "params": _host(state.params),
+                "opt_state": {"count": int(opt.count), "mu": _host(opt.mu), "nu": _host(opt.nu)},
+            }
+        else:
+            payload = {"step": int(step), "params": _host(state)}
         if self._pool is None:
             self._write(step, payload, data_state, config)
         else:
@@ -88,10 +93,13 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None, template: Optional[TrainState] = None):
+    def restore(self, step: Optional[int] = None,
+                template: Union[TrainState, Mapping[str, torch.Tensor], None] = None):
         """Returns (state, data_state or None), or (None, None) without a
-        checkpoint. With `template`, each tensor goes to the device of the
-        template's tensor of the same name; otherwise it stays on the CPU."""
+        checkpoint; `state` is a TrainState, or {name: tensor} where
+        parameters alone were saved. With `template` (of the same kind),
+        each tensor goes to the device of the template's tensor of the same
+        name; otherwise it stays on the CPU."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -104,17 +112,20 @@ class CheckpointManager:
                 return tensors
             return {k: v.to(like[k].device) for k, v in tensors.items()}
 
-        opt = payload["opt_state"]
-        t_opt = template.opt_state if template is not None else None
-        state = TrainState(
-            step=payload["step"],
-            params=place(payload["params"], template.params if template else None),
-            opt_state=AdamWState(
-                count=opt["count"],
-                mu=place(opt["mu"], t_opt.mu if t_opt else None),
-                nu=place(opt["nu"], t_opt.nu if t_opt else None),
-            ),
-        )
+        if "opt_state" not in payload:
+            state = place(payload["params"], template)
+        else:
+            opt = payload["opt_state"]
+            t_opt = template.opt_state if template is not None else None
+            state = TrainState(
+                step=payload["step"],
+                params=place(payload["params"], template.params if template else None),
+                opt_state=AdamWState(
+                    count=opt["count"],
+                    mu=place(opt["mu"], t_opt.mu if t_opt else None),
+                    nu=place(opt["nu"], t_opt.nu if t_opt else None),
+                ),
+            )
         data_state = None
         path = os.path.join(d, "data_state.json")
         if os.path.exists(path):

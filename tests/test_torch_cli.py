@@ -1,0 +1,322 @@
+"""The port's entry points (leopard_tpu_torch/cli/*) driven end to end on the
+CPU (`--device cpu`) at tiny_vlm widths with the Llama-3 vocabulary, from an
+HF checkpoint written by the JAX package's own export:
+
+  - generate: the tokens of `Engine.generate` and of beam search in the JAX
+    package on the same checkpoint and the same processor output;
+  - train_leopard_llava: two steps from a manifest; step 1's loss against
+    the JAX `make_train_step` on the loader's first batch (rtol 1e-5, as
+    tests/test_torch_train_step.py); a run resumed from a saved checkpoint
+    takes the uninterrupted run's next batch and loss; `main` through a
+    `tokenizer.json` written here, as a user would run it;
+  - convert_checkpoint, both directions, for leopard_llava and llama: the
+    port's file holds the JAX export's tensors;
+  - serve: /health and one /api/generate over HTTP;
+  - without a GPU, each CLI refuses to run unless given --device cpu.
+"""
+
+import io
+import json
+import os
+import threading
+import urllib.request
+from contextlib import redirect_stdout
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from leopard_tpu import config as cfgs
+from leopard_tpu.convert import hf as jhf
+from leopard_tpu.data import dataset as jds
+from leopard_tpu.data.processor import LeopardProcessor as JProcessor
+from leopard_tpu.inference import beam as jbeam
+from leopard_tpu.inference.engine import Engine as JEngine
+from leopard_tpu.models import vlm as jvlm
+from leopard_tpu.training import trainer as jtrainer
+from leopard_tpu_torch import config as tcfgs
+from leopard_tpu_torch.cli import convert_checkpoint, generate, serve, train_leopard_llava
+from leopard_tpu_torch.data import dataset as tds
+from tests.test_chat import FakeTokenizer
+
+torch.set_num_threads(2)
+VOCAB = 128256
+SETS = ["--set", f"text.vocab_size={VOCAB}", "--set", f"image_token_id={VOCAB - 1}"]
+
+
+class Tok(FakeTokenizer):
+    eos_token_id = 128009
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(str(i) for i in ids)
+
+
+TOK = Tok()
+
+
+def cfg_pair():
+    return cfgs.tiny_vlm(vocab_size=VOCAB), tcfgs.tiny_vlm(vocab_size=VOCAB)
+
+
+def noise_png(path, rng, w, h):
+    Image.fromarray(rng.randint(0, 256, (h, w, 3), dtype=np.uint8)).save(path)
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def workdir(tmp_path_factory):
+    """An HF checkpoint of seeded JAX params (the JAX export, fp32, one
+    safetensors file), two PNGs and a manifest of 6 samples of 1-2 images."""
+    from safetensors.numpy import save_file
+
+    root = tmp_path_factory.mktemp("cli")
+    jcfg, _ = cfg_pair()
+    params = jax.device_get(jvlm.init_params(jcfg, jax.random.PRNGKey(0)))
+    sd = jhf.export_leopard_llava(params, jcfg)
+    (root / "hf").mkdir()
+    save_file({k: np.ascontiguousarray(v) for k, v in sd.items()},
+              str(root / "hf" / "model.safetensors"))
+    rng = np.random.RandomState(0)
+    pngs = [noise_png(root / "a.png", rng, 150, 60), noise_png(root / "b.png", rng, 40, 130)]
+    (root / "imgs").mkdir()
+    rows = []
+    for i in range(6):
+        names = []
+        for j in range(1 + i % 2):
+            w, h = rng.randint(30, 160, size=2)
+            names.append(os.path.basename(noise_png(root / "imgs" / f"{i}_{j}.png", rng, w, h)))
+        rows.append({"conversations": [
+            {"from": "human", "value": "<image> " * len(names) + f"what is shown in {i}?"},
+            {"from": "gpt", "value": f"a picture number {i}, mostly noise"}], "images": names})
+    (root / "data.jsonl").write_text("".join(json.dumps(r) + "\n" for r in rows))
+    return {"root": root, "hf": str(root / "hf"), "pngs": pngs, "params": params, "sd": sd,
+            "manifest": str(root / "data.jsonl"), "images": str(root / "imgs")}
+
+
+QUESTION = "<image> and <image>: which one is wider?"
+
+
+def test_generate_matches_jax(workdir):
+    jcfg, tcfg = cfg_pair()
+    argv = ["--checkpoint", workdir["hf"], "--question", QUESTION, "--images", *workdir["pngs"],
+            "--max-new-tokens", "6", "--device", "cpu"]
+    with redirect_stdout(io.StringIO()) as out:
+        got = generate.generate(generate.parse_args(argv), tokenizer=TOK, cfg=tcfg)
+        got_beam = generate.generate(generate.parse_args(argv + ["--beam", "2"]),
+                                     tokenizer=TOK, cfg=tcfg)
+    assert out.getvalue().splitlines()[0] == TOK.decode(got.tolist())
+
+    images = [Image.open(p).convert("RGB") for p in workdir["pngs"]]
+    prompt, pixels = JProcessor(jcfg, TOK, layout="eval").process_eval(QUESTION, images)
+    gen_cfg = cfgs.GenerateConfig(max_new_tokens=6, greedy=True, eos_token_ids=(128001, 128009))
+    engine = JEngine(jcfg, jhf.convert_leopard_llava(jhf.load_hf_state_dict(workdir["hf"]), jcfg),
+                     gen_cfg)
+    want = engine.generate([prompt], images=pixels, gen_cfg=gen_cfg).tokens[0]
+    np.testing.assert_array_equal(got, want)
+    want_beam = jbeam.beam_search(engine, prompt, images=pixels, beam_width=2, max_new_tokens=6)
+    np.testing.assert_array_equal(got_beam, want_beam)
+
+
+def train_argv(workdir, ckpt_dir, steps, tokenizer="unused"):
+    return ["--manifest", workdir["manifest"], "--image-folder", workdir["images"],
+            "--tokenizer", tokenizer, "--init-from", workdir["hf"], "--checkpoint-dir",
+            str(ckpt_dir), "--seq-len", "256", "--global-batch-size", "2", "--train-steps",
+            str(steps), "--lr", "1e-3", "--device", "cpu", "--tiny", *SETS]
+
+
+def metrics(ckpt_dir):
+    with open(os.path.join(ckpt_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_train(workdir, ckpt_dir, steps, monkeypatch, **overrides):
+    """train_main with the test tokenizer; returns (state, the batches it
+    collated)."""
+    seen = []
+    real = tds.collate
+
+    def record(*a, **kw):
+        seen.append(real(*a, **kw))
+        return seen[-1]
+
+    monkeypatch.setattr(tds, "collate", record)
+    with redirect_stdout(io.StringIO()):
+        state = train_leopard_llava.train_main(
+            train_leopard_llava.parse_args(train_argv(workdir, ckpt_dir, steps)), tokenizer=TOK,
+            **overrides)
+    monkeypatch.setattr(tds, "collate", real)
+    return state, seen
+
+
+def test_train_two_steps_match_jax(workdir, tmp_path, monkeypatch):
+    state, batches = run_train(workdir, tmp_path / "run", 2, monkeypatch)
+    assert state.step == 2 and len(batches) == 2
+    rows = metrics(tmp_path / "run")
+    assert [r["step"] for r in rows] == [1, 2]
+    assert all(np.isfinite(r["loss"]) and r["tokens_in_loss"] > 0 for r in rows)
+
+    jcfg, _ = cfg_pair()
+    loader = jds.TrainDataLoader(jds.JsonlSftDataset(workdir["manifest"], workdir["images"]),
+                                 JProcessor(jcfg, TOK), batch_size=2, seq_len=256,
+                                 state=jds.DataState(seed=1234))
+    first = next(iter(loader))
+    for k, v in first.as_dict().items():
+        np.testing.assert_array_equal(batches[0].as_dict()[k], v, err_msg=k)
+    jtc = cfgs.TrainConfig(seq_len=256, global_batch_size=2, train_steps=2,
+                           optimizer=cfgs.OptimizerConfig(lr=1e-3, decay_steps=2))
+    params = jhf.convert_leopard_llava(jhf.load_hf_state_dict(workdir["hf"]), jcfg)
+    jstate = jtrainer.create_train_state(params, jtc)
+    _, jmetrics = jax.jit(jtrainer.make_train_step(jcfg, jtc))(
+        jstate, {k: jnp.asarray(v) for k, v in first.as_dict().items()})
+    np.testing.assert_allclose(rows[0]["loss"], float(jmetrics["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(rows[0]["tokens_in_loss"], float(jmetrics["tokens_in_loss"]))
+
+
+def test_train_resume_takes_the_next_batch(workdir, tmp_path, monkeypatch):
+    """Two steps saving after each, then a run to step 3 from that directory,
+    against three uninterrupted steps: the resumed run restores step, params,
+    optimizer and data position, so its one batch and its loss are the
+    uninterrupted run's third."""
+    run_train(workdir, tmp_path / "a", 2, monkeypatch, save_interval=1)
+    saved = json.loads((tmp_path / "a" / "2" / "data_state.json").read_text())
+    assert saved["epoch"] == 0 and saved["cursor"] > 0
+    state, resumed = run_train(workdir, tmp_path / "a", 3, monkeypatch)
+    assert state.step == 3 and len(resumed) == 1
+    _, whole = run_train(workdir, tmp_path / "b", 3, monkeypatch)
+    for k, v in whole[2].as_dict().items():
+        np.testing.assert_array_equal(resumed[0].as_dict()[k], v, err_msg=k)
+    np.testing.assert_allclose(metrics(tmp_path / "a")[-1]["loss"],
+                               metrics(tmp_path / "b")[-1]["loss"], rtol=1e-6)
+
+
+def write_tokenizer(directory):
+    """A character-level tokenizer.json with the Llama-3 special tokens at
+    their ids, written without the network."""
+    specials = {"<|begin_of_text|>": 128000, "<|end_of_text|>": 128001,
+                "<|start_header_id|>": 128006, "<|end_header_id|>": 128007, "<|eot_id|>": 128009}
+    specials.update({f"<|reserved_special_token_{k}|>": 128010 + k - 5 for k in range(5, 251)})
+    vocab = {chr(i): i for i in range(32, 127)}
+    vocab.update({"\n": 10, **specials})
+    doc = {"version": "1.0", "truncation": None, "padding": None, "normalizer": None,
+           "added_tokens": [{"id": i, "content": s, "single_word": False, "lstrip": False,
+                             "rstrip": False, "normalized": False, "special": True}
+                            for s, i in specials.items()],
+           "pre_tokenizer": {"type": "Split", "pattern": {"Regex": "[\\s\\S]"},
+                             "behavior": "Isolated", "invert": False},
+           "post_processor": None, "decoder": None,
+           "model": {"type": "WordLevel", "vocab": vocab, "unk_token": "<unk>"}}
+    directory.mkdir()
+    (directory / "tokenizer.json").write_text(json.dumps(doc))
+    (directory / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "PreTrainedTokenizerFast", "bos_token": "<|begin_of_text|>",
+        "eos_token": "<|eot_id|>"}))
+    return str(directory)
+
+
+def test_train_main_with_tokenizer_file(workdir, tmp_path):
+    tok_dir = write_tokenizer(tmp_path / "tok")
+    with redirect_stdout(io.StringIO()) as out:
+        train_leopard_llava.main(train_argv(workdir, tmp_path / "run", 1, tokenizer=tok_dir))
+    assert "done at step 1" in out.getvalue()
+    (row,) = metrics(tmp_path / "run")
+    assert np.isfinite(row["loss"]) and row["tokens_in_loss"] > 0
+
+
+@pytest.mark.parametrize("arch", ["leopard_llava", "llama"])
+def test_convert_both_directions(workdir, tmp_path, arch):
+    from safetensors import safe_open
+    from safetensors.numpy import save_file
+
+    jcfg, tcfg = cfg_pair()
+    src = workdir["hf"]
+    want = workdir["sd"]
+    if arch == "llama":
+        want = jhf.export_decoder(workdir["params"]["text"], jcfg.text, "model.")
+        src = str(tmp_path / "llama")
+        os.makedirs(src)
+        save_file({k: np.ascontiguousarray(v) for k, v in want.items()},
+                  os.path.join(src, "model.safetensors"))
+    native, out = str(tmp_path / "native"), str(tmp_path / "out")
+    with redirect_stdout(io.StringIO()):
+        convert_checkpoint.convert(convert_checkpoint.parse_args(
+            ["--direction", "hf2native", "--arch", arch, "--input", src, "--output", native,
+             "--device", "cpu"]), cfg=tcfg)
+        convert_checkpoint.convert(convert_checkpoint.parse_args(
+            ["--direction", "native2hf", "--arch", arch, "--input", native, "--output", out,
+             "--device", "cpu"]), cfg=tcfg)
+    assert json.loads((tmp_path / "native" / "0" / "config.json").read_text()) == {"arch": arch}
+    with safe_open(os.path.join(out, "model.safetensors"), framework="np") as f:
+        assert set(f.keys()) == set(want)
+        for k, v in want.items():
+            got = f.get_tensor(k)
+            assert got.dtype == np.float32
+            np.testing.assert_array_equal(got, v, err_msg=k)
+
+
+def test_serve_answers_over_http(workdir):
+    _, tcfg = cfg_pair()
+    args = serve.parse_args(["--checkpoint", workdir["hf"], "--host", "127.0.0.1", "--port", "0",
+                             "--device", "cpu"])
+    server = serve.build_server(args, tokenizer=TOK, cfg=tcfg)
+    httpd = server.http_server()
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        with urllib.request.urlopen(url + "/health", timeout=60) as r:
+            assert (r.status, json.loads(r.read())) == (200, {"status": "ok"})
+        payload = {"prompts": ["hello there"], "max_new_tokens": 4, "greedy": True,
+                   "eos_token_ids": [999999]}
+        req = urllib.request.Request(url + "/api/generate", data=json.dumps(payload).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            status, out = r.status, json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    assert not thread.is_alive()
+    ids = np.asarray(TOK("hello there", add_special_tokens=True)["input_ids"], np.int32)
+    want = server.engine.generate([ids], gen_cfg=tcfgs.GenerateConfig(
+        max_new_tokens=4, eos_token_ids=(999999,))).tokens[0]
+    assert status == 200 and out["tokens"] == [want.tolist()]
+
+
+def test_serve_flags_exclusive():
+    base = ["--checkpoint", "unused"]
+    for extra in (["--spec", "3", "--continuous"], ["--spec", "3", "--system-prompt", "hi"]):
+        with pytest.raises(SystemExit), redirect_stdout(io.StringIO()):
+            serve.parse_args(base + extra)
+
+
+def test_unported_arch_raises(workdir, tmp_path):
+    with pytest.raises(NotImplementedError, match="item 7"):
+        serve.build_server(serve.parse_args(["--checkpoint", workdir["hf"], "--arch",
+                                             "leopard_idefics2", "--device", "cpu"]), tokenizer=TOK)
+    for arch in ("leopard_idefics2", "mistral"):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            convert_checkpoint.convert(convert_checkpoint.parse_args(
+                ["--direction", "hf2native", "--arch", arch, "--input", workdir["hf"],
+                 "--output", str(tmp_path / arch), "--device", "cpu"]))
+
+
+@pytest.mark.parametrize("name", ["generate", "serve", "train", "convert"])
+def test_refuses_without_gpu(workdir, tmp_path, name, monkeypatch):
+    """With no card and no --device cpu, each CLI exits with an error before
+    it reads anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = {
+        "generate": (generate.main, ["--checkpoint", workdir["hf"], "--question", "hi"]),
+        "serve": (serve.main, ["--checkpoint", workdir["hf"]]),
+        "train": (train_leopard_llava.main,
+                  train_argv(workdir, tmp_path / "t", 1)[:-len(SETS) - 3] + ["--tiny"]),
+        "convert": (convert_checkpoint.main, ["--direction", "hf2native", "--input",
+                                              workdir["hf"], "--output", str(tmp_path / "n")]),
+    }
+    main, args = argv[name]
+    assert "--device" not in args
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        main(args)
+    assert not (tmp_path / "t").exists() and not (tmp_path / "n").exists()

@@ -1,5 +1,6 @@
 """The port never imports JAX nor any module of the JAX package (not even
-one that imports no JAX), nor Pillow or transformers at import time, and
+one that imports no JAX), nor Pillow, transformers or safetensors at import
+time, and
 chip_smoke.py refuses to run without a GPU.
 Each check runs in a fresh interpreter, since this test process has JAX
 loaded already."""
@@ -23,8 +24,9 @@ jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not jax_mods, jax_mods
 jax_pkg = sorted(m for m in sys.modules if m == "leopard_tpu" or m.startswith("leopard_tpu."))
 assert not jax_pkg, jax_pkg
-# Pillow and transformers load only inside the functions that need them
-host_libs = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "transformers"))
+# Pillow, transformers and safetensors load only inside the functions that need them
+host_libs = sorted(m for m in sys.modules
+                   if m.split(".")[0] in ("PIL", "transformers", "safetensors"))
 assert not host_libs, host_libs
 print(" ".join(names))
 """
@@ -32,7 +34,10 @@ print(" ".join(names))
 REQUIRED = ("ops.flash_attention", "ops.int4_matmul", "ops.fused_norms",
             "ops.chunked_attention", "inference.engine", "inference.speculative",
             "inference.beam", "training.trainer", "data.anyres", "data.chat",
-            "data.tokenizer", "inference.continuous", "inference.server", "inference.api")
+            "data.tokenizer", "inference.continuous", "inference.server", "inference.api",
+            "convert.hf", "data.conversation", "data.processor", "data.native",
+            "data.text_dataset", "data.dataset", "cli.generate", "cli.serve",
+            "cli.train_leopard_llava", "cli.convert_checkpoint")
 
 
 def _run(args, cwd):

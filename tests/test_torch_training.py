@@ -317,6 +317,26 @@ def test_checkpoint_round_trip(tmp_path):
     assert CheckpointManager(str(tmp_path / "empty")).restore() == (None, None)
 
 
+def test_checkpoint_params_only_round_trip(tmp_path):
+    """Parameters alone ({name: tensor}, as an HF conversion has them) save
+    and restore as a mapping, placed like the template's tensors."""
+    model = _model()
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), async_save=False)
+    mgr.save(0, params, config={"arch": "leopard_llava"})
+    assert mgr.latest_step() == 0
+    for template in (None, params):
+        restored, data_state = mgr.restore(template=template)
+        assert data_state is None and isinstance(restored, dict)
+        assert restored.keys() == params.keys()
+        for k, v in params.items():
+            assert torch.equal(restored[k], v) and restored[k].dtype == v.dtype
+            assert restored[k].device == v.device
+    with open(tmp_path / "ckpt" / "0" / "config.json") as f:
+        assert json.load(f) == {"arch": "leopard_llava"}
+    mgr.close()
+
+
 def test_train_loop_smoke(tmp_path):
     cfg, tcfg, state, step = _setup()
     tcfg = dataclasses.replace(tcfg, train_steps=3, log_interval=1, save_interval=2,
