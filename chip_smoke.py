@@ -17,7 +17,11 @@ script exits non-zero without printing a result:
      SDPA call does up to 2x the work of a kernel that skips tiles): K1 in
      bf16 at the serving path's shapes (vision tower at 8, 16 and 32 tiles,
      decoder prefill, and
-     the decoder prefills that phase 16's pool stages); K2 at the
+     the decoder prefills that phase 16's pool stages; for phases 22-25 the
+     NaViT tower at phase 22's eight images and phase 25's two, their patch
+     masks' interleaved segment ids, with SDPA under the same boolean mask,
+     and the decoder at [1, 8,192] with Mistral's window of 4,096 and
+     without it); K2 at the
      train path's shapes (the decoder's packed two-segment rows with a
      padding tail, the tower's 16 tiles at head dim 72); K3a/K3b at the
      train path's rows, (8192, 4096) RMSNorm and (16·676, 1152) LayerNorm,
@@ -122,7 +126,33 @@ script exits non-zero without printing a result:
      loader's first batch with the model loaded from the checkpoint, the
      loader's K1/K2 shapes held in phase 3, the launches against the layer
      counts, step ms, tokens/s, the loader's host ms a batch, peak memory;
- 22. no JAX was imported.
+ 22. (A) Leopard-Idefics2-8B at full depth and width, seeded weights (the
+     perceiver's latents drawn apart): one request of the reference's
+     serving shape, eight seeded noise images (one 980 x 980, the others
+     wide or tall, so that every image but one has padded rows or columns
+     inside the 70 x 70 patch grid) through preprocess_idefics2 and a
+     prompt filled with text to bucket 8,192, 16 greedy tokens twice: K1 27
+     + 32, K3a 65 x 16 + 10, K3b 55, no K1 input copied, tokens repeat; the
+     tower's whole output finite; encode_images (tower and perceiver
+     apart), TTFT, prefill tok/s, decode ms/step;
+ 23. (B) phase 22's first-step logits through the kernels against the dense
+     path (tower and decoder attn_impl "dense"), cosine >= 0.99, and against
+     the kernel path without the window, which must differ by more than 10x
+     as much;
+ 24. (C) HF at full 8B in memory: export_leopard_idefics2 then
+     convert_leopard_idefics2, bit for bit, the export adding no device
+     memory; transformers' MistralForCausalLM (window 4,096) on the exported
+     decoder against the port's on 1 x 8,192 tokens, and transformers'
+     Idefics2VisionTransformer + Idefics2Connector against the port's tower
+     + perceiver on phase 22's images: cosine >= 0.995 (the tower given
+     the reference's position ids; transformers' own rule, which differs at
+     exact boundaries, reported beside);
+ 25. (D) a depth-4 (of 32) Idefics2 checkpoint of two safetensors shards:
+     convert_checkpoint --arch leopard_idefics2 both ways bit for bit, and
+     serve --arch leopard_idefics2 answering one request of two seeded PNGs
+     over HTTP with Engine.generate's tokens on the server's own
+     _prepare_row output; every K1 shape of phases 22-25 held in phase 3;
+ 26. no JAX was imported.
 Each engine is freed after its phase, with the phase's peak device memory
 printed. Then the card's name and power limit as nvidia-smi prints them, one
 JSON line with every kernel ({"kernels": [...]}) and, last, the JSON line
@@ -254,10 +284,19 @@ def wall_s(fn, reps=3) -> float:
     return statistics.median(times)
 
 
-def attended_pairs(segment_lengths, causal):
-    """(q, kv) pairs the mask lets through, for rows of contiguous segments."""
-    return sum(n * (n + 1) // 2 if causal else n * n
-               for row in segment_lengths for n in row)
+def attended_pairs(segment_lengths, causal, window=None):
+    """(q, kv) pairs the mask lets through, for rows of segments of the given
+    lengths (a NaViT image's real patches count as one segment of their
+    number: they attend each other wherever they lie in the row), under the
+    causal band and, for a causal segment, the window (row i attends
+    min(i + 1, window) positions)."""
+    def pairs(n):
+        if not causal:
+            return n * n
+        if window is None or n <= window:
+            return n * (n + 1) // 2
+        return window * (window + 1) // 2 + (n - window) * window
+    return sum(pairs(n) for row in segment_lengths for n in row)
 
 
 def attn_bound_ms(pairs, heads, d, products, n_bytes):
@@ -310,7 +349,7 @@ def sdpa_ms(lengths, hq, hkv, d, causal, device, backward):
     return cuda_ms(run_backward)
 
 
-def ranges_ms(seg, s, causal) -> float:
+def ranges_ms(seg, s, causal, window=None) -> float:
     """Host time of one tile_ranges call on segment ids [B, S], device work
     included (median of 10, each ending in a synchronize). The decoder
     computes it once per forward and passes it to every layer, and the
@@ -319,8 +358,31 @@ def ranges_ms(seg, s, causal) -> float:
 
     if seg is None:
         return 0.0
-    return wall_s(lambda: tile_ranges(seg, seg, sq=s, skv=s, causal=causal,
+    return wall_s(lambda: tile_ranges(seg, seg, sq=s, skv=s, causal=causal, window=window,
                                       device=seg.device), reps=10) * 1e3
+
+
+def sdpa_masked_ms(q, k, v, seg, causal, window):
+    """One F.scaled_dot_product_attention on the kernel's inputs with the
+    same mask as a boolean attn_mask [B, 1, S, S]: the library call that
+    computes the same function (its fully-masked rows aside). Returns (ms,
+    None) or (None, the error) where SDPA refuses the call."""
+    import torch
+    import torch.nn.functional as F
+
+    from leopard_tpu_torch.ops.attention import make_attention_mask
+
+    s = q.shape[1]
+    mask = make_attention_mask(s, s, causal=causal, q_segment_ids=seg, kv_segment_ids=seg,
+                               sliding_window=window, device=q.device)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    try:
+        with torch.no_grad():
+            return cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=q.shape[2] != k.shape[2])), None
+    except RuntimeError as e:  # reported; the kernel's check does not depend on it
+        return None, str(e).splitlines()[0]
+
 
 
 def achieved(pairs, heads, d, products, ms, bound_ms):
@@ -345,15 +407,23 @@ def attn_inputs(b, s, hq, hkv, d, rows, device):
     return q, k, v, dout, seg
 
 
-def kernel_vs_plain(name, b, s, hq, hkv, d, causal, rows, device, card):
-    """Phase 3 for one shape: max abs error over valid rows, both times."""
+def kernel_vs_plain(name, b, s, hq, hkv, d, causal, rows, device, card, window=None,
+                    seg_ids=None):
+    """Phase 3 for one shape: max abs error over valid rows, both times.
+    `seg_ids` [B, S] (numpy): segment ids as they come, e.g. a NaViT patch
+    mask's interleaved 0/1 ids, in place of `rows`' contiguous ones; then
+    `rows` gives each row's count of real patches for the pair count and the
+    attended SDPA. `window`: the decoder's sliding window."""
     import torch
 
     from leopard_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_ref,
                                                        tile_ranges)
 
-    q, k, v, _, seg = attn_inputs(b, s, hq, hkv, d, rows, device)
-    kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
+    q, k, v, _, seg = attn_inputs(b, s, hq, hkv, d, None if seg_ids is not None else rows,
+                                  device)
+    if seg_ids is not None:
+        seg = torch.from_numpy(np.ascontiguousarray(seg_ids, np.int32)).to(device)
+    kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg, sliding_window=window)
     got = flash_attention(q, k, v, **kw)
     want = flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -363,29 +433,43 @@ def kernel_vs_plain(name, b, s, hq, hkv, d, causal, rows, device, card):
     err = (got[valid].float() - want[valid].float()).abs().max().item()
     torch.testing.assert_close(got[valid].float(), want[valid].float(), **KERNEL_TOL)
     del want
-    ranges = tile_ranges(seg, seg, sq=s, skv=s, causal=causal, device=device)
+    ranges = tile_ranges(seg, seg, sq=s, skv=s, causal=causal, window=window, device=device)
     ms = cuda_ms(lambda: flash_attention(q, k, v, ranges=ranges, **kw))  # as the decoder
     plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw))
-    lone_ranges_ms = ranges_ms(seg, s, causal)
+    lone_ranges_ms = ranges_ms(seg, s, causal, window)
+    masked = {}
+    if seg_ids is not None or window is not None:  # SDPA with the same boolean mask
+        masked["library_masked_ms"], error = sdpa_masked_ms(q, k, v, seg, causal, window)
+        if error is not None:
+            masked["library_masked_error"] = error
     n_bytes = nbytes(q, k, v, seg, seg, got)
     del q, k, v
+    torch.cuda.empty_cache()
     segs = rows if rows is not None else [[s]] * b
     library_ms = sdpa_ms([s] * b, hq, hkv, d, causal, device, backward=False)
-    attended_ms = sdpa_ms([n for row in segs for n in row], hq, hkv, d, causal, device,
-                          backward=False)
-    pairs = attended_pairs(segs, causal)
+    attended = [n for row in segs for n in row if n > 0]
+    attended_ms = sdpa_ms(attended, hq, hkv, d, causal, device, backward=False)
+    pairs = attended_pairs(segs, causal, window)
     bound_ms, bound_by = attn_bound_ms(pairs, hq, d, 2, n_bytes)
     rate = achieved(pairs, hq, d, 2, ms, bound_ms)
     shape = (f"B={b} S={s} heads={hq}/{hkv} D={d} {'causal' if causal else 'non-causal'}"
+             + (f" window={window}" if window else "")
+             + (" NaViT patch-mask segments," if seg_ids is not None else "")
              + (f" lengths={[n for row in rows for n in row]}" if rows else ""))
+    lib_masked = ""
+    if "library_masked_ms" in masked:
+        lib_masked = (f", {masked['library_masked_ms']:.4f} ms (boolean mask)"
+                      if masked["library_masked_ms"] is not None
+                      else f", boolean mask refused: {masked['library_masked_error']}")
     print(f"kernel {name}: {shape}: max_abs_err={err:.6g} (tol {KERNEL_TOL}) "
           f"kernel {ms:.4f} ms ({rate['tflops']:.1f} TF/s attended, "
           f"{rate['bound_fraction']:.3f} of the bound), plain {plain_ms:.4f} ms, sdpa "
-          f"{library_ms:.4f} ms (unsegmented), {attended_ms:.4f} ms (attended rows only), "
+          f"{library_ms:.4f} ms (unsegmented), {attended_ms:.4f} ms (attended rows only"
+          f"{', the window not skipped' if window else ''}){lib_masked}, "
           f"bound {bound_ms:.4f} ms; tile ranges of a lone call {lone_ranges_ms:.4f} ms "
           f"(host) [{card}]", flush=True)
     return {"shape": f"{name}: {shape}", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "library_attended_ms": attended_ms,
+            "library_ms": library_ms, "library_attended_ms": attended_ms, **masked,
             "tile_ranges_ms": lone_ranges_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, **rate}
 
@@ -458,8 +542,9 @@ def flash_bwd_vs_plain(name, b, s, hq, hkv, d, causal, rows, device, card):
             **rate}
 
 
-def norm_vs_plain(kind, rows, h, device, card, flush):
-    """Phase 3, K3a (rms) or K3b (ln) at [rows, h] bf16: max abs error,
+def norm_vs_plain(kind, rows, h, device, card, flush, eps=None):
+    """Phase 3, K3a (rms; eps 1e-5 unless given) or K3b (ln; 1e-6) at
+    [rows, h] bf16: max abs error,
     times (cold L2, so that the window holds device time and not the
     launch, which costs Triton's launcher more than the kernel takes), the
     F.rms_norm / F.layer_norm yardstick, and the byte bound."""
@@ -473,10 +558,10 @@ def norm_vs_plain(kind, rows, h, device, card, flush):
     params = [torch.randn(h, generator=g, device=device).to(torch.bfloat16)
               for _ in range(1 if kind == "rms" else 2)]
     if kind == "rms":
-        fused, plain, eps = fused_norms.fused_rms_norm, norms.rms_norm_ref, 1e-5
+        fused, plain, eps = fused_norms.fused_rms_norm, norms.rms_norm_ref, eps or 1e-5
         library = lambda: F.rms_norm(x, (h,), params[0], eps)  # noqa: E731
     else:
-        fused, plain, eps = fused_norms.fused_layer_norm, norms.layer_norm_ref, 1e-6
+        fused, plain, eps = fused_norms.fused_layer_norm, norms.layer_norm_ref, eps or 1e-6
         library = lambda: F.layer_norm(x, (h,), *params, eps)  # noqa: E731
     got = fused(x, *params, eps)
     want = plain(x, *params, eps)
@@ -1343,7 +1428,7 @@ def server_phase(engine, cfg, launches, card):
             with launches:
                 status, out = http_call(url + "/api/generate", payload)
             counts = launches.counts
-            row_ids, tiles = server._prepare_row(text, _decode_images(pngs))
+            row_ids, tiles, _ = server._prepare_row(text, _decode_images(pngs))
             res = engine.generate([row_ids], images=tiles, gen_cfg=gen)
             if status != 200 or out["tokens"] != [res.tokens[0].tolist()]:
                 raise AssertionError(f"/api/generate with images: {status} {out} != "
@@ -1830,15 +1915,15 @@ def hf_phase(model, cfg, launches, card, device):
 
 
 def write_hf_checkpoint(model, cfg, directory, shards=CKPT_SHARDS):
-    """The model as a published-layout HF checkpoint, written from the port's
-    export: `shards` safetensors files of about equal bytes and
+    """The model as a published-layout HF checkpoint of its architecture,
+    written from the port's export: `shards` safetensors files of about equal bytes and
     model.safetensors.index.json. Returns the bytes written."""
     from safetensors.torch import save_file
 
-    from leopard_tpu_torch.convert.hf import export_leopard_llava
+    from leopard_tpu_torch.convert.hf import export_vlm
 
     directory.mkdir(parents=True)
-    sd = export_leopard_llava(model, cfg)
+    sd = export_vlm(model, cfg)
     sizes = {k: t.numel() * t.element_size() for k, t in sd.items()}
     total = sum(sizes.values())
     parts, acc = [[] for _ in range(shards)], 0
@@ -1863,19 +1948,26 @@ def noise_png_file(path, rng, w, h):
     return str(path)
 
 
-def k1_held():
-    """The K1 shapes phase 3 holds: ("tower", tiles) and ("decoder", rows,
-    bucket)."""
-    return ({("tower", kw["b"]) for kw in K1_SHAPES.values() if not kw["causal"]}
-            | {("decoder", kw["b"], kw["s"]) for kw in K1_SHAPES.values() if kw["causal"]})
+def k1_held(shapes=None):
+    """The K1 shapes phase 3 holds: ("tower", tiles), ("navit", images,
+    patches) and ("decoder", rows, bucket, window). `shapes`: phase 3's
+    dict of every K1 entry, K1_SHAPES with the Idefics2 ones."""
+    shapes = K1_SHAPES if shapes is None else shapes
+    return ({("tower", kw["b"]) for kw in shapes.values()
+             if not kw["causal"] and kw.get("seg_ids") is None}
+            | {("navit", kw["b"], kw["s"]) for kw in shapes.values()
+               if kw.get("seg_ids") is not None}
+            | {("decoder", kw["b"], kw["s"], kw.get("window")) for kw in shapes.values()
+               if kw["causal"]})
 
 
-def k1_ran(tiles, rows, bucket, cfg):
-    """The K1 shapes of one forward: the tower at its tile bucket, and the
-    decoder at (rows, bucket) where the bucket takes the flash tier."""
-    ran = {("tower", tiles)}
+def k1_ran(tiles, rows, bucket, cfg, patches=None):
+    """The K1 shapes of one forward: the tower at its tile bucket (NaViT:
+    images and patches a row), and the decoder at (rows, bucket, window)
+    where the bucket takes the flash tier."""
+    ran = {("tower", tiles) if patches is None else ("navit", tiles, patches)}
     if bucket >= cfg.text.long_seq_threshold:
-        ran.add(("decoder", rows, bucket))
+        ran.add(("decoder", rows, bucket, cfg.text.sliding_window))
     return ran
 
 
@@ -2030,7 +2122,7 @@ def checkpoint_phase(cfg, launches, card, k4_checked, tmp, device):
                 "prompts": [text], "images": [b64], "max_new_tokens": SERVE_TOKENS,
                 "greedy": True, "eos_token_ids": [NO_EOS]})
         counts = launches.counts
-        row_ids, row_tiles = server._prepare_row(text, _decode_images(b64))
+        row_ids, row_tiles, _ = server._prepare_row(text, _decode_images(b64))
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -2128,7 +2220,7 @@ def train_cli_phase(hf_dir, card, tmp, device):
     ran = set().union(*(k1_ran(tiles, *tokens, cfg) for tokens, tiles in shapes))
     k2 = k2_shapes(cfg.text, cfg.vision).values()
     k2_held = ({("tower", kw["b"]) for kw in k2 if not kw["causal"]}
-               | {("decoder", kw["b"], kw["s"]) for kw in k2 if kw["causal"]})
+               | {("decoder", kw["b"], kw["s"], None) for kw in k2 if kw["causal"]})
     held("train CLI", "K1", ran, k1_held())
     held("train CLI", "K2", ran, k2_held)
     ref = load_leopard_llava(str(hf_dir), cfg, device)
@@ -2387,6 +2479,580 @@ def train_phase(model, cfg, batch, card):
             "peak_memory_gib": peak_gib, "params_moved": moved}
 
 
+# phases 22-25 (A-D): Leopard-Idefics2 serving at 8B. Phase A serves one
+# request of the reference's serving shape (8 images, bucket 8,192); phase
+# B holds it against the dense path and a run without the window; phase C
+# holds the HF converter and the port against transformers' Mistral,
+# Idefics2 tower and connector; phase D serves from a depth-4 checkpoint on
+# disk through the convert and serve CLIs.
+IDEFICS2_IMAGES = ((980, 980), (1400, 700), (700, 1400), (1200, 500), (600, 800),
+                   (400, 300), (900, 450), (500, 1000))   # (w, h): resized to grids of
+#                                                          mixed rows and columns
+IDEFICS2_BUCKET = 8192
+IDEFICS2_TEXT_LAYERS = 4           # phase D's checkpoint
+IDEFICS2_PNGS = ((728, 364), (364, 1092))   # phase D's request over HTTP
+
+
+class MistralByteTokenizer(ByteTokenizer):
+    """The smoke's tokenizer with Mistral's BOS (1): every id it gives lies
+    inside Mistral's 32,003."""
+
+    bos_token_id = 1
+
+
+def idefics2_config():
+    from leopard_tpu_torch.config import leopard_idefics2_8b
+
+    return leopard_idefics2_8b()
+
+
+def idefics2_model(cfg, device):
+    """Seeded weights on the card; the perceiver's latents, all ones at
+    init, drawn N(0, 1) so that the 64 latents differ."""
+    import torch
+
+    from leopard_tpu_torch.models import vlm
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+    model = vlm.init_params(cfg, g)
+    with torch.no_grad():
+        model.perceiver.latents.normal_(generator=g)
+    return model
+
+
+def idefics2_request(cfg):
+    """Phase A's request: eight seeded noise images through
+    preprocess_idefics2 (float32 pixels, the pixel and patch masks) and one
+    prompt, BOS and eight blocks of 64 image tokens, filled with seeded text
+    to bucket 8,192."""
+    from PIL import Image
+
+    from leopard_tpu_torch.data.chat import build_idefics2_prompt
+    from leopard_tpu_torch.data.idefics2_processor import preprocess_idefics2
+
+    rng = np.random.RandomState(SEED + 22)
+    images = [Image.fromarray(rng.randint(0, 256, (h, w, 3), dtype=np.uint8))
+              for w, h in IDEFICS2_IMAGES]
+    pixels, pixel_mask, patch_mask = preprocess_idefics2(images)
+    head = build_idefics2_prompt(MistralByteTokenizer(), "", len(images),
+                                 image_seq_len=cfg.perceiver.num_latents,
+                                 image_token_id=cfg.image_token_id,
+                                 fake_token_id=cfg.image_token_id - 1)
+    text = rng.randint(3, cfg.image_token_id - 1, size=IDEFICS2_BUCKET - len(head))
+    return np.concatenate([head, text]).astype(np.int32), pixels, pixel_mask, patch_mask
+
+
+def idefics2_pngs():
+    """Phase D's two seeded noise PNGs (base64) and its question."""
+    rng = np.random.RandomState(SEED + 25)
+    pngs = [noise_png(rng, w, h) for w, h in IDEFICS2_PNGS]
+    return pngs, "<image> and <image>: " + random_text(rng, GEN_QUESTION_TEXT)
+
+
+def grids_of(patch_mask):
+    """(real rows, real columns) of each image of a patch mask."""
+    return [(int(m[:, 0].sum()), int(m[0].sum())) for m in patch_mask]
+
+
+def idefics2_k1_shapes(cfg):
+    """Phase 3's K1 entries of phases A-D: the tower at phase A's eight
+    images and phase D's two (their patch masks' interleaved segment ids),
+    and the decoder at [1, 8,192] with the window (phases A-C) and without
+    (phase B's no-window run)."""
+    from leopard_tpu_torch.data.idefics2_processor import preprocess_idefics2
+    from leopard_tpu_torch.inference.server import _decode_images
+
+    v, t = cfg.vision, cfg.text
+    _, _, _, mask_a = idefics2_request(cfg)
+    _, _, mask_d = preprocess_idefics2(_decode_images(idefics2_pngs()[0]))
+
+    def navit(mask):
+        n = mask.shape[0]
+        return dict(b=n, s=mask[0].size, hq=v.num_heads, hkv=v.num_heads, d=v.head_dim,
+                    causal=False, rows=[[r * c] for r, c in grids_of(mask)],
+                    seg_ids=mask.reshape(n, -1).astype(np.int32))
+
+    dec = dict(b=1, s=IDEFICS2_BUCKET, hq=t.num_heads, hkv=t.num_kv_heads, d=t.head_dim,
+               causal=True, rows=((IDEFICS2_BUCKET,),))
+    return {f"navit_b{mask_a.shape[0]}": navit(mask_a), f"navit_b{mask_d.shape[0]}": navit(mask_d),
+            f"mistral_{IDEFICS2_BUCKET}": {**dec, "window": t.sliding_window},
+            f"mistral_{IDEFICS2_BUCKET}_no_window": {**dec, "window": None}}
+
+
+def idefics2_counts(cfg, steps, images=True):
+    """K1, K3a and K3b launches of one Idefics2 generate with `steps`
+    decode forwards: the tower (K1 and two LayerNorms a layer, the post-LN),
+    the perceiver (three RMSNorms a layer, the final one), the decoder
+    (K1 in a flash-tier prefill; two RMSNorms a layer and the final one in
+    every forward)."""
+    lv, lt, lp = cfg.vision.num_layers, cfg.text.num_layers, cfg.perceiver.num_layers
+    return {"flash_attention": lv * images + lt,
+            "fused_rms_norm": (2 * lt + 1) * (1 + steps) + (3 * lp + 1) * images,
+            "fused_layer_norm": (2 * lv + 1) * images}
+
+
+def idefics2_serve_phase(model, cfg, launches, card, k1_checked, device):
+    """Phase 22 (A): Engine.generate at the reference's serving shape, twice
+    (launches, no K1 input copied, tokens repeat), the tower's whole output
+    finite, then encode_images (tower vs perceiver), TTFT, prefill tok/s and
+    decode ms/step."""
+    import torch
+
+    from leopard_tpu_torch.config import GenerateConfig
+    from leopard_tpu_torch.inference.engine import Engine
+    from leopard_tpu_torch.ops.flash_attention import flash_attention
+
+    prompt, pixels, _, patch_mask = idefics2_request(cfg)
+    engine = Engine(cfg, model)
+    gen = GenerateConfig(max_new_tokens=MAX_NEW_TOKENS, eos_token_ids=(NO_EOS,))
+    runs = []
+    for _ in range(2):
+        flash_attention.copies = 0
+        with launches:
+            res = engine.generate([prompt], images=pixels, patch_mask=patch_mask, gen_cfg=gen)
+        if flash_attention.copies:
+            raise AssertionError(f"Idefics2 serve: K1 copied {flash_attention.copies} inputs")
+        toks, lps = res.tokens[0], res.logprobs[0]
+        if len(toks) != MAX_NEW_TOKENS or not np.all((toks >= 0) & (toks < cfg.text.vocab_size)):
+            raise AssertionError(f"Idefics2 serve: tokens {toks}")
+        if not np.all(np.isfinite(lps)):
+            raise AssertionError(f"Idefics2 serve: non-finite logprobs {lps}")
+        expect("Idefics2 serve", launches.counts, idefics2_counts(cfg, MAX_NEW_TOKENS - 1))
+        runs.append(toks.tolist())
+    if runs[0] != runs[1]:
+        raise AssertionError(f"Idefics2 serve: generate is not repeatable: {runs}")
+    tiles = engine._bucket(len(pixels), engine.tile_buckets)
+    held("Idefics2 serve", "K1", k1_ran(tiles, 1, engine._bucket(len(prompt), engine.seq_buckets),
+                                        cfg, patch_mask[0].size), k1_checked)
+
+    px = torch.from_numpy(pixels).to(device)
+    pm = torch.from_numpy(patch_mask).to(device)
+    seg = pm.reshape(len(pixels), -1).to(torch.int32)
+    with torch.inference_mode():
+        feats = model.vision(px, pm)
+        latents = model.perceiver(feats, seg)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(feats).all() and torch.isfinite(latents).all()):
+            raise AssertionError("Idefics2 tower or perceiver output is not finite")
+        pad = feats[~pm.reshape(len(pixels), -1)]
+        tower_s = wall_s(lambda: model.vision(px, pm))
+        perceiver_s = wall_s(lambda: model.perceiver(feats, seg))
+    encode_s = wall_s(lambda: engine.encode_images(pixels, patch_mask))
+    ttft = wall_s(lambda: engine.generate([prompt], images=pixels, patch_mask=patch_mask,
+                                          gen_cfg=dataclasses.replace(gen, max_new_tokens=1)))
+    full = wall_s(lambda: engine.generate([prompt], images=pixels, patch_mask=patch_mask,
+                                          gen_cfg=gen))
+    steps = MAX_NEW_TOKENS - 1
+    del engine
+    model.text._head_f32 = None
+    rec = {"images": len(pixels), "grids": grids_of(patch_mask), "patches": int(pm[0].numel()),
+           "real_patches": int(pm.sum()), "prompt_tokens": len(prompt), "tokens": runs[0],
+           "launches": launches.counts, "tower_output_finite": True,
+           "padding_rows_abs_max": pad.abs().max().item() if pad.numel() else 0.0,
+           "encode_images_s": encode_s, "tower_s": tower_s, "perceiver_s": perceiver_s,
+           "ttft_s": ttft, "prefill_tok_s": len(prompt) / ttft,
+           "decode_ms_per_step": (full - ttft) / steps * 1e3}
+    print(f"Idefics2 serve at 8B: {len(pixels)} images, grids (rows, cols) {rec['grids']} on "
+          f"{pm.shape[1]} x {pm.shape[2]} patches ({rec['real_patches']} real of "
+          f"{pm.numel()}), prompt {len(prompt)} tokens (bucket {IDEFICS2_BUCKET}, window "
+          f"{cfg.text.sliding_window}), {MAX_NEW_TOKENS} greedy tokens identical in two runs; "
+          f"launches {launches.counts} (K1 {cfg.vision.num_layers} tower + "
+          f"{cfg.text.num_layers} decoder; K3a 65 x 16 forwards + 10 perceiver; K3b 55), no K1 "
+          f"input copied; the tower's output finite on every row (padding rows |max| "
+          f"{rec['padding_rows_abs_max']:.4g}) [{card}]", flush=True)
+    print(f"Idefics2 serve timing [{card}]: encode_images {encode_s * 1e3:.1f} ms for "
+          f"{len(pixels)} images (tower {tower_s * 1e3:.1f} ms, perceiver "
+          f"{perceiver_s * 1e3:.1f} ms, medians apart), TTFT {ttft * 1e3:.1f} ms, prefill "
+          f"{rec['prefill_tok_s']:.1f} tok/s, decode {rec['decode_ms_per_step']:.2f} ms/step "
+          f"(batch 1, {steps} steps; median of 3)", flush=True)
+    return rec
+
+
+def idefics2_twin(model, cfg):
+    """A LeopardVLM of `cfg` on `model`'s tensors (no copy)."""
+    from leopard_tpu_torch.models.vlm import LeopardVLM
+
+    twin = LeopardVLM(cfg, device="meta")
+    twin.load_state_dict(model.state_dict(), assign=True)
+    return twin
+
+
+def idefics2_dense_phase(model, cfg, launches, card, k1_checked):
+    """Phase 23 (B): phase A's first-step logits through the kernels against
+    the dense path (tower and decoder attn_impl "dense": the masked dense
+    attention the JAX package's CPU path computes; cosine >= 0.99), and
+    against the kernel path without the window, which must differ by far
+    more than the dense path does."""
+    import torch
+
+    from leopard_tpu_torch.inference.engine import Engine
+
+    prompt, pixels, _, patch_mask = idefics2_request(cfg)
+    t, v = cfg.text, cfg.vision
+    variants = {
+        "kernel": cfg,
+        "dense": dataclasses.replace(cfg, vision=dataclasses.replace(v, attn_impl="dense"),
+                                     text=dataclasses.replace(t, attn_impl="dense")),
+        "no_window": dataclasses.replace(cfg, text=dataclasses.replace(t, sliding_window=None)),
+    }
+    logits, counts = {}, {}
+    for name, c in variants.items():
+        twin = model if name == "kernel" else idefics2_twin(model, c)
+        engine = Engine(c, twin)
+        with launches:
+            first, cache = engine.prefill([prompt], images=pixels, patch_mask=patch_mask)
+        logits[name], counts[name] = first[0].float(), launches.counts
+        del engine, cache, first
+        twin.text._head_f32 = None
+        torch.cuda.empty_cache()
+    want = idefics2_counts(cfg, 0)
+    expect("Idefics2 kernel path", counts["kernel"], want)
+    expect("Idefics2 no-window path", counts["no_window"], want)
+    expect("Idefics2 dense path", counts["dense"], {**want, "flash_attention": 0})
+    held("Idefics2 no-window path", "K1", k1_ran(len(pixels), 1, IDEFICS2_BUCKET,
+                                                  variants["no_window"], patch_mask[0].size),
+         k1_checked)
+    k, d, nw = logits["kernel"], logits["dense"], logits["no_window"]
+    if not all(torch.isfinite(x).all() for x in (k, d, nw)):
+        raise AssertionError("Idefics2 K1 vs dense: non-finite logits")
+    cos_dense, cos_nw = cosine(k, d, 0).item(), cosine(k, nw, 0).item()
+    diff_dense, diff_nw = (k - d).abs().max().item(), (k - nw).abs().max().item()
+    rec = {"cosine_vs_dense": cos_dense, "argmax_agrees_dense": int(k.argmax()) == int(d.argmax()),
+           "max_abs_diff_dense": diff_dense, "cosine_vs_no_window": cos_nw,
+           "max_abs_diff_no_window": diff_nw, "launches": counts}
+    print(f"Idefics2 first-step logits (1 x {IDEFICS2_BUCKET}, 8 images): kernel vs dense cosine "
+          f"{cos_dense:.6f} (min {COSINE_MIN}), argmax agrees {rec['argmax_agrees_dense']}, "
+          f"max |diff| {diff_dense:.4g}; kernel vs no window: cosine {cos_nw:.6f}, max |diff| "
+          f"{diff_nw:.4g} (must exceed 10 x the dense path's); launches {counts} [{card}]",
+          flush=True)
+    if cos_dense < COSINE_MIN:
+        raise AssertionError(f"Idefics2 K1 vs dense: cosine {cos_dense} < {COSINE_MIN}")
+    if not diff_nw > 10 * diff_dense:
+        raise AssertionError(f"Idefics2: the window changes the logits by {diff_nw}, not more "
+                             f"than the kernels do ({diff_dense}): is it applied?")
+    return rec
+
+
+def hf_mistral_config(t):
+    """transformers' MistralConfig for the port's TextConfig, in the form the
+    installed transformers takes."""
+    import inspect
+
+    from transformers import MistralConfig
+
+    kw = dict(vocab_size=t.vocab_size, hidden_size=t.hidden_size,
+              intermediate_size=t.intermediate_size, num_hidden_layers=t.num_layers,
+              num_attention_heads=t.num_heads, num_key_value_heads=t.num_kv_heads,
+              head_dim=t.head_dim, rms_norm_eps=t.rms_norm_eps,
+              max_position_embeddings=t.max_position_embeddings,
+              sliding_window=t.sliding_window, tie_word_embeddings=False,
+              attn_implementation="sdpa")
+    if "rope_parameters" in inspect.signature(MistralConfig.__init__).parameters:
+        kw["rope_parameters"] = {"rope_type": "default", "rope_theta": t.rope_theta}
+    else:
+        kw["rope_theta"] = t.rope_theta
+    return MistralConfig(**kw)
+
+
+def hf_reference_position_ids(emb, ids):
+    """Replace transformers' position-id rule in an Idefics2 embeddings
+    module by the reference's ids: patch embedding plus the table at `ids`.
+    transformers scales each fraction by 1 - 1e-6 before bucketizing, which
+    puts a row that lands exactly on a boundary (row 35 of 70) one bucket
+    lower than the reference's rule; the port keeps the reference's."""
+    def forward(pixel_values, patch_attention_mask):
+        patches = emb.patch_embedding(pixel_values).flatten(2).transpose(1, 2)
+        return patches + emb.position_embedding(ids)
+    emb.forward = forward
+
+
+def idefics2_hf_phase(model, cfg, launches, card, device, k1_checked):
+    """Phase 24 (C): (a) export_leopard_idefics2 then
+    convert_leopard_idefics2 onto the card, bit for bit, the export adding
+    no device memory; (b) transformers' MistralForCausalLM (window 4,096) on
+    the exported decoder against the port's on 1 x 8,192 tokens; (c)
+    transformers' Idefics2VisionTransformer and Idefics2Connector on the
+    exported tower and connector against the port's on phase A's images and
+    patch masks, with the reference's position ids (gated) and with
+    transformers' own (reported)."""
+    import torch
+    from transformers import Idefics2Config, MistralForCausalLM
+    from transformers.models.idefics2.modeling_idefics2 import (Idefics2Connector,
+                                                                Idefics2VisionTransformer)
+    from transformers.models.mistral.modeling_mistral import MistralRotaryEmbedding
+
+    from leopard_tpu_torch.convert import hf as chf
+    from leopard_tpu_torch.models.siglip import navit_position_ids
+    from leopard_tpu_torch.ops.rotary import compute_inv_freq
+
+    rec = {}
+    state = model.state_dict()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    exported = chf.export_leopard_idefics2(model, cfg)
+    torch.cuda.synchronize()
+    added = torch.cuda.max_memory_allocated() - before
+    back = chf.convert_leopard_idefics2(exported, cfg, device=device)
+    if back.keys() != state.keys():
+        raise AssertionError(f"Idefics2 HF round trip: keys differ: "
+                             f"{sorted(back.keys() ^ state.keys())[:5]}")
+    differ = [k for k in state if back[k].dtype != state[k].dtype
+              or not torch.equal(back[k], state[k])]
+    if differ or added > EXPORT_MAX_BYTES:
+        raise AssertionError(f"Idefics2 HF round trip: {len(differ)} tensors differ "
+                             f"({differ[:5]}), the export added {added} bytes")
+    n_bytes = sum(x.numel() * x.element_size() for x in state.values())
+    rec["round_trip"] = {"tensors": len(state), "hf_keys": len(exported), "bytes": n_bytes,
+                         "export_added_bytes": added}
+    print(f"Idefics2 HF round trip at 8B: export_leopard_idefics2 → {len(exported)} HF keys, "
+          f"convert_leopard_idefics2 onto the card: {len(state)} tensors ({n_bytes} bytes) "
+          f"equal bit for bit; the export added {added} bytes of device memory [{card}]",
+          flush=True)
+    del back
+
+    # (b) transformers' Mistral on the exported decoder
+    t = cfg.text
+    mcfg = hf_mistral_config(t)
+    with torch.device("meta"):
+        mistral = MistralForCausalLM(mcfg)
+    mistral.load_state_dict(chf.export_decoder(model.text, t, "model."), strict=True, assign=True)
+    mistral.model.rotary_emb = MistralRotaryEmbedding(config=mcfg, device=device)
+    if on_meta(mistral):
+        raise AssertionError(f"HF Mistral: left on the meta device: {on_meta(mistral)[:5]}")
+    mistral.eval()
+    torch.testing.assert_close(mistral.model.rotary_emb.inv_freq.float(),
+                               torch.from_numpy(compute_inv_freq(t)).to(device).float(),
+                               rtol=1e-5, atol=0)
+    rng = np.random.RandomState(SEED + 24)
+    tokens = torch.from_numpy(rng.randint(3, 32000, (1, IDEFICS2_BUCKET))).to(device)
+    hf_out, layer_cos = [], []
+
+    def keep_hf(_, __, out):
+        hf_out.append(out[0] if isinstance(out, tuple) else out)
+
+    def compare(i):
+        def hook(_, __, out):
+            layer_cos.append(min(row_cosine(out, hf_out[i])))
+            hf_out[i] = None
+        return hook
+
+    hooks = [layer.register_forward_hook(keep_hf) for layer in mistral.model.layers]
+    with torch.inference_mode():
+        want = mistral(input_ids=tokens, use_cache=False).logits
+        for h in hooks:
+            h.remove()
+        hooks = [layer.register_forward_hook(compare(i))
+                 for i, layer in enumerate(model.text.layers)]
+        with launches:
+            got, _ = model.text(tokens)
+        for h in hooks:
+            h.remove()
+    expect("HF Mistral vs decoder", launches.counts,
+           {"flash_attention": t.num_layers, "fused_rms_norm": 2 * t.num_layers + 1})
+    held("HF Mistral vs decoder", "K1", {("decoder", 1, IDEFICS2_BUCKET, t.sliding_window)},
+         k1_checked)
+    text_cos = row_cosine(got, want)[0]
+    top1 = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    pos_cos = cosine(got, want)
+    rec["mistral"] = {"tokens": IDEFICS2_BUCKET, "window": t.sliding_window, "cosine": text_cos,
+                      "top1_agreement": top1, "position_cosine_min": pos_cos.min().item(),
+                      "layer_cosine_min": layer_cos, "launches": launches.counts}
+    print(f"HF MistralForCausalLM (transformers, sdpa, bf16, window {t.sliding_window}) vs the "
+          f"port's decoder on 1 x {IDEFICS2_BUCKET} tokens: logits cosine {text_cos:.6f} (min "
+          f"{HF_COSINE_MIN}), top-1 agreement {top1:.4f}, per position min "
+          f"{pos_cos.min().item():.6f}; hidden states after each layer, cosine "
+          f"{[round(c, 5) for c in layer_cos]}; launches {launches.counts} [{card}]", flush=True)
+    del want, got, pos_cos, mistral, hf_out
+    if text_cos < HF_COSINE_MIN:
+        raise AssertionError(f"HF Mistral disagrees with the port: cosine {text_cos}")
+
+    # (c) transformers' Idefics2 tower and connector on the exported tensors
+    v, p = cfg.vision, cfg.perceiver
+    full = Idefics2Config(
+        vision_config=dict(hidden_size=v.hidden_size, intermediate_size=v.intermediate_size,
+                           num_hidden_layers=v.num_layers, num_attention_heads=v.num_heads,
+                           image_size=v.image_size, patch_size=v.patch_size,
+                           layer_norm_eps=v.layer_norm_eps, hidden_act=v.hidden_act),
+        perceiver_config=dict(hidden_size=p.hidden_size, resampler_n_latents=p.num_latents,
+                              resampler_depth=p.num_layers, resampler_n_heads=p.num_heads,
+                              resampler_head_dim=p.head_dim,
+                              num_key_value_heads=p.num_kv_heads, rms_norm_eps=p.rms_norm_eps),
+        text_config=dict(model_type="mistral", hidden_size=t.hidden_size,
+                         intermediate_size=p.intermediate_size, hidden_act="silu"))
+    for sub in (full.vision_config, full.perceiver_config):
+        sub._attn_implementation = "sdpa"
+    with torch.device("meta"):
+        tower = Idefics2VisionTransformer(full.vision_config)
+        connector = Idefics2Connector(full)
+    tower.load_state_dict(chf.export_siglip_vision(model.vision, v, ""), strict=True, assign=True)
+    connector.load_state_dict(chf.export_perceiver(model.perceiver, p, ""), strict=True,
+                              assign=True)
+    if on_meta(tower) or on_meta(connector):
+        raise AssertionError(f"HF Idefics2: left on the meta device: "
+                             f"{(on_meta(tower) + on_meta(connector))[:5]}")
+    tower.eval()
+    connector.eval()
+    _, pixels, _, patch_mask = idefics2_request(cfg)
+    n = len(pixels)
+    px = torch.from_numpy(pixels).to(device).to(model.vision.pos_embed.dtype)
+    pm = torch.from_numpy(patch_mask).to(device)
+    flat = pm.reshape(n, -1)
+    with torch.inference_mode():
+        with launches:
+            feats = model.vision(px, pm)
+            latents = model.perceiver(feats, flat.to(torch.int32))
+        port_counts = launches.counts
+        own_emb = tower.embeddings(px, pm)
+        ref_ids = navit_position_ids(pm, v.patches_per_side)
+        hf_reference_position_ids(tower.embeddings, ref_ids)
+        ref_emb = tower.embeddings(px, pm)
+        differ_ids = int(((own_emb != ref_emb).any(-1) & flat).sum())
+        results = {}
+        for rule in ("reference", "transformers"):
+            if rule == "transformers":
+                del tower.embeddings.forward  # transformers' own rule again
+            hf_feats = tower(px, patch_attention_mask=pm).last_hidden_state
+            hf_lat = connector(hf_feats, attention_mask=flat)
+            results[rule] = {
+                "tower_cosine_valid_rows": row_cosine(feats[flat][None], hf_feats[flat][None])[0],
+                "latents_cosine": row_cosine(latents[None], hf_lat[None])[0],
+                "latents_cosine_per_image_min": min(row_cosine(latents, hf_lat))}
+    expect("HF Idefics2 vs tower + perceiver", port_counts, idefics2_counts(cfg, 0) | {
+        "flash_attention": v.num_layers, "fused_rms_norm": 3 * p.num_layers + 1})
+    rec["idefics2_vision_connector"] = {"images": n, "position_ids_differing": differ_ids,
+                                        "real_patches": int(flat.sum()), **results,
+                                        "launches": port_counts}
+    ref, own = results["reference"], results["transformers"]
+    print(f"HF Idefics2VisionTransformer + Idefics2Connector (transformers, sdpa, bf16) vs the "
+          f"port's tower + perceiver on phase A's {n} images: with the reference's position "
+          f"ids, latents cosine {ref['latents_cosine']:.6f} (min {HF_COSINE_MIN}; per image min "
+          f"{ref['latents_cosine_per_image_min']:.6f}), tower cosine over the real patches "
+          f"{ref['tower_cosine_valid_rows']:.6f}; with transformers' own rule ({differ_ids} of "
+          f"{int(flat.sum())} real patches take another id) latents {own['latents_cosine']:.6f}, "
+          f"tower {own['tower_cosine_valid_rows']:.6f}; launches {port_counts} [{card}]",
+          flush=True)
+    del tower, connector, exported, state
+    if ref["latents_cosine"] < HF_COSINE_MIN:
+        raise AssertionError(f"HF Idefics2 disagrees with the port: {ref}")
+    return rec
+
+
+def idefics2_checkpoint_phase(cfg, launches, card, tmp, device, k1_checked):
+    """Phase 25 (D): the depth-4 Idefics2 model written as an HF checkpoint
+    of two safetensors shards; convert_checkpoint --arch leopard_idefics2
+    both ways, bit for bit; serve --arch leopard_idefics2 answering one
+    request of two PNGs over HTTP, against Engine.generate on the server's
+    own _prepare_row output and the same weights."""
+    import shutil
+    import urllib.error
+
+    import torch
+    from safetensors import safe_open
+
+    from leopard_tpu_torch.cli import convert_checkpoint, serve
+    from leopard_tpu_torch.config import GenerateConfig
+    from leopard_tpu_torch.convert.hf import export_leopard_idefics2
+    from leopard_tpu_torch.inference.engine import Engine
+    from leopard_tpu_torch.inference.server import _decode_images
+
+    on = ["--device", device.type, "--arch", "leopard_idefics2"]
+    rec = {}
+    model = idefics2_model(cfg, device)
+    state = model.state_dict()
+    hf_dir = tmp / "idefics2_hf"
+    t0 = time.perf_counter()
+    n_bytes = write_hf_checkpoint(model, cfg, hf_dir)
+    rec["write"] = {"bytes": n_bytes, "s": time.perf_counter() - t0}
+
+    native, out = tmp / "idefics2_native", tmp / "idefics2_out"
+    t0 = time.perf_counter()
+    convert_checkpoint.convert(convert_checkpoint.parse_args(
+        ["--direction", "hf2native", "--input", str(hf_dir), "--output", str(native), *on]),
+        cfg=cfg)
+    hf2native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    convert_checkpoint.convert(convert_checkpoint.parse_args(
+        ["--direction", "native2hf", "--input", str(native), "--output", str(out), *on]),
+        cfg=cfg)
+    native2hf_s = time.perf_counter() - t0
+    shutil.rmtree(native)
+    want = export_leopard_idefics2(model, cfg)
+    with safe_open(str(out / "model.safetensors"), framework="pt", device=str(device)) as f:
+        if set(f.keys()) != set(want):
+            raise AssertionError("Idefics2 native2hf: other keys than the export's")
+        differ = [k for k in want if not torch.equal(f.get_tensor(k), want[k].float())]
+    shutil.rmtree(out)
+    if differ:
+        raise AssertionError(f"Idefics2 convert round trip: {len(differ)} tensors differ")
+    rec["convert"] = {"hf2native_s": hf2native_s, "native2hf_s": native2hf_s}
+    print(f"Idefics2 checkpoint: 8B widths, {cfg.text.num_layers} of 32 text layers, {n_bytes} "
+          f"bytes in {CKPT_SHARDS} safetensors shards + index; convert_checkpoint --arch "
+          f"leopard_idefics2: hf2native {hf2native_s:.2f} s, native2hf {native2hf_s:.2f} s, "
+          f"every tensor equal to the original bit for bit [{card}]", flush=True)
+
+    tok = MistralByteTokenizer()
+    args = serve.parse_args(["--checkpoint", str(hf_dir), "--host", "127.0.0.1", "--port", "0",
+                             *on])
+    server = serve.build_server(args, tokenizer=tok, cfg=cfg)
+    loaded = server.engine.model.state_dict()
+    if [k for k in state if not torch.equal(loaded[k], state[k])]:
+        raise AssertionError("serve --arch leopard_idefics2: the loaded weights differ")
+    del loaded
+    httpd = server.http_server()
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    pngs, text = idefics2_pngs()
+    try:
+        deadline = time.perf_counter() + 30
+        while True:
+            try:
+                if http_call(url + "/health") == (200, {"status": "ok"}):
+                    break
+            except (urllib.error.URLError, ConnectionError):
+                if time.perf_counter() > deadline:
+                    raise
+            time.sleep(0.05)
+        with launches:
+            status, got = http_call(url + "/api/generate", {
+                "prompts": [text], "images": [pngs], "max_new_tokens": SERVE_TOKENS,
+                "greedy": True, "eos_token_ids": [NO_EOS]})
+        counts = launches.counts
+        ids, pixels, patch_mask = server._prepare_row(text, _decode_images(pngs))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise AssertionError("Idefics2 serve CLI: the HTTP thread did not stop")
+    del server, httpd
+    engine = Engine(cfg, model)
+    want = engine.generate([ids], images=pixels, patch_mask=patch_mask, gen_cfg=GenerateConfig(
+        max_new_tokens=SERVE_TOKENS, eos_token_ids=(NO_EOS,))).tokens[0].tolist()
+    tiles, bucket = (engine._bucket(len(pixels), engine.tile_buckets),
+                     engine._bucket(len(ids), engine.seq_buckets))
+    del engine
+    if status != 200 or got["tokens"] != [want]:
+        raise AssertionError(f"Idefics2 serve CLI: {status} {got} != the engine's {want}")
+    long = bucket >= cfg.text.long_seq_threshold
+    n_want = idefics2_counts(cfg, SERVE_TOKENS - 1)
+    n_want["flash_attention"] = cfg.vision.num_layers + (cfg.text.num_layers if long else 0)
+    expect("Idefics2 serve CLI", counts, n_want)
+    held("Idefics2 serve CLI", "K1", k1_ran(tiles, 1, bucket, cfg, patch_mask[0].size),
+         k1_checked)
+    rec["serve"] = {"images": len(pixels), "grids": grids_of(patch_mask),
+                    "patches": int(patch_mask[0].size), "prompt_tokens": len(ids),
+                    "bucket": bucket, "tokens": SERVE_TOKENS, "launches": counts}
+    print(f"serve CLI --arch leopard_idefics2: one request of {len(pngs)} PNGs "
+          f"{list(IDEFICS2_PNGS)} over HTTP → grids {rec['serve']['grids']} on "
+          f"{patch_mask.shape[1]} x {patch_mask.shape[2]} patches, prompt {len(ids)} tokens "
+          f"(bucket {bucket}), {SERVE_TOKENS} tokens identical to Engine.generate on the "
+          f"server's _prepare_row output; launches {counts} [{card}]", flush=True)
+    del model, state
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2429,8 +3095,12 @@ def main() -> int:
     print(f"build: {', '.join(KERNELS)} in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # phase 3: kernel against its plain version at the serving path's shapes
+    # (Leopard-LLaVA's, then those of the Idefics2 phases 22-25)
+    icfg = idefics2_config()
+    k1_shapes = {**K1_SHAPES, **idefics2_k1_shapes(icfg)}
     per_shape = {name: kernel_vs_plain(name, device=device, card=card, **kw)
-                 for name, kw in K1_SHAPES.items()}
+                 for name, kw in k1_shapes.items()}
+    k1_checked = k1_held(k1_shapes)
     # 1 GiB > L2; reading it keeps the device busy ~0.3 ms while a launch is queued
     flush = torch.empty(2**30 // 4, dtype=torch.float32, device=device)
     k4_shapes = {name: int4_vs_plain(name, 2, k, n, device, card, flush)
@@ -2455,6 +3125,13 @@ def main() -> int:
                                card, flush),
           "ln": norm_vs_plain("ln", n_tiles * vis.tokens_per_tile, vis.hidden_size, device,
                               card, flush)}
+    # K3 at the Idefics2 encode's new rows: phase 22's eight images of 4,900
+    # patches through the perceiver's context norm and the tower's LayerNorms
+    navit_rows = k1_shapes["navit_b8"]["b"] * k1_shapes["navit_b8"]["s"]
+    k3_idefics2 = {"rms": norm_vs_plain("rms", navit_rows, icfg.perceiver.hidden_size, device,
+                                        card, flush, eps=icfg.perceiver.rms_norm_eps),
+                   "ln": norm_vs_plain("ln", navit_rows, icfg.vision.hidden_size, device, card,
+                                       flush, eps=icfg.vision.layer_norm_eps)}
     del flush
     # K4 in one 8B decode step: the seven matmuls of each layer and lm_head
     n_layers = leopard_llava_8b().text.num_layers
@@ -2614,13 +3291,38 @@ def main() -> int:
         features["train_cli"] = train_cli_phase(hf_dir, card, Path(tmp), device)
         peak["train_cli"] = phase_memory("train CLI")
 
-    # phase 22: no JAX
+    # phases 22-25 (A-D): Leopard-Idefics2 serving at 8B, full depth and
+    # width (A-C), then from a depth-4 checkpoint on disk (D)
+    model = idefics2_model(icfg, device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"model: Leopard-Idefics2-8B, {n_params} parameters (bf16), seeded random init on "
+          f"the card", flush=True)
+    idefics2 = {"serve": idefics2_serve_phase(model, icfg, launches, card, k1_checked, device)}
+    peak["idefics2_serve"] = phase_memory("Idefics2 serve")
+    idefics2["dense"] = idefics2_dense_phase(model, icfg, launches, card, k1_checked)
+    peak["idefics2_dense"] = phase_memory("Idefics2 K1 vs dense and no window")
+    idefics2["hf"] = idefics2_hf_phase(model, icfg, launches, card, device, k1_checked)
+    peak["idefics2_hf"] = phase_memory("Idefics2 HF conversion and transformers")
+    del model
+    torch.cuda.empty_cache()
+    dcfg = dataclasses.replace(icfg, text=dataclasses.replace(
+        icfg.text, num_layers=IDEFICS2_TEXT_LAYERS))
+    with tempfile.TemporaryDirectory(prefix="leopard_smoke_") as tmp:
+        idefics2["checkpoint"] = idefics2_checkpoint_phase(dcfg, launches, card, Path(tmp),
+                                                           device, k1_checked)
+    peak["idefics2_checkpoint"] = phase_memory("Idefics2 checkpoint and the convert, serve CLIs")
+    features["idefics2"] = idefics2
+
+    # phase 26: no JAX
     if "jax" in sys.modules or any(m.split(".")[0] == "leopard_tpu" for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
     print("no jax: ok", flush=True)
 
     per_generate = ((cfg.vision.num_layers, per_shape["vision_b32"]),
                     (cfg.text.num_layers, per_shape["decoder"]))
+    per_idefics2 = ((icfg.vision.num_layers, per_shape["navit_b8"]),
+                    (icfg.text.num_layers, per_shape[f"mistral_{IDEFICS2_BUCKET}"]))
     per_train_step = ((tcfg.text.num_layers, k2["decoder"]),
                       (tcfg.vision.num_layers, k2["tower"]))
 
@@ -2672,6 +3374,20 @@ def main() -> int:
         "launches_turn2": features["multiturn"]["launches"]["flash_attention"],
         "launches_chunked_prefill": features["chunked"]["launches"]["flash_attention"],
         **new_paths("flash_attention"),
+        "idefics2": {
+            "launches_per_generate": idefics2["serve"]["launches"]["flash_attention"],
+            "launches_serve_cli_depth4": idefics2["checkpoint"]["serve"]["launches"][
+                "flash_attention"],
+            **{key: total(per_idefics2, key)
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms", "library_attended_ms")},
+            "library_masked_ms": (None if any(r.get("library_masked_ms") is None
+                                              for _, r in per_idefics2)
+                                  else total(per_idefics2, "library_masked_ms")),
+            "bound_by": bound_by(per_idefics2),
+            "ms_is": f"per Idefics2 generate: 27 x navit_b8 + 32 x mistral_{IDEFICS2_BUCKET}",
+            "serve": idefics2["serve"],
+            "end_to_end_cosine_vs_dense": idefics2["dense"]["cosine_vs_dense"],
+        },
         "shapes": list(per_shape.values()),
         "card": card,
         "serve": timings,
@@ -2756,6 +3472,7 @@ def main() -> int:
         "replaces": f"leopard_tpu/ops/pallas/norms.py:{line}",
         "launches": train_run["launches"][name],
         "launches_per_generate": timings["launches"][name],
+        "launches_per_idefics2_generate": idefics2["serve"]["launches"][name],
         "launches_serving_features": {phase: rec["launches"][name] for phase, rec in
                                       features.items() if "launches" in rec},
         **new_paths(name),
@@ -2767,6 +3484,7 @@ def main() -> int:
         "library_ms": k3[kind]["library_ms"],
         "library": library,
         "ms_is": f"per call at {k3[kind]['shape']}",
+        "idefics2_shape": k3_idefics2[kind],
         "card": card,
     } for name, kind, line, library in (
         ("fused_rms_norm", "rms", 54, "F.rms_norm"),

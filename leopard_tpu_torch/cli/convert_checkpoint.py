@@ -9,7 +9,9 @@ tools/convert_checkpoint.py), both directions:
   python -m leopard_tpu_torch.cli.convert_checkpoint --direction native2hf \
       --arch leopard_llava --input ckpt/ --output /ckpts/export/
 
-`--arch llama` converts the text decoder alone (`model.*` keys).
+`--arch leopard_idefics2` takes an Idefics2ForConditionalGeneration checkpoint.
+`--arch llama` and `--arch mistral` convert the text decoder alone
+(`model.*` keys) of Leopard-LLaVA and Leopard-Idefics2.
 `convert(args, cfg)` is the whole path for a caller with its own config.
 """
 
@@ -38,18 +40,23 @@ def convert(args: argparse.Namespace, cfg=None) -> None:
     config's dtype there, save them. native2hf: restore the parameters on
     the host and write them as fp32."""
     device = resolve_device(args.device)
-    from leopard_tpu_torch.config import leopard_llava_8b
+    from leopard_tpu_torch.config import leopard_idefics2_8b, leopard_llava_8b
     from leopard_tpu_torch.convert import hf as chf
     from leopard_tpu_torch.training.checkpoint import CheckpointManager
 
-    if args.arch not in ("leopard_llava", "llama"):
-        raise NotImplementedError(chf.IDEFICS2_PENDING)
-    cfg = cfg or leopard_llava_8b()  # llama: its text part only
+    # llama and mistral: the text part of their family's config only
+    idefics2 = args.arch in ("leopard_idefics2", "mistral")
+    cfg = cfg or (leopard_idefics2_8b() if idefics2 else leopard_llava_8b())
+    # the whole model's converter and export; None for a text decoder alone
+    convert_vlm, export_vlm = {
+        "leopard_llava": (chf.convert_leopard_llava, chf.export_leopard_llava),
+        "leopard_idefics2": (chf.convert_leopard_idefics2, chf.export_leopard_idefics2),
+    }.get(args.arch, (None, None))
 
     if args.direction == "hf2native":
         sd = chf.load_hf_state_dict(args.input, device)
-        if args.arch == "leopard_llava":
-            params = chf.convert_leopard_llava(sd, cfg, device=device)
+        if convert_vlm is not None:
+            params = convert_vlm(sd, cfg, device=device)
         else:
             params = {"text." + k: v for k, v in
                       chf.convert_decoder(sd, cfg.text, "model.", device=device).items()}
@@ -64,8 +71,8 @@ def convert(args: argparse.Namespace, cfg=None) -> None:
     mgr = CheckpointManager(args.input, async_save=False)
     params, _ = mgr.restore()
     mgr.close()
-    if args.arch == "leopard_llava":
-        sd = chf.export_leopard_llava(params, cfg)
+    if export_vlm is not None:
+        sd = export_vlm(params, cfg)
     else:
         sd = chf.export_decoder({k[len("text."):]: v for k, v in params.items()
                                  if k.startswith("text.")}, cfg.text, "model.")

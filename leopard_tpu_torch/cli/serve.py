@@ -1,4 +1,4 @@
-"""Serve a Leopard-LLaVA HF checkpoint over HTTP (port of examples/serve.py).
+"""Serve a Leopard HF checkpoint over HTTP (port of examples/serve.py).
 
   # plain engine (sampling, logprobs, optional speculative decoding)
   python -m leopard_tpu_torch.cli.serve --checkpoint /ckpts/leopard-llava-hf \
@@ -7,6 +7,10 @@
   # continuous batching (slot refill, per-request token budgets)
   python -m leopard_tpu_torch.cli.serve --checkpoint /ckpts/leopard-llava-hf \
       --continuous --slots 8 --cache-len 2048 --quantize int8
+
+  # Leopard-Idefics2 (NaViT images, perceiver, Mistral with its window)
+  python -m leopard_tpu_torch.cli.serve --arch leopard_idefics2 \
+      --checkpoint /ckpts/leopard-idefics2-hf --port 5000
 
 `build_server(args, tokenizer, cfg)` gives the GenerationServer, built and
 not yet serving (`--port 0` takes a free port once `http_server()` binds
@@ -58,19 +62,19 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def build_server(args: argparse.Namespace, tokenizer=None, cfg=None):
     """Load the checkpoint onto the device and build the server over it."""
     device = resolve_device(args.device)
-    from leopard_tpu_torch.config import leopard_llava_8b
-    from leopard_tpu_torch.convert.hf import IDEFICS2_PENDING, load_leopard_llava
+    from leopard_tpu_torch.config import leopard_idefics2_8b, leopard_llava_8b
+    from leopard_tpu_torch.convert.hf import load_leopard_idefics2, load_leopard_llava
     from leopard_tpu_torch.data.tokenizer import build_tokenizer
     from leopard_tpu_torch.inference.continuous import ContinuousEngine
     from leopard_tpu_torch.inference.engine import Engine
     from leopard_tpu_torch.inference.server import GenerationServer
     from leopard_tpu_torch.inference.speculative import SpecConfig
 
-    if args.arch != "leopard_llava":
-        raise NotImplementedError(IDEFICS2_PENDING)
-    cfg = cfg or leopard_llava_8b()
+    idefics2 = args.arch == "leopard_idefics2"
+    cfg = cfg or (leopard_idefics2_8b() if idefics2 else leopard_llava_8b())
     tokenizer = tokenizer or build_tokenizer(args.tokenizer or args.checkpoint)
-    model = load_leopard_llava(args.checkpoint, cfg, device)
+    load = load_leopard_idefics2 if idefics2 else load_leopard_llava
+    model = load(args.checkpoint, cfg, device)
     engine = Engine(cfg, model, quantize=args.quantize, quantize_kv=args.quantize is not None)
     del model  # with --quantize, the engine holds its own text weights
     continuous = None

@@ -19,6 +19,11 @@ same way:
 `jax_tree_from_state_dict` is the inverse for unquantized trees: it re-stacks
 the layers and transposes the matrices back, so that the port's params or
 gradients can be held against the JAX tree leaf by leaf.
+
+An Idefics2 tree carries its `perceiver` subtree across like any other. Its
+`projector` subtree is dropped: the JAX `init_params` makes one that its
+forward never reads, and the port's model has none (HF's Idefics2 layout has
+none either).
 """
 
 from __future__ import annotations
@@ -49,8 +54,8 @@ def state_dict_from_jax(params: Mapping[str, Any], cfg: VLMConfig) -> Dict[str, 
     """`params`: the JAX VLM param tree as numpy (after `jax.device_get`).
     Returns a dict that `LeopardVLM(cfg).load_state_dict(strict=True)`
     accepts."""
-    if cfg.perceiver is not None or "perceiver" in params:
-        raise NotImplementedError("the Idefics2 perceiver is not in the port yet")
+    if "perceiver" in params:  # an Idefics2 tree: its projector is never read
+        params = {k: v for k, v in params.items() if k != "projector"}
     out: Dict[str, torch.Tensor] = {}
 
     def put(path, a):

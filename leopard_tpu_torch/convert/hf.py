@@ -1,9 +1,12 @@
 """HF checkpoint ↔ the port's state dict (port of leopard_tpu/convert/hf.py,
-for the LLaVA and Llama families).
+for the LLaVA, Idefics2, Llama and Mistral families).
 
 The published Leopard-LLaVA checkpoint is a LlavaForConditionalGeneration:
 `vision_tower.vision_model.*`, `multi_modal_projector.linear_{1,2}.*`,
-`language_model.model.*` and `language_model.lm_head.weight`. HF `Linear`
+`language_model.model.*` and `language_model.lm_head.weight`. Leopard-Idefics2
+is an Idefics2ForConditionalGeneration: `model.vision_model.*`,
+`model.connector.{modality_projection,perceiver_resampler}.*`,
+`model.text_model.*` and `lm_head.weight`. HF `Linear`
 weights are [out, in], as the port's are (models/params.py), and the port
 keeps one module per layer, so where the JAX converter transposes and
 stacks, this one only renames, layer by layer (`layers.{i}`). The one
@@ -24,8 +27,13 @@ tensor on the host at a time and never the whole checkpoint.
 value is the port's own tensor or a view of it, in the params' dtype (the
 JAX exports give fp32 numpy copies). An export copies nothing.
 
-Not in the port yet (each raises): the CLIP tower (ROADMAP §1 item 4, with
-the CLIP tower options) and the Idefics2 perceiver and checkpoints (item 7).
+One key differs from the JAX exports: `export_leopard_idefics2` writes the
+head as `lm_head.weight`, where HF's Idefics2 model keeps it. The JAX export
+derives it from the decoder's prefix and writes `model.text_lm_head.weight`,
+a key HF does not read; `convert_leopard_idefics2` reads either.
+
+Not in the port yet (it raises): the CLIP tower (ROADMAP §1 item 4, with the
+CLIP tower options).
 """
 
 from __future__ import annotations
@@ -38,7 +46,8 @@ from typing import Any, Dict, Iterator, Optional
 import numpy as np
 import torch
 
-from leopard_tpu_torch.config import ProjectorConfig, TextConfig, VisionConfig, VLMConfig
+from leopard_tpu_torch.config import (PerceiverConfig, ProjectorConfig, TextConfig, VisionConfig,
+                                      VLMConfig)
 from leopard_tpu_torch.models.params import torch_dtype
 
 StateDict = Mapping  # name → torch.Tensor or np.ndarray
@@ -67,9 +76,30 @@ SIGLIP_LAYER = {
 }
 PROJECTOR = {"fc1": "linear_1.weight", "b1": "linear_1.bias",
              "fc2": "linear_2.weight", "b2": "linear_2.bias"}
+# the Idefics2 connector: port name under `perceiver.` → HF name under the
+# connector's prefix; the resampler's layers under `layers.{i}.`
+PERCEIVER = {
+    "modality_proj.w_gate": "modality_projection.gate_proj.weight",
+    "modality_proj.w_up": "modality_projection.up_proj.weight",
+    "modality_proj.w_down": "modality_projection.down_proj.weight",
+    "latents": "perceiver_resampler.latents",
+    "final_norm": "perceiver_resampler.norm.weight",
+}
+PERCEIVER_LAYER = {
+    "latents_norm": "input_latents_norm.weight",
+    "context_norm": "input_context_norm.weight",
+    "attn.wq": "self_attn.q_proj.weight",
+    "attn.wk": "self_attn.k_proj.weight",
+    "attn.wv": "self_attn.v_proj.weight",
+    "attn.wo": "self_attn.o_proj.weight",
+    "post_attn_norm": "post_attention_layernorm.weight",
+    "mlp.w_gate": "mlp.gate_proj.weight",
+    "mlp.w_up": "mlp.up_proj.weight",
+    "mlp.w_down": "mlp.down_proj.weight",
+}
+IDEFICS2_LM_HEAD = "lm_head.weight"
 
 CLIP_PENDING = "the CLIP tower is not in the port yet (ROADMAP §1 item 4, the CLIP tower options)"
-IDEFICS2_PENDING = "the Idefics2 family is not in the port yet (ROADMAP §1 item 7)"
 
 
 def _as_tensor(a) -> torch.Tensor:
@@ -120,9 +150,19 @@ def _siglip_names(cfg: VisionConfig, prefix: str) -> Dict[str, str]:
     return names
 
 
+def _perceiver_names(cfg: PerceiverConfig, prefix: str) -> Dict[str, str]:
+    """{port name: HF name} of an Idefics2 connector."""
+    names = {ours: prefix + theirs for ours, theirs in PERCEIVER.items()}
+    for i in range(cfg.num_layers):
+        for ours, theirs in PERCEIVER_LAYER.items():
+            names[f"layers.{i}.{ours}"] = f"{prefix}perceiver_resampler.layers.{i}.{theirs}"
+    return names
+
+
 def convert_decoder(sd: StateDict, cfg: TextConfig, prefix: str = "model.",
                     lm_head_key: Optional[str] = None, device="cuda") -> Dict[str, torch.Tensor]:
-    """HF LlamaForCausalLM state dict → the port's `Decoder` state dict."""
+    """HF LlamaForCausalLM / MistralForCausalLM state dict → the port's
+    `Decoder` state dict."""
     dt = torch_dtype(cfg.dtype)
     out = {ours: _cast(sd[theirs], dt, device)
            for ours, theirs in _decoder_names(cfg, prefix).items()}
@@ -172,12 +212,26 @@ def convert_leopard_llava(sd: StateDict, cfg: VLMConfig, device="cuda") -> Dict[
     return out
 
 
-def convert_perceiver(sd: StateDict, cfg, prefix: str = "model.connector.", device="cuda"):
-    raise NotImplementedError(IDEFICS2_PENDING)
+def convert_perceiver(sd: StateDict, cfg: PerceiverConfig, prefix: str = "model.connector.",
+                      device="cuda") -> Dict[str, torch.Tensor]:
+    """HF Idefics2Connector (modality projection + perceiver resampler)
+    state dict → the port's `Perceiver` state dict."""
+    dt = torch_dtype(cfg.dtype)
+    return {ours: _cast(sd[theirs], dt, device)
+            for ours, theirs in _perceiver_names(cfg, prefix).items()}
 
 
-def convert_leopard_idefics2(sd: StateDict, cfg: VLMConfig, device="cuda"):
-    raise NotImplementedError(IDEFICS2_PENDING)
+def convert_leopard_idefics2(sd: StateDict, cfg: VLMConfig, device="cuda"
+                             ) -> Dict[str, torch.Tensor]:
+    """A whole Idefics2ForConditionalGeneration HF checkpoint → the port's
+    `LeopardVLM` state dict, every tensor on `device`."""
+    out = _prefixed("vision", convert_siglip_vision(
+        sd, cfg.vision, "model.vision_model.", device=device))
+    out.update(_prefixed("perceiver", convert_perceiver(
+        sd, cfg.perceiver, "model.connector.", device=device)))
+    out.update(_prefixed("text", convert_decoder(
+        sd, cfg.text, "model.text_model.", device=device)))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -196,12 +250,15 @@ def _sub(state: Mapping, group: str) -> Dict[str, torch.Tensor]:
     return {k[n:]: v for k, v in state.items() if k.startswith(group + ".")}
 
 
-def export_decoder(params, cfg: TextConfig, prefix: str = "model.") -> Dict[str, torch.Tensor]:
-    """The port's `Decoder` state dict → HF LlamaForCausalLM keys."""
+def export_decoder(params, cfg: TextConfig, prefix: str = "model.",
+                   lm_head_key: Optional[str] = None) -> Dict[str, torch.Tensor]:
+    """The port's `Decoder` state dict → HF LlamaForCausalLM /
+    MistralForCausalLM keys; the head goes beside the decoder's prefix
+    (model.* → lm_head.weight) unless `lm_head_key` names it."""
     state = _state(params)
     out = {theirs: state[ours] for ours, theirs in _decoder_names(cfg, prefix).items()}
     if "lm_head" in state:
-        out[prefix.rsplit("model.", 1)[0] + "lm_head.weight"] = state["lm_head"]
+        out[lm_head_key or prefix.rsplit("model.", 1)[0] + "lm_head.weight"] = state["lm_head"]
     return out
 
 
@@ -223,8 +280,11 @@ def export_projector(params, prefix: str = "multi_modal_projector.") -> Dict[str
     return {prefix + theirs: state[ours] for ours, theirs in PROJECTOR.items()}
 
 
-def export_perceiver(params, cfg, prefix: str = "model.connector."):
-    raise NotImplementedError(IDEFICS2_PENDING)
+def export_perceiver(params, cfg: PerceiverConfig, prefix: str = "model.connector."
+                     ) -> Dict[str, torch.Tensor]:
+    """Inverse of convert_perceiver: HF Idefics2Connector keys."""
+    state = _state(params)
+    return {theirs: state[ours] for ours, theirs in _perceiver_names(cfg, prefix).items()}
 
 
 def export_leopard_llava(params, cfg: VLMConfig) -> Dict[str, torch.Tensor]:
@@ -237,8 +297,16 @@ def export_leopard_llava(params, cfg: VLMConfig) -> Dict[str, torch.Tensor]:
     return out
 
 
-def export_leopard_idefics2(params, cfg: VLMConfig):
-    raise NotImplementedError(IDEFICS2_PENDING)
+def export_leopard_idefics2(params, cfg: VLMConfig) -> Dict[str, torch.Tensor]:
+    """A `LeopardVLM` or its state dict → Idefics2ForConditionalGeneration
+    keys (inverse of convert_leopard_idefics2; the head as HF keeps it,
+    `lm_head.weight`)."""
+    state = _state(params)
+    out = export_siglip_vision(_sub(state, "vision"), cfg.vision, "model.vision_model.")
+    out.update(export_perceiver(_sub(state, "perceiver"), cfg.perceiver, "model.connector."))
+    out.update(export_decoder(_sub(state, "text"), cfg.text, "model.text_model.",
+                              lm_head_key=IDEFICS2_LM_HEAD))
+    return out
 
 
 def export_vlm(params, cfg: VLMConfig) -> Dict[str, torch.Tensor]:
@@ -336,11 +404,22 @@ def load_hf_state_dict(model_dir: str, device="cpu") -> HFStateDict:
     return HFStateDict(model_dir, device)
 
 
-def load_leopard_llava(model_dir: str, cfg: VLMConfig, device="cuda"):
-    """A `LeopardVLM` on `device` holding the converted tensors themselves."""
+def _load_vlm(convert, model_dir: str, cfg: VLMConfig, device):
     from leopard_tpu_torch.models.vlm import LeopardVLM
 
-    state = convert_leopard_llava(load_hf_state_dict(model_dir, device), cfg, device=device)
+    state = convert(load_hf_state_dict(model_dir, device), cfg, device=device)
     model = LeopardVLM(cfg, device="meta")
     model.load_state_dict(state, strict=True, assign=True)
     return model
+
+
+def load_leopard_llava(model_dir: str, cfg: VLMConfig, device="cuda"):
+    """A Leopard-LLaVA `LeopardVLM` on `device` holding the converted
+    tensors themselves."""
+    return _load_vlm(convert_leopard_llava, model_dir, cfg, device)
+
+
+def load_leopard_idefics2(model_dir: str, cfg: VLMConfig, device="cuda"):
+    """A Leopard-Idefics2 `LeopardVLM` on `device` holding the converted
+    tensors themselves."""
+    return _load_vlm(convert_leopard_idefics2, model_dir, cfg, device)

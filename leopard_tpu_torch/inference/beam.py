@@ -74,6 +74,7 @@ def beam_search(
     engine,
     prompt: np.ndarray,
     images: Optional[np.ndarray] = None,
+    patch_mask: Optional[np.ndarray] = None,
     beam_width: int = 4,
     max_new_tokens: int = 128,
     length_penalty: float = 1.0,
@@ -85,7 +86,7 @@ def beam_search(
     cache_len = engine._bucket(s + max_new_tokens, engine.seq_buckets)
     cache = KVCache.create(engine.cfg.text, 1, cache_len, device=engine.device)
     first_logits, cache = _prefill(engine.model, engine._tensor(tokens), engine._tensor(seg),
-                                   cache, engine._features(images), fresh=True)
+                                   cache, engine._features(images, patch_mask), fresh=True)
     toks, n = _beam_decode(engine.model, first_logits, cache, int(beam_width),
                            int(max_new_tokens), float(length_penalty),
                            tuple(int(e) for e in eos_ids))

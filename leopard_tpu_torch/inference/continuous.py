@@ -41,8 +41,7 @@ Faults of the JAX engine that the port does not copy:
 
 repetition_penalty must be 1.0: the penalty needs every row's whole history
 under one shape, which slots refilled at different times do not have
-(`Engine.generate` supports it). Not in the port: NaViT patch masks (the
-port's Engine takes none).
+(`Engine.generate` supports it).
 """
 
 from __future__ import annotations
@@ -67,6 +66,7 @@ class Request:
     max_new_tokens: int
     images: Optional[np.ndarray] = None     # this row's tiles: [N, 3, H, W] float
     #                                         or [N, H, W, 3] uint8
+    patch_mask: Optional[np.ndarray] = None  # [N, H/p, W/p] bool (Idefics2)
 
 
 @dataclasses.dataclass
@@ -177,7 +177,7 @@ class ContinuousEngine:
         tokens, seg, _, _ = eng._pack([req.prompt])
         cache, fresh = self._fresh_cache(1, prefix)
         return _prefill(eng.model, eng._tensor(tokens), eng._tensor(seg), cache,
-                        eng._features(req.images), fresh=fresh)
+                        eng._features(req.images, req.patch_mask), fresh=fresh)
 
     @torch.inference_mode()
     def _prefill_block(self, reqs: Sequence[Request], nb: int,

@@ -22,14 +22,16 @@ done" after each step, where the JAX engine runs one `lax.while_loop`.
     aliased: it comes out of any number of calls unchanged.
   - `spec=SpecConfig(...)` decodes by prompt lookup (speculative.py);
     `beam.py` holds beam search over the same prefill.
+  - Idefics2: `patch_mask` [N, H/p, W/p] marks each NaViT image's real
+    patches (`data/idefics2_processor.py`); images that the tile bucket
+    adds get all-zero masks, as in the JAX engine.
 
 `quantize="int8"|"int4"` serves from a new model whose text decoder holds
 quantized weights (ops/quant.py) and shares every other tensor with the
 caller's model, which is left as it is; `quantize_kv=True` keeps the KV cache
 in int8 (models/decoder.py).
 
-Not in the port: a device mesh (raises), and NaViT patch masks (`generate`
-and `build_prefix` take no `patch_mask`). Where the JAX engine clamps a
+Not in the port: a device mesh (raises). Where the JAX engine clamps a
 cache write that falls outside a too-small `max_cache`, this engine raises
 before it writes anything.
 """
@@ -216,24 +218,31 @@ class Engine:
                               quantized=self.quantize_kv)
 
     @torch.inference_mode()
-    def encode_images(self, pixel_values) -> torch.Tensor:
+    def encode_images(self, pixel_values, patch_mask=None) -> torch.Tensor:
         """pixel_values: [N, 3, H, W] float or [N, H, W, 3] uint8, numpy or
-        torch. Pads N up to a tile bucket; returns [NB, T, H] on the device
-        (rows ≥ N are never gathered by the splice)."""
-        x = torch.as_tensor(pixel_values)
-        n = x.shape[0]
+        torch; patch_mask [N, H/p, W/p] bool or None. Pads N up to a tile
+        bucket with zero images (and all-zero masks); returns [NB, T, H] on
+        the device (rows ≥ N are never gathered by the splice)."""
+        n = pixel_values.shape[0]
         nb = self._bucket(n, self.tile_buckets)
-        if nb != n:
-            x = torch.cat([x, x.new_zeros((nb - n,) + tuple(x.shape[1:]))], dim=0)
-        return self.model.encode_images(x.to(self.device))
 
-    def _features(self, images) -> Optional[torch.Tensor]:
+        def padded(t):
+            t = torch.as_tensor(t)
+            if nb != n:
+                t = torch.cat([t, t.new_zeros((nb - n,) + tuple(t.shape[1:]))], dim=0)
+            return t.to(self.device)
+
+        if patch_mask is not None:
+            patch_mask = padded(torch.as_tensor(patch_mask, dtype=torch.bool))
+        return self.model.encode_images(padded(pixel_values), patch_mask)
+
+    def _features(self, images, patch_mask=None) -> Optional[torch.Tensor]:
         if images is None or images.shape[0] == 0:
             return None
-        return self.encode_images(images)
+        return self.encode_images(images, patch_mask)
 
     @torch.inference_mode()
-    def build_prefix(self, prompt: np.ndarray, images=None) -> Prefix:
+    def build_prefix(self, prompt: np.ndarray, images=None, patch_mask=None) -> Prefix:
         """Prefill a shared prompt prefix once, for reuse across generate()
         calls; its images' features splice during this prefill and live in
         the KV like any other position (JAX engine.py:252-275)."""
@@ -241,11 +250,11 @@ class Engine:
         tokens, seg, _, s = self._pack([prompt])
         cache = self._new_cache(1, round_up(s, 512))
         _, cache = _prefill(self.model, self._tensor(tokens), self._tensor(seg), cache,
-                            self._features(images), fresh=True)
+                            self._features(images, patch_mask), fresh=True)
         return Prefix(cache=cache, length=len(prompt), tokens=prompt)
 
-    def _prefill_packed(self, tokens, seg, lengths, images, prefix: Optional[Prefix],
-                        cache_len: int):
+    def _prefill_packed(self, tokens, seg, lengths, images, patch_mask,
+                        prefix: Optional[Prefix], cache_len: int):
         """Seed the prefix (if any) into a new cache of `cache_len` slots and
         prefill the packed prompts: in one pass within the largest bucket,
         else chunk by chunk (JAX engine.py:345-397). Returns (first-step
@@ -256,7 +265,7 @@ class Engine:
             p_len = prefix.length
             sp_keep = min(round_up(p_len, 512), prefix.cache.kv.shape[2], cache_len)
             _seed_prefix(cache, prefix.cache, p_len, sp_keep)
-        feats = self._features(images)
+        feats = self._features(images, patch_mask)
         chunk = self.seq_buckets[-1]
         if s <= chunk:
             # with a prefix the suffix is a continuation: it attends over the
@@ -286,13 +295,13 @@ class Engine:
         return first_logits, cache
 
     @torch.inference_mode()
-    def prefill(self, prompts: Sequence[np.ndarray], images=None,
+    def prefill(self, prompts: Sequence[np.ndarray], images=None, patch_mask=None,
                 prefix: Optional[Prefix] = None):
         """The prefill of `generate` alone: the first-step logits [B, V] fp32
         and the filled cache, of round_up(prefix + bucket, 512) slots."""
         tokens, seg, lengths, s = self._pack(prompts)
         p_len = prefix.length if prefix is not None else 0
-        return self._prefill_packed(tokens, seg, lengths, images, prefix,
+        return self._prefill_packed(tokens, seg, lengths, images, patch_mask, prefix,
                                     round_up(p_len + s, 512))
 
     @torch.inference_mode()
@@ -300,6 +309,7 @@ class Engine:
         self,
         prompts: Sequence[np.ndarray],
         images=None,                      # [N_tiles, ...], batch-ordered
+        patch_mask=None,                  # [N_tiles, H/p, W/p] bool (Idefics2)
         gen_cfg: Optional[GenerateConfig] = None,
         max_cache: Optional[int] = None,
         spec=None,                        # SpecConfig: speculative decode
@@ -339,8 +349,8 @@ class Engine:
                 f"max_cache {cache_len} < prefix {p_len} + bucket {s} + max_new {max_new}"
                 + (f" + {spec_pad}, the verify-block headroom of speculative decode"
                    if spec_pad else ""))
-        first_logits, cache = self._prefill_packed(tokens, seg, lengths, images, prefix,
-                                                   cache_len)
+        first_logits, cache = self._prefill_packed(tokens, seg, lengths, images, patch_mask,
+                                                   prefix, cache_len)
         spec_rounds = None
         if spec is not None:
             # history buffer for the n-gram lookup: the prompt, then the

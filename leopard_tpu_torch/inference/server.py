@@ -2,7 +2,9 @@
 leopard_tpu/inference/server.py, the same JSON in and out).
 
 Prompts may carry `<image>` placeholders plus base64-encoded images, which
-are anyres-tiled on the host (`data/anyres.py`) and spliced on the device.
+are prepared on the host and spliced on the device: anyres tiles for
+Leopard-LLaVA (`data/anyres.py`), NaViT images with patch masks for
+Leopard-Idefics2 (`data/idefics2_processor.py`).
 
   POST /api/generate
     {"prompts": ["what is in <image>?"],
@@ -22,8 +24,7 @@ Serving modes (one request at a time, queued in the socket backlog):
   - continuous (`continuous=ContinuousEngine(...)`): the rows join the slot
     pool, each with its own `max_new_tokens`.
 
-Pillow is imported only to decode posted images. Idefics2 prompts are not
-in the port (its Engine takes no NaViT patch mask).
+Pillow is imported only to decode posted images.
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ import numpy as np
 
 from leopard_tpu_torch.config import GenerateConfig
 from leopard_tpu_torch.data.anyres import preprocess_tiles_uint8, tile_images
-from leopard_tpu_torch.data.chat import render_images_into_text
+from leopard_tpu_torch.data.chat import build_idefics2_prompt, render_images_into_text
+from leopard_tpu_torch.data.idefics2_processor import preprocess_idefics2
 from leopard_tpu_torch.inference.continuous import Request
 from leopard_tpu_torch.inference.engine import Engine
 
@@ -94,16 +96,26 @@ class GenerationServer:
         self.max_sessions = 8
 
     def _prepare_row(self, text: str, pil_images: list
-                     ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
-        """Tokenize one prompt, splicing image-token blocks, and tile its
-        images. Returns (ids, uint8 NHWC tiles or None)."""
+                     ) -> Tuple[np.ndarray, Optional[np.ndarray], Optional[np.ndarray]]:
+        """Tokenize one prompt, splicing image-token blocks, and prepare its
+        images. Returns (ids, pixels or None, patch mask or None): uint8
+        NHWC anyres tiles for LLaVA; for Idefics2 normalized float32 NCHW
+        images and their patch mask, with the `<image>` strings dropped
+        from the text and one block of `num_latents` image tokens between
+        fake-image tokens (id image_token_id - 1) put before it per image."""
         cfg = self.engine.cfg
         if not pil_images:
             ids = self.tokenizer(text, add_special_tokens=True)["input_ids"]
-            return np.asarray(ids, np.int32), None
+            return np.asarray(ids, np.int32), None, None
         if cfg.architecture == "leopard_idefics2":
-            raise NotImplementedError("Idefics2 prompts are not in the port yet "
-                                      "(ROADMAP section 1, item 7)")
+            pixels, _, patch_mask = preprocess_idefics2(pil_images)
+            ids = build_idefics2_prompt(
+                self.tokenizer, text.replace("<image>", ""), len(pil_images),
+                image_seq_len=cfg.perceiver.num_latents if cfg.perceiver else 64,
+                image_token_id=cfg.image_token_id,
+                fake_token_id=cfg.image_token_id - 1,
+            )
+            return np.asarray(ids, np.int32), pixels, patch_mask
         tiled = tile_images(
             pil_images, tile_size=cfg.anyres.tile_size,
             total_budget=cfg.anyres.tile_budget, order="eval",
@@ -114,7 +126,7 @@ class GenerationServer:
             cfg.anyres.tokens_per_tile, image_token_id=cfg.image_token_id,
             layout="eval",
         )
-        return np.asarray(ids, np.int32), pixels
+        return np.asarray(ids, np.int32), pixels, None
 
     def _decode_text(self, tokens: np.ndarray) -> str:
         return self.tokenizer.decode(tokens.tolist(), skip_special_tokens=True)
@@ -141,11 +153,14 @@ class GenerationServer:
         if self.prefix is not None and gen.repetition_penalty != 1.0:
             raise ValueError("repetition_penalty is unsupported when the "
                              "server holds a cached system-prompt prefix")
-        with_px = [px for _, px in rows if px is not None]
+        with_px = [px for _, px, _ in rows if px is not None]
         pixels = np.concatenate(with_px, axis=0) if with_px else None
+        masks = [pm for _, _, pm in rows if pm is not None]
+        patch_mask = np.concatenate(masks, axis=0) if masks else None
         spec = self.spec if (gen.greedy and gen.repetition_penalty == 1.0) else None
-        res = self.engine.generate([ids for ids, _ in rows], images=pixels, gen_cfg=gen,
-                                   spec=spec, prefix=self.prefix)
+        res = self.engine.generate([ids for ids, _, _ in rows], images=pixels,
+                                   patch_mask=patch_mask, gen_cfg=gen, spec=spec,
+                                   prefix=self.prefix)
         tokens = [t[: b] for t, b in zip(res.tokens, budgets)]
         return {
             "text": [self._decode_text(t) for t in tokens],
@@ -174,12 +189,12 @@ class GenerationServer:
         if float(payload.get("repetition_penalty", 1.0)) != 1.0:
             raise ValueError("chat sessions do not support "
                              "repetition_penalty (prefix-cached history)")
-        ids, pixels = self._prepare_row(
+        ids, pixels, patch_mask = self._prepare_row(
             payload["prompt"], _decode_images(payload.get("images") or [])
         )
         gen = _gen_config(payload, int(payload.get("max_new_tokens", 128)))
         res = self.engine.generate(
-            [ids], images=pixels, gen_cfg=gen,
+            [ids], images=pixels, patch_mask=patch_mask, gen_cfg=gen,
             prefix=self._sessions.get(sid) or self.prefix, return_prefix=True,
         )
         self._sessions.pop(sid, None)
@@ -197,8 +212,8 @@ class GenerationServer:
             raise ValueError("continuous mode does not support "
                              "repetition_penalty; send 1.0 or use the plain "
                              "server mode")
-        reqs = [Request(prompt=ids, max_new_tokens=int(b), images=px)
-                for (ids, px), b in zip(rows, budgets)]
+        reqs = [Request(prompt=ids, max_new_tokens=int(b), images=px, patch_mask=pm)
+                for (ids, px, pm), b in zip(rows, budgets)]
         completions = self.continuous.run(reqs, gen_cfg=gen, prefix=self.prefix)
         return {
             "text": [self._decode_text(c.tokens) for c in completions],

@@ -21,7 +21,9 @@ from torch import nn
 # a weight matrix or table drawn from N(0, 1/fan_in), fan_in = its last dim,
 # as the JAX init_params draw theirs
 ZERO_LEAVES = frozenset({"bias", "bq", "bk", "bv", "bo", "b1", "b2"})
-ONE_LEAVES = frozenset({"scale", "input_norm", "post_attn_norm", "final_norm"})
+# (the perceiver's latents start at 1 too, as in the JAX and HF inits)
+ONE_LEAVES = frozenset({"scale", "input_norm", "post_attn_norm", "final_norm",
+                        "latents_norm", "context_norm", "latents"})
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -1,6 +1,10 @@
-"""Leopard VLM, LLaVA architecture: vision tower → pixel shuffle → projector
-→ decoder, with image features spliced at the image-token positions (port of
-leopard_tpu/models/vlm.py).
+"""Leopard VLM, both architectures (port of leopard_tpu/models/vlm.py):
+  - leopard_llava: vision tower → pixel shuffle → projector → decoder;
+  - leopard_idefics2: NaViT tower (patch masks) → perceiver (64 latents an
+    image) → Mistral decoder. It holds no projector: the HF layout has
+    none, and the JAX forward never reads the projector leaves its
+    `init_params` makes anyway (convert/from_jax.py drops them).
+Image features are spliced at the image-token positions.
 
 The splice keeps the JAX package's static-shape cumsum-gather: the i-th image
 token of the flattened batch takes the i-th image feature row. The sharding
@@ -18,6 +22,7 @@ from torch import nn
 from leopard_tpu_torch.config import VLMConfig
 from leopard_tpu_torch.models.decoder import Decoder, KVCache
 from leopard_tpu_torch.models.params import init_normal_
+from leopard_tpu_torch.models.perceiver import Perceiver
 from leopard_tpu_torch.models.projector import Projector
 from leopard_tpu_torch.models.siglip import SiglipVisionTower
 from leopard_tpu_torch.ops.image import normalize_uint8_nhwc
@@ -49,24 +54,38 @@ def splice_image_features(
 class LeopardVLM(nn.Module):
     def __init__(self, cfg: VLMConfig, device=None):
         super().__init__()
-        if cfg.architecture != "leopard_llava" or cfg.perceiver is not None:
-            raise NotImplementedError(
-                f"architecture {cfg.architecture!r} is not in the port yet"
-            )
         self.cfg = cfg
         self.vision = SiglipVisionTower(cfg.vision, device=device)
-        self.projector = Projector(cfg.projector, device=device)
+        if cfg.architecture == "leopard_idefics2":
+            if cfg.perceiver is None:
+                raise ValueError("leopard_idefics2 needs a perceiver config")
+            self.perceiver = Perceiver(cfg.perceiver, cfg.vision.hidden_size, device=device)
+        elif cfg.architecture == "leopard_llava" and cfg.perceiver is None:
+            self.projector = Projector(cfg.projector, device=device)
+        else:
+            raise NotImplementedError(
+                f"architecture {cfg.architecture!r} with perceiver={cfg.perceiver} "
+                "is not in the port")
         self.text = Decoder(cfg.text, device=device)
 
-    def encode_images(self, pixel_values: torch.Tensor, remat=False) -> torch.Tensor:
+    def encode_images(self, pixel_values: torch.Tensor,
+                      patch_mask: Optional[torch.Tensor] = None, remat=False) -> torch.Tensor:
         """pixel_values [N, 3, H, W] float, or [N, H, W, 3] uint8 →
-        [N, tokens_per_tile, text_hidden]."""
+        [N, tokens_per_tile, text_hidden]. `patch_mask` [N, H/p, W/p] bool
+        (Idefics2): the real patches of each image; the perceiver attends
+        only those."""
         cfg = self.cfg
         if pixel_values.dtype == torch.uint8:
             pixel_values = normalize_uint8_nhwc(
                 pixel_values, cfg.anyres.image_mean, cfg.anyres.image_std
             )
-        feats = self.vision(pixel_values, remat=remat)
+        feats = self.vision(pixel_values, patch_mask=patch_mask, remat=remat)
+        if cfg.architecture == "leopard_idefics2":
+            seg = None
+            if patch_mask is not None:
+                seg = patch_mask.reshape(feats.shape[0], -1).to(device=feats.device,
+                                                                dtype=torch.int32)
+            return self.perceiver(feats, context_seg=seg)
         if cfg.pixel_shuffle_factor > 1:
             feats = pixel_shuffle(feats, cfg.pixel_shuffle_factor)
         return self.projector(feats)
@@ -75,6 +94,7 @@ class LeopardVLM(nn.Module):
         self,
         tokens: torch.Tensor,                           # [B, S] int
         images: Optional[torch.Tensor] = None,
+        patch_mask: Optional[torch.Tensor] = None,      # [N, H/p, W/p] (Idefics2)
         segment_ids: Optional[torch.Tensor] = None,
         cache: Optional[KVCache] = None,
         image_features: Optional[torch.Tensor] = None,  # precomputed encode_images
@@ -94,7 +114,7 @@ class LeopardVLM(nn.Module):
         embeds = F.embedding(tokens.clamp(min=0), self.text.embed_tokens)
         if image_features is None and images is not None:
             image_features = self.encode_images(
-                images, remat=remat if remat_vision is None else remat_vision)
+                images, patch_mask, remat=remat if remat_vision is None else remat_vision)
         if image_features is not None:
             embeds = splice_image_features(
                 embeds, image_features, tokens == self.cfg.image_token_id,

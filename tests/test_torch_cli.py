@@ -9,9 +9,12 @@ HF checkpoint written by the JAX package's own export:
     tests/test_torch_train_step.py); a run resumed from a saved checkpoint
     takes the uninterrupted run's next batch and loss; `main` through a
     `tokenizer.json` written here, as a user would run it;
-  - convert_checkpoint, both directions, for leopard_llava and llama: the
-    port's file holds the JAX export's tensors;
-  - serve: /health and one /api/generate over HTTP;
+  - convert_checkpoint, both directions, for leopard_llava, llama,
+    leopard_idefics2 and mistral: the port's file holds the JAX export's
+    tensors (for Idefics2 with the head at HF's `lm_head.weight`);
+  - serve: /health and one /api/generate over HTTP; with --arch
+    leopard_idefics2, one request of two PNGs against `Engine.generate` on
+    the server's own `_prepare_row` output;
   - without a GPU, each CLI refuses to run unless given --device cpu.
 """
 
@@ -41,6 +44,9 @@ from leopard_tpu_torch import config as tcfgs
 from leopard_tpu_torch.cli import convert_checkpoint, generate, serve, train_leopard_llava
 from leopard_tpu_torch.data import dataset as tds
 from tests.test_chat import FakeTokenizer
+from tests.test_torch_idefics2 import CharTokenizer
+from tests.test_torch_idefics2 import init_params as idefics2_params
+from tests.test_torch_idefics2 import tiny_idefics2
 
 torch.set_num_threads(2)
 VOCAB = 128256
@@ -291,15 +297,92 @@ def test_serve_flags_exclusive():
             serve.parse_args(base + extra)
 
 
-def test_unported_arch_raises(workdir, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        serve.build_server(serve.parse_args(["--checkpoint", workdir["hf"], "--arch",
-                                             "leopard_idefics2", "--device", "cpu"]), tokenizer=TOK)
-    for arch in ("leopard_idefics2", "mistral"):
-        with pytest.raises(NotImplementedError, match="item 7"):
+@pytest.fixture(scope="module")
+def idefics2_dir(tmp_path_factory):
+    """An Idefics2 HF checkpoint (fp32, one safetensors file) of seeded JAX
+    params of the tiny Idefics2 VLM, from the JAX export with its head at
+    HF's key, and the JAX params and export."""
+    from safetensors.numpy import save_file
+
+    root = tmp_path_factory.mktemp("idefics2")
+    jcfg = tiny_idefics2(cfgs)
+    params = idefics2_params(jcfg)
+    sd = jhf.export_leopard_idefics2(params, jcfg)
+    sd["lm_head.weight"] = sd.pop("model.text_lm_head.weight")
+    save_file({k: np.ascontiguousarray(v) for k, v in sd.items()},
+              str(root / "model.safetensors"))
+    return {"hf": str(root), "params": params, "sd": sd}
+
+
+@pytest.mark.parametrize("arch", ["leopard_idefics2", "mistral"])
+def test_convert_idefics2_both_directions(idefics2_dir, tmp_path, arch):
+    from safetensors import safe_open
+    from safetensors.numpy import save_file
+
+    jcfg, tcfg = tiny_idefics2(cfgs), tiny_idefics2(tcfgs)
+    src, want = idefics2_dir["hf"], idefics2_dir["sd"]
+    if arch == "mistral":
+        want = jhf.export_decoder(idefics2_dir["params"]["text"], jcfg.text, "model.")
+        src = str(tmp_path / "mistral")
+        os.makedirs(src)
+        save_file({k: np.ascontiguousarray(v) for k, v in want.items()},
+                  os.path.join(src, "model.safetensors"))
+    native, out = str(tmp_path / "native"), str(tmp_path / "out")
+    with redirect_stdout(io.StringIO()):
+        for direction, i, o in (("hf2native", src, native), ("native2hf", native, out)):
             convert_checkpoint.convert(convert_checkpoint.parse_args(
-                ["--direction", "hf2native", "--arch", arch, "--input", workdir["hf"],
-                 "--output", str(tmp_path / arch), "--device", "cpu"]))
+                ["--direction", direction, "--arch", arch, "--input", i, "--output", o,
+                 "--device", "cpu"]), cfg=tcfg)
+    assert json.loads((tmp_path / "native" / "0" / "config.json").read_text()) == {"arch": arch}
+    with safe_open(os.path.join(out, "model.safetensors"), framework="np") as f:
+        assert set(f.keys()) == set(want)
+        for k, v in want.items():
+            got = f.get_tensor(k)
+            assert got.dtype == np.float32
+            np.testing.assert_array_equal(got, v, err_msg=k)
+
+
+def test_serve_idefics2_answers_an_image_request(idefics2_dir):
+    """`serve --arch leopard_idefics2 --device cpu`: one request of two
+    PNGs over HTTP, against Engine.generate on the server's own
+    `_prepare_row` output."""
+    import base64
+
+    from leopard_tpu_torch.inference.server import _decode_images
+
+    tcfg, tok = tiny_idefics2(tcfgs), CharTokenizer()
+    args = serve.parse_args(["--checkpoint", idefics2_dir["hf"], "--arch", "leopard_idefics2",
+                             "--host", "127.0.0.1", "--port", "0", "--device", "cpu"])
+    server = serve.build_server(args, tokenizer=tok, cfg=tcfg)
+    assert server.engine.model.cfg.architecture == "leopard_idefics2"
+    rng = np.random.RandomState(7)
+    pngs = []
+    for w, h in ((150, 60), (40, 130)):
+        buf = io.BytesIO()
+        Image.fromarray(rng.randint(0, 256, (h, w, 3), dtype=np.uint8)).save(buf, format="PNG")
+        pngs.append(base64.b64encode(buf.getvalue()).decode())
+    text = "<image> and <image>: which one is wider?"
+    httpd = server.http_server()
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        payload = {"prompts": [text], "images": [pngs], "max_new_tokens": 4, "greedy": True,
+                   "eos_token_ids": [999999]}
+        req = urllib.request.Request(url + "/api/generate", data=json.dumps(payload).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            status, out = r.status, json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    assert not thread.is_alive()
+    ids, pixels, mask = server._prepare_row(text, _decode_images(pngs))
+    assert pixels.dtype == np.float32 and mask.dtype == bool and mask.shape[0] == 2
+    want = server.engine.generate([ids], images=pixels, patch_mask=mask,
+                                  gen_cfg=tcfgs.GenerateConfig(max_new_tokens=4,
+                                                               eos_token_ids=(999999,)))
+    assert status == 200 and out["tokens"] == [want.tokens[0].tolist()]
 
 
 @pytest.mark.parametrize("name", ["generate", "serve", "train", "convert"])

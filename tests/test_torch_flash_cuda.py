@@ -21,6 +21,20 @@ def cuda():
     return torch.device("cuda")
 
 
+def navit_runs(grids, nph, npw):
+    """Per-row (id, count) runs of the 0/1 segment ids of NaViT images of
+    (rows, cols) real patches on an nph × npw grid: the real patches are the
+    top-left rectangle, flattened row-major, so 1s and 0s interleave."""
+    spec = []
+    for r, c in grids:
+        runs = []
+        for row in range(nph):
+            real = c if row < r else 0
+            runs += [(1, real), (0, npw - real)]
+        spec.append(tuple((sid, n) for sid, n in runs if n))
+    return tuple(spec)
+
+
 CARD_CASES = {
     # name: (b, sq, skv, hq, hkv, d, causal, segments, window); segments is
     # None, valid lengths per row (right padding), or per row (id, count) runs
@@ -42,6 +56,16 @@ CARD_CASES = {
     **{f"packed_d{d}": (2, 300, 300, 4, 2, d, True, (((1, 130), (2, 100), (0, 70)),
                                                       ((1, 40), (2, 200), (3, 60))), None)
        for d in (16, 64, 72, 128)},
+    # the Idefics2 tower: NaViT patch masks on the 70 × 70 grid of a 980-px
+    # image (4,900 = 38 · 128 + 36), one image masked whole (a tile-bucket
+    # pad), and a small grid whose rows are shorter than a tile
+    "navit_70x70_d72": (4, 4900, 4900, 4, 4, 72, False,
+                        navit_runs([(70, 70), (45, 70), (70, 29), (0, 0)], 70, 70), None),
+    "navit_13x9_d72": (3, 117, 117, 2, 2, 72, False,
+                       navit_runs([(13, 9), (5, 4), (0, 0)], 13, 9), None),
+    # Mistral's window at Leopard-Idefics2's serving bucket, GQA 32/8
+    "mistral_window_4096_s8192_d128": (1, 8192, 8192, 32, 8, 128, True, (8192,), 4096),
+    "mistral_window_4096_padded_d128": (1, 8192, 8192, 32, 8, 128, True, (6001,), 4096),
 }
 
 
@@ -149,3 +173,22 @@ def test_padding_rows_are_exact_zeros_on_card(cuda):
     pad = seg == 0
     assert bool((out[pad] == 0).all())
     assert bool((lse.transpose(1, 2)[pad] < -1e29).all())
+
+
+@pytest.mark.cuda
+def test_navit_padding_patches_are_exact_zeros_on_card(cuda):
+    """The tower's padding patches, interleaved inside rows and a whole
+    image of them (whose q tiles all get empty kv ranges): the kernel writes
+    exactly 0 there, never leaves the output's memory unwritten, so the
+    perceiver's 0-weighted product with those rows stays finite."""
+    b, sq, skv, hq, hkv, d, causal, spec, window = CARD_CASES["navit_13x9_d72"]
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn((b, sq, h, d), generator=g, device=cuda).to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    seg = segment_ids(spec, b, sq, cuda)
+    out = torch.full((b, sq, hq, d), float("nan"), device=cuda, dtype=torch.bfloat16)
+    del out  # the allocator may hand the kernel this NaN-filled block
+    got = tflash.flash_attention(q, k, v, causal=False, q_segment_ids=seg, kv_segment_ids=seg)
+    assert bool((got[seg == 0] == 0).all()) and bool(torch.isfinite(got).all())
+    ranges = tflash.tile_ranges(seg, seg, sq=sq, skv=skv, causal=False, device=cuda)
+    assert bool((ranges.kv_of_q[2] == 0).all())  # the padding image skips every kv tile

@@ -37,7 +37,8 @@ REQUIRED = ("ops.flash_attention", "ops.int4_matmul", "ops.fused_norms",
             "data.tokenizer", "inference.continuous", "inference.server", "inference.api",
             "convert.hf", "data.conversation", "data.processor", "data.native",
             "data.text_dataset", "data.dataset", "cli.generate", "cli.serve",
-            "cli.train_leopard_llava", "cli.convert_checkpoint")
+            "cli.train_leopard_llava", "cli.convert_checkpoint", "data.idefics2_processor",
+            "models.perceiver")
 
 
 def _run(args, cwd):

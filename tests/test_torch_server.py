@@ -112,10 +112,10 @@ def test_torch_multimodal_request_matches_jax(engines):
     from leopard_tpu.inference.server import _decode_images
 
     pil = _decode_images(payload["images"][0])
-    ids, px = tsrv._prepare_row(payload["prompts"][0], pil)
+    ids, px, mask = tsrv._prepare_row(payload["prompts"][0], pil)
     jids, jpx, jmask = jsrv._prepare_row(payload["prompts"][0], pil)
     np.testing.assert_array_equal(ids, jids)
-    assert px.dtype == jpx.dtype == np.uint8 and jmask is None
+    assert px.dtype == jpx.dtype == np.uint8 and mask is None and jmask is None
     np.testing.assert_array_equal(px, jpx)
 
 
