@@ -17,7 +17,9 @@ script exits non-zero without printing a result:
      SDPA call does up to 2x the work of a kernel that skips tiles): K1 in
      bf16 at the serving path's shapes (vision tower at 8, 16 and 32 tiles,
      decoder prefill, and
-     the decoder prefills that phase 16's pool stages; for phases 22-25 the
+     the decoder prefills that phase 16's pool stages, every tower and
+     decoder shape of phases 26-29's batches, with the plain version in
+     slices where its scores pass 12 GiB; for phases 22-25 the
      NaViT tower at phase 22's eight images and phase 25's two, their patch
      masks' interleaved segment ids, with SDPA under the same boolean mask,
      and the decoder at [1, 8,192] with Mistral's window of 4,096 and
@@ -152,7 +154,38 @@ script exits non-zero without printing a result:
      serve --arch leopard_idefics2 answering one request of two seeded PNGs
      over HTTP with Engine.generate's tokens on the server's own
      _prepare_row output; every K1 shape of phases 22-25 held in phase 3;
- 26. no JAX was imported.
+ 26. (eval A, after phase 18) the evaluation harness on Leopard-LLaVA-8B:
+     run_benchmark_batched at batch 8 with its prefetch thread over
+     MP-DocVQA (8 questions of 1-6 noise pages of 1,700 x 2,200: 342
+     crops, the decoder at [8, 16,384]) and SlideVQA (decks of 20 slides)
+     in their raw layouts and a prepared set of multiple-choice,
+     captioning and webqa rows, 16 greedy tokens: each batch as planned
+     before phase 3, the launches as the formula, every K1 shape held, the
+     responses equal to Engine.generate on the same batches; samples/s,
+     tok/s and the prefetch wait per batch; the prefix-caching adapter's
+     first-step logits against the plain prefill (cosine >= 0.9999 on an
+     fp32 twin with dense attention, >= 0.99982 in bf16, a limit that two
+     planted faults, the suffix one position late and a stale header,
+     must fall below); the serial loop's agreement with the batched one,
+     reported;
+ 27. (eval B, after phase 24) the Idefics2 adapter on Leopard-Idefics2-8B:
+     8 rows of 1-8 images at batch 4, each batch's samples re-padded to
+     its largest grid, equal to Engine.generate on the same batches, K1
+     held at the re-padded NaViT masks, the tower finite on every row;
+ 28. (eval C, after phase 21) the run_eval CLI on phase 19's depth-4
+     checkpoint: two shards and the merge equal to one shard, each shard
+     file equal to the adapter called directly; --quantize int4 (K4
+     counted), --prefix-caching and --spec 7, their agreement with bf16
+     reported;
+ 29. (eval D) LeopardLM on the same checkpoint: loglikelihood and
+     loglikelihood_rolling of 2,200-token requests through K1 against the
+     dense decoder (summed logprobs to 2e-3 relative, each token's
+     logprob to 0.2), limits that a planted fault, the dense decoder with
+     a 1,024-token window, must exceed; one generate_until;
+ 30. (eval E, after phase 20) the train step under "attn" and "selective"
+     against "full": the first step's loss and gradients (cosine >= 0.999
+     per group), K1 31 a step against 62, K2 31, step ms and peak memory;
+ 31. no JAX was imported.
 Each engine is freed after its phase, with the phase's peak device memory
 printed. Then the card's name and power limit as nvidia-smi prints them, one
 JSON line with every kernel ({"kernels": [...]}) and, last, the JSON line
@@ -163,7 +196,9 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import os
@@ -245,18 +280,20 @@ def k2_shapes(text, vis):
                           d=vis.head_dim, causal=False, rows=None)}
 
 
-def cuda_ms(fn, flush=None) -> float:
-    """Median device time of fn() over 10 runs in ms, by CUDA events, after
-    a warm-up. With `flush` (a buffer larger than the L2 cache) the buffer is
+def cuda_ms(fn, flush=None, reps=10, warm=True) -> float:
+    """Median device time of fn() over `reps` runs in ms, by CUDA events,
+    after a warm-up (none with warm=False: the caller has just run fn's
+    work). With `flush` (a buffer larger than the L2 cache) the buffer is
     read before each run, outside the timed window, so fn() finds its inputs
     cold, as a decode step finds each weight; the read also keeps the device
     busy while the host enqueues fn(), so the window holds no launch gap."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(10):
+    for _ in range(reps):
         if flush is not None:
             flush.sum()
         start = torch.cuda.Event(enable_timing=True)
@@ -425,17 +462,43 @@ def kernel_vs_plain(name, b, s, hq, hkv, d, causal, rows, device, card, window=N
         seg = torch.from_numpy(np.ascontiguousarray(seg_ids, np.int32)).to(device)
     kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg, sliding_window=window)
     got = flash_attention(q, k, v, **kw)
-    want = flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: kernel output has non-finite values")
     valid = torch.ones((b, s), dtype=torch.bool, device=device) if seg is None else seg.bool()
-    err = (got[valid].float() - want[valid].float()).abs().max().item()
-    torch.testing.assert_close(got[valid].float(), want[valid].float(), **KERNEL_TOL)
-    del want
+    slices = plain_slices(b, hq, hkv, s)
+    g = hq // hkv
+
+    def plain(sl):
+        rows_, heads = sl
+        qh = slice(heads.start * g, heads.stop * g)
+        sg = None if seg is None else seg[rows_]
+        return flash_attention_ref(q[rows_, :, qh], k[rows_, :, heads], v[rows_, :, heads],
+                                   causal=causal, q_segment_ids=sg, kv_segment_ids=sg,
+                                   sliding_window=window)
+
+    err = 0.0
+    for sl in slices:
+        part, ok = got[sl[0], :, sl[1].start * g:sl[1].stop * g], valid[sl[0]]
+        if not ok.any():  # rows of padding images alone (a tile bucket's)
+            continue
+        want = plain(sl)
+        err = max(err, (part[ok].float() - want[ok].float()).abs().max().item())
+        torch.testing.assert_close(part[ok].float(), want[ok].float(), **KERNEL_TOL)
+        del want
     ranges = tile_ranges(seg, seg, sq=s, skv=s, causal=causal, window=window, device=device)
     ms = cuda_ms(lambda: flash_attention(q, k, v, ranges=ranges, **kw))  # as the decoder
-    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw))
+    # a plain version too large for the card in one call runs in slices:
+    # its time is that of one pass over every slice (median of
+    # PLAIN_SLICED_REPS; the comparison above was the warm-up)
+    if len(slices) == 1:
+        plain_ms = cuda_ms(lambda: plain(slices[0]))
+    else:
+        def every_slice():
+            for sl in slices:
+                plain(sl)
+
+        plain_ms = cuda_ms(every_slice, reps=PLAIN_SLICED_REPS, warm=False)
     lone_ranges_ms = ranges_ms(seg, s, causal, window)
     masked = {}
     if seg_ids is not None or window is not None:  # SDPA with the same boolean mask
@@ -463,15 +526,42 @@ def kernel_vs_plain(name, b, s, hq, hkv, d, causal, rows, device, card, window=N
                       else f", boolean mask refused: {masked['library_masked_error']}")
     print(f"kernel {name}: {shape}: max_abs_err={err:.6g} (tol {KERNEL_TOL}) "
           f"kernel {ms:.4f} ms ({rate['tflops']:.1f} TF/s attended, "
-          f"{rate['bound_fraction']:.3f} of the bound), plain {plain_ms:.4f} ms, sdpa "
+          f"{rate['bound_fraction']:.3f} of the bound), plain {plain_ms:.4f} ms"
+          f"{f' (one pass over {len(slices)} slices)' if len(slices) > 1 else ''}, sdpa "
           f"{library_ms:.4f} ms (unsegmented), {attended_ms:.4f} ms (attended rows only"
           f"{', the window not skipped' if window else ''}){lib_masked}, "
           f"bound {bound_ms:.4f} ms; tile ranges of a lone call {lone_ranges_ms:.4f} ms "
           f"(host) [{card}]", flush=True)
     return {"shape": f"{name}: {shape}", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "plain_slices": len(slices),
             "library_ms": library_ms, "library_attended_ms": attended_ms, **masked,
             "tile_ranges_ms": lone_ranges_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, **rate}
+
+
+# the plain version's fp32 scores [rows, heads, S, S] in one call: a call
+# above PLAIN_WHOLE_MAX runs in slices of rows and kv heads of at most
+# PLAIN_SLICE_MAX (its softmax holds a few such tensors at once)
+PLAIN_WHOLE_MAX = 12 * 2**30
+PLAIN_SLICE_MAX = 4 * 2**30
+PLAIN_SLICED_REPS = 3   # timed passes over the slices (2.4 s each at [8, 16,384])
+
+
+def plain_slices(b, hq, hkv, s):
+    """(rows, kv heads) slices of one plain-version call, the whole call
+    where its scores fit PLAIN_WHOLE_MAX."""
+    whole = [(slice(0, b), slice(0, hkv))]
+    per_head = hq // hkv * s * s * 4
+    if b * hkv * per_head <= PLAIN_WHOLE_MAX:
+        return whole
+    heads = max(1, min(hkv, PLAIN_SLICE_MAX // per_head))
+    while hkv % heads:
+        heads -= 1
+    rows = max(1, min(b, PLAIN_SLICE_MAX // (per_head * heads)))
+    while b % rows:
+        rows -= 1
+    return [(slice(r, r + rows), slice(h, h + heads))
+            for r in range(0, b, rows) for h in range(0, hkv, heads)]
 
 
 def segments_of(rows, s, device):
@@ -2669,7 +2759,7 @@ def idefics2_serve_phase(model, cfg, launches, card, k1_checked, device):
 
 
 def idefics2_twin(model, cfg):
-    """A LeopardVLM of `cfg` on `model`'s tensors (no copy)."""
+    """A LeopardVLM of `cfg` on `model`'s tensors (no copy); either family."""
     from leopard_tpu_torch.models.vlm import LeopardVLM
 
     twin = LeopardVLM(cfg, device="meta")
@@ -3053,6 +3143,868 @@ def idefics2_checkpoint_phase(cfg, launches, card, tmp, device, k1_checked):
     return rec
 
 
+# phases 26-30 (eval A-E): the evaluation harness and the recompute
+# policies. A: LLaVA eval at full 8B through run_benchmark_batched (batch 8,
+# the prefetch thread) on three sets in the loaders' layouts; B: Idefics2
+# eval at full 8B, samples re-padded across each batch; C: the run_eval CLI
+# on phase 19's depth-4 checkpoint (2 shards + merge, int4, prefix caching,
+# speculative); D: LeopardLM on the same checkpoint; E: train steps under
+# "attn" and "selective" at phase 20's shape. The sets are written, and
+# their batches planned, before phase 3, which holds K1 at every shape they
+# give.
+EVAL_TOKENS = 16                   # greedy tokens a row (the adapters' default is 128)
+EVAL_BATCH = 8
+EVAL_DOC_PAGE = (1700, 2200)       # MP-DocVQA page (w, h): 5 x 6 tiles at native size
+# the pages of 8 questions; the first three sort in their order (crops 31,
+# 39, 50: prompt buckets 8,192, 8,192, 16,384), so that phase C's batches of
+# 2 are the same in one shard and in two
+EVAL_DOC_ROWS = ((0,), (1, 2, 3), (4, 5), (6, 7, 8, 9), (0, 1, 2, 3, 4),
+                 (5, 6, 7, 8, 9, 10), (11, 2), (10, 11, 4, 5))
+EVAL_SLIDE, EVAL_DECKS = (1024, 768), 2   # SlideVQA: decks of 20 slides, 2 questions a deck
+# the prepared set's rows: question type and images (w, h); tile buckets
+# grow with the row, so rows keep their order in the harness's sort
+EVAL_WEB = (("multiple-choice", ((728, 364),)),
+            ("multiple-choice", ((364, 728), (728, 364))),
+            ("captioning", ((728, 364), (364, 728), (1092, 364))),
+            ("webqa", ((728, 728),)))
+EVAL_LEAD = ("Screenshots of one web page follow. Read every one of them with care before "
+             "you answer the question below. ")
+EVAL_PREFIX_COSINE_MIN = 0.9999
+# the bf16 prefix path, first-step logits cosine per row, NVIDIA H100: sound
+# 0.999868-0.999876 (the same in four runs), the planted faults of phase 26
+# "shifted" 0.999781-0.999848 and "stale" 0.99963-0.999726; the limit lies
+# midway between the sound minimum and the faults'
+EVAL_PREFIX_BF16_MIN = 0.99982
+EVAL_CLI = ("mpdocvqa", "visualwebbench")   # phase C: 3 rows each, batches of 2
+EVAL_CLI_ROWS, EVAL_CLI_BATCH = 3, 2
+IDEFICS2_EVAL_ROWS, IDEFICS2_EVAL_BATCH = 8, 4
+LM_REQUESTS, LM_CONTEXT, LM_CONT = 4, 2190, 9   # BOS + 2,190 + 9 = 2,200 tokens: K1 at [1, 2,200]
+# phase D: LeopardLM on K1 against the dense decoder. Each limit lies
+# between the sound reading and that of a planted fault (the dense decoder
+# with its attention cut to the last LM_FAULT_WINDOW tokens), which must
+# exceed it: the summed logprobs' relative difference (NVIDIA H100: sound
+# 3.56e-4, fault 1.54e-2) and the largest per-token logprob difference of
+# the rolling texts (sound 0.0387, fault 1.249)
+LM_RTOL = 2e-3
+LM_TOKEN_ATOL = 0.2
+LM_FAULT_WINDOW = 1024
+REMAT_POLICIES = ("full", "attn", "selective")
+REMAT_COSINE_MIN = 0.999
+
+
+class EvalTokenizer(ByteTokenizer):
+    """The smoke's tokenizer with an eos and Idefics2's end-of-utterance
+    (inside Mistral's 32,003 ids)."""
+
+    eos_token_id = 2
+
+    def convert_tokens_to_ids(self, tok):
+        if tok == "<end_of_utterance>":
+            return 32002
+        return super().convert_tokens_to_ids(tok)
+
+
+class MistralEvalTokenizer(EvalTokenizer):
+    bos_token_id = 1
+
+
+def noise_image_file(path, rng, w, h):
+    from PIL import Image
+
+    Image.fromarray(rng.randint(0, 256, (h, w, 3), dtype=np.uint8)).save(path)
+    return str(path)
+
+
+def write_eval_sets(root):
+    """Phase A's sets under `root`: MP-DocVQA in its raw layout (val.json,
+    images/<page>.jpg: 8 questions over 12 noise pages of 1,700 x 2,200),
+    SlideVQA in its raw layout (annotations/qa/test.jsonl, images/<deck>/
+    of 20 slides of 1,024 x 768) and a prepared eval_visualwebbench.jsonl
+    (EVAL_WEB: multiple-choice, captioning and webqa rows); and phase B's
+    prepared eval_mirb.jsonl, 8 rows of 1-8 images of IDEFICS2_IMAGES'
+    sizes. Returns the seconds it took."""
+    from leopard_tpu_torch.evaluation.loaders import write_jsonl
+    from leopard_tpu_torch.evaluation.metrics import option_block
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED + 26)
+    doc = root / "mpdocvqa"
+    (doc / "images").mkdir(parents=True)
+    for p in range(1 + max(max(r) for r in EVAL_DOC_ROWS)):
+        noise_image_file(doc / "images" / f"page{p}.jpg", rng, *EVAL_DOC_PAGE)
+    (doc / "val.json").write_text(json.dumps({"data": [
+        {"page_ids": [f"page{p}" for p in pages], "question": random_text(rng, 60),
+         "answers": [random_text(rng, 8), random_text(rng, 12)]}
+        for pages in EVAL_DOC_ROWS]}))
+    slides = root / "slidevqa"
+    (slides / "annotations" / "qa").mkdir(parents=True)
+    qa = []
+    for d in range(EVAL_DECKS):
+        deck = slides / "images" / f"deck{d}"
+        deck.mkdir(parents=True)
+        for i in range(20):
+            noise_image_file(deck / f"deck{d}-{i + 1}-1024.jpg", rng, *EVAL_SLIDE)
+        qa += [{"deck_name": f"deck{d}", "question": random_text(rng, 80),
+                "answer": random_text(rng, 10)} for _ in range(2)]
+    write_jsonl(str(slides / "annotations" / "qa" / "test.jsonl"), qa)
+    web = root / "visualwebbench"
+    web.mkdir()
+    rows = []
+    for i, (kind, sizes) in enumerate(EVAL_WEB):
+        paths = [noise_image_file(web / f"{i}_{j}.png", rng, w, h)
+                 for j, (w, h) in enumerate(sizes)]
+        opts = [random_text(rng, 10) for _ in range(4)] if kind == "multiple-choice" else None
+        rows.append({"images_path": paths,
+                     "question": EVAL_LEAD + "<image>" * len(paths) + random_text(rng, 40),
+                     "options": opts, "concated_options": option_block(opts) if opts else None,
+                     "answers": "B" if opts else [random_text(rng, 30)], "ques_type": kind})
+    write_jsonl(str(web / "eval_visualwebbench.jsonl"), rows)
+    mirb = root / "mirb"
+    mirb.mkdir()
+    rows = []
+    for i in range(IDEFICS2_EVAL_ROWS):
+        sizes = [IDEFICS2_IMAGES[(i + j) % len(IDEFICS2_IMAGES)] for j in range(i + 1)]
+        paths = [noise_image_file(mirb / f"{i}_{j}.jpg", rng, w, h)
+                 for j, (w, h) in enumerate(sizes)]
+        rows.append({"images_path": paths,
+                     "question": "<image>" * len(paths) + random_text(rng, 60),
+                     "options": None, "answers": [random_text(rng, 8)], "ques_type": "open-ended"})
+    write_jsonl(str(mirb / "eval_mirb.jsonl"), rows)
+    return time.perf_counter() - t0
+
+
+def load_eval_sets(root, names):
+    from leopard_tpu_torch.evaluation.loaders import load_benchmark
+
+    return {name: load_benchmark(name, str(root / name)) for name in names}
+
+
+def engine_buckets():
+    """The Engine's default sequence and tile buckets and its bucket rule,
+    which the harness sorts and the engine pads by."""
+    import inspect
+
+    from leopard_tpu_torch.inference.engine import Engine
+
+    params = inspect.signature(Engine.__init__).parameters
+    return (sorted(params["seq_buckets"].default), sorted(params["tile_buckets"].default),
+            lambda x, buckets: Engine._bucket(None, x, buckets))
+
+
+def eval_batches(samples, batch_size, shard=0, num_shards=1):
+    """The batches run_benchmark_batched makes of (n_tiles, prompt length)
+    per row: the shard's rows sorted by (tile bucket, prompt bucket), cut
+    into batch_size. Each batch: (row indices within the shard, crops,
+    prompt bucket)."""
+    seq_b, tile_b, bucket = engine_buckets()
+    size = len(samples) // num_shards + 1
+    samples = samples[shard * size:(shard + 1) * size]
+    order = sorted(range(len(samples)), key=lambda i: (bucket(samples[i][0], tile_b),
+                                                        bucket(samples[i][1], seq_b)))
+    out = []
+    for start in range(0, len(order), batch_size):
+        idxs = order[start:start + batch_size]
+        out.append((idxs, sum(samples[i][0] for i in idxs),
+                    bucket(max(samples[i][1] for i in idxs), seq_b)))
+    return out
+
+
+def llava_eval_plans(cfg, sets):
+    """(n_tiles, prompt length) of each row, by the adapter's own plan()
+    on the files' headers (a namespace stands in for the adapter: planning
+    needs no model)."""
+    import types
+
+    from leopard_tpu_torch.evaluation.adapter import LeopardLlavaEvalAdapter
+    from leopard_tpu_torch.evaluation.harness import get_instruction
+
+    planner = types.SimpleNamespace(cfg=cfg, tokenizer=EvalTokenizer(), max_images=50,
+                                    layout="eval")
+    out = {}
+    for name, rows in sets.items():
+        plans = [LeopardLlavaEvalAdapter.plan(planner, r, get_instruction("direct", r["ques_type"]))
+                 for r in rows]
+        out[name] = [(p.n_tiles, len(p.prompt)) for p in plans]
+    return out
+
+
+def idefics2_eval_prepared(cfg, rows):
+    """The Idefics2 adapter's prepare() of every phase-B row (prompt, pixels,
+    patch mask), with a namespace for the adapter: no model needed."""
+    import types
+
+    from leopard_tpu_torch.data.idefics2_processor import preprocess_idefics2
+    from leopard_tpu_torch.evaluation.adapter import LeopardIdefics2EvalAdapter
+    from leopard_tpu_torch.evaluation.harness import get_instruction
+
+    prep = types.SimpleNamespace(cfg=cfg, tokenizer=MistralEvalTokenizer(), max_images=8,
+                                 _preprocess=preprocess_idefics2)
+    return [LeopardIdefics2EvalAdapter.prepare(prep, r, get_instruction("direct", r["ques_type"]))
+            for r in rows]
+
+
+def idefics2_eval_masks(prepared, tile_buckets, bucket):
+    """Each phase-B batch's patch mask as the engine receives it: the
+    samples re-padded to the batch's largest grid, then all-zero masks up
+    to the tile bucket."""
+    from leopard_tpu_torch.evaluation.adapter import repad_navit
+
+    out = []
+    for idxs, n, _ in eval_batches([(p.n_tiles, len(p.prompt)) for p in prepared],
+                                   IDEFICS2_EVAL_BATCH):
+        _, mask = repad_navit([(prepared[i].pixels, prepared[i].patch_mask) for i in idxs])
+        nb = bucket(n, tile_buckets)
+        out.append(np.concatenate([mask, np.zeros((nb - n,) + mask.shape[1:], bool)]))
+    return out
+
+
+def eval_runs(plans):
+    """Every batch phases A and C run: (dataset, offset of the rows run,
+    batches as eval_batches gives them) per run."""
+    runs = [(name, 0, eval_batches(p, EVAL_BATCH)) for name, p in plans.items()]
+    web = plans["visualwebbench"]
+    runs += [("visualwebbench", i, eval_batches([s], 1)) for i, s in enumerate(web)]  # serial
+    for name in EVAL_CLI:
+        rows = plans[name][:EVAL_CLI_ROWS]
+        size = len(rows) // 2 + 1
+        runs.append((name, 0, eval_batches(rows, EVAL_CLI_BATCH)))
+        runs += [(name, k * size, eval_batches(rows, EVAL_CLI_BATCH, k, 2)) for k in range(2)]
+    return runs
+
+
+def eval_k1_shapes(cfg, plans, icfg, masks):
+    """Phase 3's K1 entries for phases A-D: the tower at each batch's tile
+    bucket, the decoder at each (rows, bucket) of the flash tier (its rows'
+    prompt lengths from the first batch of that shape), phase D's
+    [1, 2,200], and the NaViT tower at each phase-B batch's re-padded
+    masks."""
+    _, tile_b, bucket = engine_buckets()
+    v, t = cfg.vision, cfg.text
+    out = {}
+    for name, offset, batches in eval_runs(plans):
+        for idxs, n, seq in batches:
+            if n:
+                nb = bucket(n, tile_b)
+                out.setdefault(f"eval_tower_b{nb}", dict(
+                    b=nb, s=v.tokens_per_tile, hq=v.num_heads, hkv=v.num_heads,
+                    d=v.head_dim, causal=False, rows=None))
+            if seq >= t.long_seq_threshold:
+                out.setdefault(f"eval_decoder_b{len(idxs)}_{seq}", dict(
+                    b=len(idxs), s=seq, hq=t.num_heads, hkv=t.num_kv_heads, d=t.head_dim,
+                    causal=True, rows=tuple((plans[name][offset + i][1],) for i in idxs)))
+    lm = 1 + LM_CONTEXT + LM_CONT
+    out[f"lm_eval_{lm}"] = dict(b=1, s=lm, hq=t.num_heads, hkv=t.num_kv_heads, d=t.head_dim,
+                                causal=True, rows=((lm,),))
+    iv = icfg.vision
+    for i, mask in enumerate(masks):
+        n = mask.shape[0]
+        out[f"navit_eval_{i}_b{n}"] = dict(
+            b=n, s=mask[0].size, hq=iv.num_heads, hkv=iv.num_heads, d=iv.head_dim,
+            causal=False, rows=[[r * c] for r, c in grids_of(mask)],
+            seg_ids=mask.reshape(n, -1).astype(np.int32))
+    return out
+
+
+def decoded_len(text):
+    """Tokens in a response the smoke's tokenizer decoded (ids joined by
+    spaces)."""
+    return len(text.split())
+
+
+def batch_counts(cfg, batches, tokens_per_row, images=True, perceiver=False):
+    """K1, K3a, K3b launches of generate over `batches` (row indices,
+    crops, bucket) given each row's emitted tokens: per batch the tower (K1
+    and two LayerNorms a layer, the post-LN) where it has crops, the
+    perceiver (three RMSNorms a layer, the final one), the decoder's K1 in
+    a flash-tier prefill, and its two RMSNorms a layer and the final one in
+    the prefill and each decode forward (the loop stops after the step
+    where the last row ends; the last token's forward is not run)."""
+    lv, lt = cfg.vision.num_layers, cfg.text.num_layers
+    want = {"flash_attention": 0, "fused_rms_norm": 0, "fused_layer_norm": 0}
+    for idxs, n, seq in batches:
+        steps = max(min(EVAL_TOKENS, tokens_per_row[i] + 1) for i in idxs) - 1
+        tower = bool(n) and images
+        want["flash_attention"] += lv * tower + lt * (seq >= cfg.text.long_seq_threshold)
+        want["fused_rms_norm"] += (2 * lt + 1) * (1 + steps)
+        if perceiver and tower:
+            want["fused_rms_norm"] += 3 * cfg.perceiver.num_layers + 1
+        want["fused_layer_norm"] += (2 * lv + 1) * tower
+    return want
+
+
+def batch_k1_ran(cfg, batches, patches=None):
+    _, tile_b, bucket = engine_buckets()
+    ran = set()
+    for idxs, n, seq in batches:
+        if n:
+            ran |= k1_ran(bucket(n, tile_b), len(idxs), seq, cfg, patches)
+        elif seq >= cfg.text.long_seq_threshold:
+            ran.add(("decoder", len(idxs), seq, cfg.text.sliding_window))
+    return ran
+
+
+def direct_generate(adapter, rows, stats, repad=False):
+    """Engine.generate called directly on each batch the harness ran (its
+    rows' prepare(), pixels concatenated or re-padded), decoded as the
+    adapter decodes."""
+    from leopard_tpu_torch.evaluation.adapter import repad_navit
+    from leopard_tpu_torch.evaluation.harness import get_instruction
+
+    out = {}
+    for rec in stats:
+        batch = [adapter.prepare(rows[i], get_instruction("direct", rows[i]["ques_type"]))
+                 for i in rec["indices"]]
+        px = [(s.pixels, s.patch_mask) for s in batch if s.pixels is not None]
+        pixels = mask = None
+        if px and repad:
+            pixels, mask = repad_navit(px)
+        elif px:
+            pixels = np.concatenate([p for p, _ in px], axis=0)
+        res = adapter.engine.generate([s.prompt for s in batch], images=pixels, patch_mask=mask,
+                                      gen_cfg=adapter.gen_cfg)
+        for i, t in zip(rec["indices"], res.tokens):
+            out[i] = adapter.tokenizer.decode(t.tolist(), skip_special_tokens=True)
+    return [out[i] for i in range(len(rows))]
+
+
+def run_harness(adapter, rows, name, launches, batch_size):
+    """run_benchmark_batched with the prefetch thread, the multiple-choice
+    generator at its seed (as in a new process); (details, stats, counts,
+    wall s)."""
+    import torch
+
+    from leopard_tpu_torch.evaluation import metrics
+    from leopard_tpu_torch.evaluation.harness import run_benchmark_batched
+
+    metrics._rng.seed(42)
+    stats = []
+    with launches:
+        t0 = time.perf_counter()
+        details = run_benchmark_batched(rows, adapter, name, batch_size=batch_size,
+                                        stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return details, stats, launches.counts, wall
+
+
+def check_stats(label, stats, predicted):
+    got = [(s["indices"], s["n_tiles"], s["bucket"]) for s in stats]
+    if got != [(list(i), n, b) for i, n, b in predicted]:
+        raise AssertionError(f"{label}: batches {got}, planned {predicted}")
+
+
+def llava_eval_phase(model, cfg, launches, card, k1_checked, root):
+    """Phase 26 (A): LeopardLlavaEvalAdapter on Leopard-LLaVA-8B in bf16:
+    run_benchmark_batched (batch 8, prefetch) over MP-DocVQA, SlideVQA and
+    the prepared set, each batch as planned, K1/K3 launches as the formula,
+    every K1 shape held in phase 3; the responses equal Engine.generate
+    called directly on the same batches; the prefix-caching adapter's
+    first-step logits against the plain prefill; run_benchmark (serial) on
+    the prepared rows, its agreement reported."""
+    import torch
+
+    from leopard_tpu_torch.config import GenerateConfig
+    from leopard_tpu_torch.evaluation import metrics
+    from leopard_tpu_torch.evaluation.adapter import LeopardLlavaEvalAdapter, _batch_prefix
+    from leopard_tpu_torch.evaluation.harness import get_instruction, run_benchmark
+    from leopard_tpu_torch.inference.engine import Engine
+    from leopard_tpu_torch.models.vlm import LeopardVLM
+
+    names = ("mpdocvqa", "slidevqa", "visualwebbench")
+    sets = load_eval_sets(root, names)
+    plans = llava_eval_plans(cfg, sets)
+    tok = EvalTokenizer()
+    gen = GenerateConfig(max_new_tokens=EVAL_TOKENS, greedy=True, eos_token_ids=(128001, 128009))
+    adapter = LeopardLlavaEvalAdapter(cfg, model, tok, gen_cfg=gen)
+    rec, responses = {"sets": {}}, {}
+    for name in names:
+        rows = sets[name]
+        details, stats, counts, wall = run_harness(adapter, rows, name, launches, EVAL_BATCH)
+        predicted = eval_batches(plans[name], EVAL_BATCH)
+        check_stats(f"eval {name}", stats, predicted)
+        n_tok = [decoded_len(d["raw"]) for d in details]
+        expect(f"eval {name}", counts, batch_counts(cfg, predicted, n_tok))
+        held(f"eval {name}", "K1", batch_k1_ran(cfg, predicted), k1_checked)
+        direct = direct_generate(adapter, rows, stats)
+        if direct != [d["raw"] for d in details]:
+            raise AssertionError(f"eval {name}: the harness's responses differ from "
+                                 f"Engine.generate on the same batches: {direct} vs "
+                                 f"{[d['raw'] for d in details]}")
+        responses[name] = [d["raw"] for d in details]
+        rec["sets"][name] = {
+            "rows": len(rows), "wall_s": wall, "samples_per_s": len(rows) / wall,
+            "generated_tokens": sum(n_tok), "tokens_per_s": sum(n_tok) / wall,
+            "batches": [{"rows": len(s["indices"]), "crops": s["n_tiles"],
+                         "bucket": s["bucket"], "prefetch_wait_s": s["wait_s"],
+                         "generate_s": s["generate_s"]} for s in stats],
+            "launches": counts, "acc": sum(d["correct"] for d in details) / len(details)}
+        print(f"eval {name} (LLaVA-8B bf16, batch {EVAL_BATCH}, prefetch): {len(rows)} rows in "
+              f"{wall:.3f} s = {len(rows) / wall:.3f} samples/s, {sum(n_tok)} tokens = "
+              f"{sum(n_tok) / wall:.1f} tok/s; batches (rows, crops, bucket, prefetch wait s, "
+              f"generate s) {[(len(s['indices']), s['n_tiles'], s['bucket'], round(s['wait_s'], 4), round(s['generate_s'], 3)) for s in stats]}; "
+              f"launches {counts} as the formula (per batch K1 {cfg.vision.num_layers} tower + "
+              f"{cfg.text.num_layers} decoder where the bucket >= "
+              f"{cfg.text.long_seq_threshold}, K3a {2 * cfg.text.num_layers + 1} x (1 + decode "
+              f"steps), K3b {2 * cfg.vision.num_layers + 1}); responses equal to "
+              f"Engine.generate on the same batches [{card}]", flush=True)
+
+    # the prefix-caching adapter against the plain prefill, on the prepared
+    # set's first batch (its rows share EVAL_LEAD before their images)
+    web = sets["visualwebbench"]
+    cached = LeopardLlavaEvalAdapter(cfg, model, tok, gen_cfg=gen, prefix_caching=True)
+    idxs = eval_batches(plans["visualwebbench"], EVAL_BATCH)[0][0]
+    batch = [cached.prepare(web[i], get_instruction("direct", web[i]["ques_type"])) for i in idxs]
+    pixels = np.concatenate([s.pixels for s in batch], axis=0)
+    prompts = [s.prompt for s in batch]
+    pre, suffixes = _batch_prefix(cached.engine, cfg, prompts, cached._prefixes)
+    if pre is None:
+        raise AssertionError("eval prefix caching: the batch's common header was not cached")
+    with launches:
+        got, _ = cached.engine.prefill(suffixes, images=pixels, prefix=pre)
+        want, _ = cached.engine.prefill(prompts, images=pixels)
+    cos = cosine(got, want).tolist()
+    same = (got.argmax(-1) == want.argmax(-1)).tolist()
+    # planted faults, to show what the bf16 limit catches: the suffix one
+    # position late (the prefix's length off by one; that slot is padding,
+    # so only the positions move) and a stale entry (the cached header's
+    # last token differs from the batch's)
+    stale_tokens = pre.tokens.copy()
+    stale_tokens[-1] = (stale_tokens[-1] + 1) % 1000
+    faults = {"shifted": dataclasses.replace(pre, length=pre.length + 1),
+              "stale": cached.engine.build_prefix(stale_tokens)}
+    fault_cos = {}
+    for fault, fpre in faults.items():
+        fgot, _ = cached.engine.prefill(suffixes, images=pixels, prefix=fpre)
+        fault_cos[fault] = cosine(fgot, want).tolist()
+    del faults, fgot
+    # In bf16 two paths of the same math that differ in GEMM shapes part at
+    # a cosine of ~1e-4 on these random weights (phase 16's staged vs
+    # direct prefills: 0.9998), below EVAL_PREFIX_COSINE_MIN; so the prefix
+    # cache is held to it on an fp32 twin of the model (dense attention: K1
+    # takes bf16), where rounding does not blur the comparison, and in bf16
+    # to EVAL_PREFIX_BF16_MIN, set between the sound readings and the
+    # planted faults'
+    f32_cfg = dataclasses.replace(
+        cfg, text=dataclasses.replace(cfg.text, dtype="float32", attn_impl="dense"),
+        vision=dataclasses.replace(cfg.vision, dtype="float32", attn_impl="dense"),
+        projector=dataclasses.replace(cfg.projector, dtype="float32"))
+    twin = LeopardVLM(f32_cfg, device="meta")
+    twin.load_state_dict({k: v.float() for k, v in model.state_dict().items()}, assign=True)
+    f32 = Engine(f32_cfg, twin)
+    pre32 = f32.build_prefix(pre.tokens)
+    got32, _ = f32.prefill(suffixes, images=pixels, prefix=pre32)
+    want32, _ = f32.prefill(prompts, images=pixels)
+    cos32 = cosine(got32, want32).tolist()
+    del f32, twin, pre32, got32, want32
+    print(f"eval prefix caching: a {pre.length}-token header prefilled once for {len(batch)} "
+          f"rows; first-step logits vs the plain prefill, cosine per row: fp32 twin (dense "
+          f"attention) {[round(c, 7) for c in cos32]} (min {EVAL_PREFIX_COSINE_MIN}), bf16 "
+          f"(K1 in the plain prefill) {[round(c, 6) for c in cos]} (min "
+          f"{EVAL_PREFIX_BF16_MIN}), argmax agrees {same}; planted faults in bf16, each "
+          f"below the limit on some row: "
+          + "; ".join(f"{f} {[round(c, 6) for c in fc]}" for f, fc in fault_cos.items())
+          + f" [{card}]", flush=True)
+    if (not torch.isfinite(got).all() or min(cos32) < EVAL_PREFIX_COSINE_MIN
+            or min(cos) < EVAL_PREFIX_BF16_MIN):
+        raise AssertionError(f"eval prefix caching: cosine {cos32} (fp32), {cos} (bf16)")
+    missed = [f for f, fc in fault_cos.items() if min(fc) >= EVAL_PREFIX_BF16_MIN]
+    if missed:
+        raise AssertionError(f"eval prefix caching: the bf16 limit {EVAL_PREFIX_BF16_MIN} "
+                             f"does not catch the planted faults {missed}: {fault_cos}")
+    plain_web = responses["visualwebbench"]
+    cached_web = [d["raw"] for d in run_harness(cached, web, "visualwebbench", launches,
+                                                EVAL_BATCH)[0]]
+    agree = [tokens_agree(a.split(), b.split()) for a, b in zip(cached_web, plain_web)]
+    rec["prefix"] = {"header_tokens": pre.length, "cosine_fp32": cos32,
+                     "cosine_bf16": cos, "cosine_bf16_faults": fault_cos, "argmax_agrees": same,
+                     "built": cached._prefixes.built, "tokens_agree": agree}
+    del cached, pre
+
+    # run_benchmark, one row at a time, on the prepared set
+    metrics._rng.seed(42)
+    t0 = time.perf_counter()
+    serial = run_benchmark(web, adapter, "visualwebbench")
+    serial_s = time.perf_counter() - t0
+    agree_serial = [tokens_agree(a["raw"].split(), b.split()) for a, b in zip(serial, plain_web)]
+    for i, p in enumerate(plans["visualwebbench"]):
+        held("eval serial", "K1", batch_k1_ran(cfg, eval_batches([p], 1)), k1_checked)
+    rec["serial"] = {"rows": len(web), "wall_s": serial_s, "tokens_agree": agree_serial}
+    print(f"eval serial (run_benchmark) on the prepared set: {len(web)} rows in "
+          f"{serial_s:.3f} s; agreement with the batched loop per row (same, first "
+          f"difference) {agree_serial}; prefix-caching adapter vs plain {agree} "
+          f"(bf16: batch shapes and the cached tier move argmax ties; reported) [{card}]",
+          flush=True)
+    del adapter
+    model.text._head_f32 = None
+    return rec
+
+
+def idefics2_eval_phase(model, cfg, launches, card, k1_checked, root):
+    """Phase 27 (B): LeopardIdefics2EvalAdapter on Leopard-Idefics2-8B in
+    bf16: 8 rows of 1-8 images at batch 4, samples re-padded across each
+    batch; the responses equal Engine.generate on the same batches; K1 held
+    at the re-padded NaViT grids; the tower's output finite on every row."""
+    import torch
+
+    from leopard_tpu_torch.config import GenerateConfig
+    from leopard_tpu_torch.evaluation.adapter import LeopardIdefics2EvalAdapter, repad_navit
+
+    rows = load_eval_sets(root, ("mirb",))["mirb"]
+    tok = MistralEvalTokenizer()
+    gen = GenerateConfig(max_new_tokens=EVAL_TOKENS, greedy=True, eos_token_ids=(2, 32002))
+    adapter = LeopardIdefics2EvalAdapter(cfg, model, tok, gen_cfg=gen)
+    details, stats, counts, wall = run_harness(adapter, rows, "mirb", launches,
+                                               IDEFICS2_EVAL_BATCH)
+    prepared = idefics2_eval_prepared(cfg, rows)
+    predicted = eval_batches([(p.n_tiles, len(p.prompt)) for p in prepared], IDEFICS2_EVAL_BATCH)
+    check_stats("Idefics2 eval", stats, predicted)
+    n_tok = [decoded_len(d["raw"]) for d in details]
+    expect("Idefics2 eval", counts, batch_counts(cfg, predicted, n_tok, perceiver=True))
+    direct = direct_generate(adapter, rows, stats, repad=True)
+    if direct != [d["raw"] for d in details]:
+        raise AssertionError(f"Idefics2 eval: responses differ from Engine.generate: {direct}")
+    _, tile_b, bucket = engine_buckets()
+    grids, finite = [], []
+    for idxs, n, seq in predicted:
+        pixels, mask = repad_navit([(prepared[i].pixels, prepared[i].patch_mask) for i in idxs])
+        held("Idefics2 eval", "K1", batch_k1_ran(cfg, [(idxs, n, seq)], mask[0].size), k1_checked)
+        pad = bucket(n, tile_b) - n  # the engine's padding images, all-zero masks
+        px = torch.from_numpy(np.concatenate([pixels, np.zeros((pad,) + pixels.shape[1:],
+                                                               pixels.dtype)]))
+        pm = torch.from_numpy(np.concatenate([mask, np.zeros((pad,) + mask.shape[1:], bool)]))
+        with torch.inference_mode():
+            feats = adapter.engine.model.vision(px.to(adapter.engine.device),
+                                                pm.to(adapter.engine.device))
+            finite.append(bool(torch.isfinite(feats).all()))
+        grids.append(list(mask.shape[1:]))
+        del feats, px, pm
+    if not all(finite):
+        raise AssertionError(f"Idefics2 eval: the tower's output is not finite: {finite}")
+    rec = {"rows": len(rows), "wall_s": wall, "samples_per_s": len(rows) / wall,
+           "tokens_per_s": sum(n_tok) / wall, "launches": counts,
+           "batches": [{"rows": len(s["indices"]), "images": s["n_tiles"], "bucket": s["bucket"],
+                        "grid": g, "prefetch_wait_s": s["wait_s"],
+                        "generate_s": s["generate_s"]} for s, g in zip(stats, grids)]}
+    print(f"Idefics2 eval (8B bf16, batch {IDEFICS2_EVAL_BATCH}): {len(rows)} rows of 1-8 "
+          f"images in {wall:.3f} s = {len(rows) / wall:.3f} samples/s, "
+          f"{sum(n_tok) / wall:.1f} tok/s; batches (rows, images, bucket, re-padded grid) "
+          f"{[(len(s['indices']), s['n_tiles'], s['bucket'], g) for s, g in zip(stats, grids)]}; "
+          f"launches {counts} as the formula; the tower finite on every row; responses equal "
+          f"to Engine.generate on the same batches [{card}]", flush=True)
+    del adapter
+    model.text._head_f32 = None
+    return rec
+
+
+def read_details(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_eval_phase(hf_dir, launches, card, k1_checked, k4_checked, root, tmp, device):
+    """Phase 28 (C): the run_eval CLI on phase 19's depth-4 checkpoint
+    (`--set text.num_layers=4`), datasets EVAL_CLI, 3 rows each, batches of
+    2: two shards and the merge against a one-shard run (equal
+    all_bench_results.json), each shard file against the adapter called
+    directly on the same model; then --quantize int4 (K4 counted),
+    --prefix-caching and --spec 7, their responses' agreement with bf16
+    reported."""
+    import torch
+
+    from leopard_tpu_torch.cli import run_eval
+    from leopard_tpu_torch.config import GenerateConfig, leopard_llava_8b
+    from leopard_tpu_torch.convert.hf import load_leopard_llava
+    from leopard_tpu_torch.evaluation import metrics
+    from leopard_tpu_torch.evaluation.adapter import LeopardLlavaEvalAdapter
+    from leopard_tpu_torch.evaluation.harness import run_benchmark_batched
+    from leopard_tpu_torch.inference.engine import Engine
+
+    cfg = train_config()
+    lt = cfg.text.num_layers
+    sets = load_eval_sets(root, EVAL_CLI)
+    plans = llava_eval_plans(cfg, sets)
+    tok = EvalTokenizer()
+    builds = []
+    real_build = Engine.build_prefix
+
+    def counted_build(self, *a, **kw):
+        builds.append(1)
+        return real_build(self, *a, **kw)
+
+    def cli(out, *extra):
+        argv = ["--checkpoint", str(hf_dir), "--data-root", str(root), "--datasets", *EVAL_CLI,
+                "--max-samples", str(EVAL_CLI_ROWS), "--batch-size", str(EVAL_CLI_BATCH),
+                "--max-new-tokens", str(EVAL_TOKENS), "--result-dir", str(tmp / out),
+                "--set", f"text.num_layers={lt}", "--device", device.type, *extra]
+        metrics._rng.seed(42)  # a new process's generator
+        builds.clear()
+        Engine.build_prefix = counted_build
+        try:
+            with launches, contextlib.redirect_stdout(io.StringIO()):  # its progress lines
+                t0 = time.perf_counter()
+                merged = run_eval.run_eval(run_eval.parse_args(argv), tokenizer=tok,
+                                           cfg=leopard_llava_8b())
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            Engine.build_prefix = real_build
+        return merged, launches.counts, wall, len(builds)
+
+    def raws(out, name, shard=None):
+        f = (f"{shard}_direct_{name}_shard_details.jsonl" if shard is not None
+             else f"{name}_direct_details.jsonl")
+        return read_details(tmp / out / f)
+
+    rec = {"runs": {}}
+    runs = [("shard1", "--num-shards", "2", "--shard", "1"),
+            ("shard0", "--num-shards", "2", "--shard", "0"), ("one",),
+            ("int4", "--quantize", "int4"), ("prefix", "--prefix-caching"), ("spec", "--spec", "7")]
+    for label, *extra in runs:
+        out = "two" if label.startswith("shard") else label
+        merged, counts, wall, n_builds = cli(out, *extra)
+        rec["runs"][label] = {"launches": counts, "wall_s": wall, "prefix_builds": n_builds}
+        tokens = {name: [decoded_len(d["raw"]) for d in raws(
+            out, name, 1 if label == "shard1" else (0 if label == "shard0" else None))]
+            for name in EVAL_CLI}
+        shard = {"shard1": (1, 2), "shard0": (0, 2)}.get(label, (0, 1))
+        batches = {name: eval_batches(plans[name][:EVAL_CLI_ROWS], EVAL_CLI_BATCH, *shard)
+                   for name in EVAL_CLI}
+        want = {"flash_attention": 0, "fused_layer_norm": 0}
+        for name in EVAL_CLI:
+            c = batch_counts(cfg, batches[name], tokens[name])
+            want["flash_attention"] += c["flash_attention"]
+            want["fused_layer_norm"] += c["fused_layer_norm"]
+            held(f"run_eval {label}", "K1", batch_k1_ran(cfg, batches[name]), k1_checked)
+        if label == "prefix":  # a prefixed batch's suffix takes the continuation tiers
+            want.pop("flash_attention")
+        if label == "int4":  # the prefill's lm_head, then every decode matmul, at M = rows
+            want["int4_matmul"] = sum(
+                1 + (7 * lt + 1) * (max(min(EVAL_TOKENS, tokens[name][i] + 1) for i in idxs) - 1)
+                for name in EVAL_CLI for idxs, _, _ in batches[name])
+            held("run_eval int4", "K4 at (M, matmul)",
+                 {(len(idxs), m) for name in EVAL_CLI for idxs, _, _ in batches[name]
+                  for m in K4_SHAPES}, k4_checked)
+        expect(f"run_eval {label}", counts, want)
+        print(f"run_eval CLI {label} ({' '.join(extra) or 'bf16, one shard'}): {wall:.2f} s "
+              f"with the load, launches {counts}"
+              + (f", {n_builds} prefixes built" if label == "prefix" else "")
+              + (f"; all_bench_results {json.dumps(merged)}" if merged else "")
+              + f" [{card}]", flush=True)
+    two = json.loads((tmp / "two" / "all_bench_results.json").read_text())
+    one = json.loads((tmp / "one" / "all_bench_results.json").read_text())
+    if two != one:
+        raise AssertionError(f"run_eval: 2 shards + merge {two} != one shard {one}")
+    for name in EVAL_CLI:
+        if raws("two", name) != raws("one", name):
+            raise AssertionError(f"run_eval {name}: merged details differ from one shard's")
+    if rec["runs"]["prefix"]["prefix_builds"] == 0:
+        raise AssertionError("run_eval --prefix-caching built no prefix")
+
+    # each shard file is the adapter called directly on the same model
+    model = load_leopard_llava(str(hf_dir), cfg, device)
+    adapter = LeopardLlavaEvalAdapter(cfg, model, tok, gen_cfg=GenerateConfig(
+        max_new_tokens=EVAL_TOKENS, greedy=True, eos_token_ids=(128001, 128009)))
+    for shard in (1, 0):
+        metrics._rng.seed(42)
+        for name in EVAL_CLI:
+            want = run_benchmark_batched(sets[name][:EVAL_CLI_ROWS], adapter, name, shard=shard,
+                                         num_shards=2, batch_size=EVAL_CLI_BATCH)
+            if raws("two", name, shard) != want:
+                raise AssertionError(f"run_eval shard {shard} {name}: differs from the adapter")
+    del adapter, model
+    agree = {}
+    for label in ("int4", "prefix", "spec"):
+        agree[label] = [tokens_agree(a["raw"].split(), b["raw"].split())
+                        for name in EVAL_CLI for a, b in zip(raws(label, name), raws("one", name))]
+    rec["tokens_agree_with_bf16"] = agree
+    rec["all_bench_results"] = one
+    print(f"run_eval CLI: 2 shards + merge equal to one shard (all_bench_results.json and "
+          f"details), each shard file equal to the adapter called directly; agreement with "
+          f"the bf16 run per row (same, first difference): {agree} [{card}]", flush=True)
+    return rec
+
+
+def lm_eval_phase(hf_dir, launches, card, k1_checked, device):
+    """Phase 29 (D): LeopardLM on phase 19's depth-4 checkpoint: loglikelihood
+    and loglikelihood_rolling of LM_REQUESTS texts of 2,200 tokens (K1 at
+    [1, 2,200]) against the same decoder with attn_impl="dense", summed and
+    per token, and the planted fault that the limits must catch; one
+    generate_until."""
+    from leopard_tpu_torch.convert.hf import load_leopard_llava
+    from leopard_tpu_torch.evaluation.lm_eval_adapter import LeopardLM
+
+    cfg = train_config()
+    lt = cfg.text.num_layers
+    model = load_leopard_llava(str(hf_dir), cfg, device)
+    dense_cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, attn_impl="dense"))
+    fault_cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, attn_impl="dense", sliding_window=LM_FAULT_WINDOW))
+    tok = EvalTokenizer()
+    rng = np.random.RandomState(SEED + 29)
+    reqs = [(random_text(rng, LM_CONTEXT), random_text(rng, LM_CONT))
+            for _ in range(LM_REQUESTS)]
+    texts = [(c + x,) for c, x in reqs]
+    out, per_token = {}, {}
+    for label, c in (("kernel", cfg), ("dense", dense_cfg), ("fault", fault_cfg)):
+        lm = LeopardLM(c, model if label == "kernel" else idefics2_twin(model, c), tok)  # a twin on the same tensors
+        with launches:
+            t0 = time.perf_counter()
+            ll = lm.loglikelihood(reqs)
+            roll = lm.loglikelihood_rolling(texts)
+            wall = time.perf_counter() - t0
+        out[label] = {"loglikelihood": ll, "rolling": roll, "launches": launches.counts,
+                      "wall_s": wall}
+        per_token[label] = [token_logprobs(lm, t) for (t,) in texts]
+        if label == "kernel":
+            with launches:
+                gen = lm.generate_until([(reqs[0][0], {"max_gen_toks": 8, "until": ["\n"]})])
+            out["generate_until"] = {"text": gen[0], "launches": launches.counts}
+        model.text._head_f32 = None
+        del lm
+    n = 2 * LM_REQUESTS
+    expect("LeopardLM", out["kernel"]["launches"], {"flash_attention": n * lt,
+                                                     "fused_rms_norm": n * (2 * lt + 1)})
+    expect("LeopardLM dense", out["dense"]["launches"], {"flash_attention": 0})
+    expect("LeopardLM fault", out["fault"]["launches"], {"flash_attention": 0})
+    held("LeopardLM", "K1", {("decoder", 1, 1 + LM_CONTEXT + LM_CONT, None)}, k1_checked)
+
+    def sums(r):
+        return [s for s, _ in r["loglikelihood"]] + r["rolling"]
+
+    want = sums(out["dense"])
+    rel = {label: max(abs(a - b) / abs(b) for a, b in zip(sums(out[label]), want))
+           for label in ("kernel", "fault")}
+    tok_diff = {label: max((a - b).abs().max().item()
+                           for a, b in zip(per_token[label], per_token["dense"]))
+                for label in ("kernel", "fault")}
+    got = sums(out["kernel"])
+    k, d = out["kernel"], out["dense"]
+    flags = [(a, b) for (_, a), (_, b) in zip(k["loglikelihood"], d["loglikelihood"])]
+    print(f"LeopardLM (depth-4 checkpoint, bf16): loglikelihood of {LM_REQUESTS} requests "
+          f"({1 + LM_CONTEXT} context + {LM_CONT} tokens) and loglikelihood_rolling of "
+          f"{LM_REQUESTS} texts through K1 {[round(x, 4) for x in got]} vs the dense decoder "
+          f"{[round(x, 4) for x in want]}: summed logprobs' relative difference max "
+          f"{rel['kernel']:.3g} (rtol {LM_RTOL}), per-token logprob |diff| max "
+          f"{tok_diff['kernel']:.4g} (atol {LM_TOKEN_ATOL}); planted fault (the dense decoder "
+          f"with a {LM_FAULT_WINDOW}-token window) {rel['fault']:.3g} and "
+          f"{tok_diff['fault']:.4g}; greedy flags (kernel, dense) {flags}; "
+          f"{k['wall_s']:.3f} s; launches {k['launches']}; generate_until: "
+          f"{out['generate_until']['launches']} [{card}]", flush=True)
+    if (not all(np.isfinite(got)) or rel["kernel"] > LM_RTOL
+            or tok_diff["kernel"] > LM_TOKEN_ATOL):
+        raise AssertionError(f"LeopardLM: kernel {got} vs dense {want}, per-token "
+                             f"|diff| {tok_diff['kernel']}")
+    if rel["fault"] <= LM_RTOL or tok_diff["fault"] <= LM_TOKEN_ATOL:
+        raise AssertionError(f"LeopardLM: the limits (rtol {LM_RTOL}, atol {LM_TOKEN_ATOL}) "
+                             f"do not catch the planted fault: {rel['fault']}, "
+                             f"{tok_diff['fault']}")
+    del model
+    out["max_rel_diff"] = rel["kernel"]
+    out["fault_max_rel_diff"] = rel["fault"]
+    out["token_max_abs_diff"] = tok_diff["kernel"]
+    out["fault_token_max_abs_diff"] = tok_diff["fault"]
+    return out
+
+
+def token_logprobs(lm, text):
+    """The log-probability of each token of `text` after the first, as
+    LeopardLM's rolling score reads them (fp32, moved to the host)."""
+    import torch
+
+    ids = lm.tokenizer(text, add_special_tokens=True)["input_ids"]
+    pad = 8 * ((len(ids) + 7) // 8)
+    tokens, seg = np.zeros((1, pad), np.int32), np.zeros((1, pad), np.int32)
+    tokens[0, :len(ids)] = ids
+    seg[0, :len(ids)] = 1
+    lp = lm._logprobs(tokens, seg)
+    target = torch.as_tensor(ids[1:], device=lp.device, dtype=torch.long)[:, None]
+    return lp[:len(ids) - 1].gather(1, target)[:, 0].cpu()
+
+
+def train_policies_phase(model, cfg, batch, card):
+    """Phase 30 (E): the first step's loss and gradients under "attn" and
+    "selective" against "full" on the same batch and masters (cosine per
+    parameter group), K1/K2 launches a step (31 and 31 against 62 and 31),
+    then two train steps under each policy: ms a step and peak memory."""
+    import torch
+
+    from leopard_tpu_torch.config import OptimizerConfig, TrainConfig
+    from leopard_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from leopard_tpu_torch.training import trainer
+
+    lt, lv = cfg.text.num_layers, cfg.vision.num_layers
+
+    def tcfg(policy):
+        return TrainConfig(seq_len=TRAIN_SEQ, global_batch_size=len(TRAIN_ROWS), remat=policy,
+                           loss_chunk=1024, optimizer=OptimizerConfig(
+                               lr=1e-5, warmup_steps=1, decay_steps=1000, grad_clip=1.0))
+
+    state = trainer.create_train_state(model, tcfg("full"))
+    rec, ref = {}, None
+    for policy in REMAT_POLICIES:
+        step = trainer.make_train_step(cfg, tcfg(policy), model=model)
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # the state, and full's gradients after full
+        t0 = time.perf_counter()
+        loss, _, grads = step.loss_and_grads(state, batch)
+        torch.cuda.synchronize()
+        grad_ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        k1, k2 = flash_attention.launches, flash_attention_bwd.launches
+        want = (2 * (lt + lv) if policy == "full" else lt + lv, lt + lv)
+        if (k1, k2) != want:
+            raise AssertionError(f"remat {policy}: K1/K2 launches {(k1, k2)}, expected {want}")
+        r = {"loss": loss.item(), "launches": {"flash_attention": k1, "flash_attention_bwd": k2},
+             "loss_and_grads_ms": grad_ms, "loss_and_grads_added_gib": peak}
+        if ref is None:
+            ref = grads
+        else:
+            sums = {}
+            for n, a in grads.items():
+                b = ref[n]
+                acc = sums.setdefault(param_group(n), [0.0, 0.0, 0.0])
+                acc[0] += float((a.double() * b.double()).sum())
+                acc[1] += float(a.double().square().sum())
+                acc[2] += float(b.double().square().sum())
+            r["cosines"] = {g: dot / max((na * nb) ** 0.5, 1e-30)
+                            for g, (dot, na, nb) in sums.items()}
+            r["loss_rel_diff"] = abs(r["loss"] - rec["full"]["loss"]) / abs(rec["full"]["loss"])
+        del grads
+        rec[policy] = r
+    del ref
+    for policy in REMAT_POLICIES:  # two train steps each, on the one state
+        step = trainer.make_train_step(cfg, tcfg(policy), model=model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not np.isfinite(float(metrics["loss"])):
+                raise AssertionError(f"remat {policy}: non-finite loss")
+        rec[policy]["step_ms"] = times
+        rec[policy]["step_peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del state
+    for policy in REMAT_POLICIES:
+        r = rec[policy]
+        print(f"train remat={policy}: loss {r['loss']:.6f}"
+              + (f" (rel. diff to full {r['loss_rel_diff']:.3g}), gradient cosine to full per "
+                 "group " + ", ".join(f"{g}: {c:.6f}" for g, c in r["cosines"].items())
+                 if "cosines" in r else "")
+              + f"; K1/K2 a step {r['launches']}; loss_and_grads {r['loss_and_grads_ms']:.1f} "
+              f"ms (its peak {r['loss_and_grads_added_gib']:.2f} GiB above the state); train "
+              f"steps {[round(t, 1) for t in r['step_ms']]} ms (peak "
+              f"{r['step_peak_memory_gib']:.2f} GiB) [{card}]", flush=True)
+        if "cosines" in r and (min(r["cosines"].values()) < REMAT_COSINE_MIN
+                               or r["loss_rel_diff"] > 1e-5):
+            raise AssertionError(f"remat {policy}: differs from full: {r}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3094,10 +4046,25 @@ def main() -> int:
         _build.load_library(name)
     print(f"build: {', '.join(KERNELS)} in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    # phase 3: kernel against its plain version at the serving path's shapes
-    # (Leopard-LLaVA's, then those of the Idefics2 phases 22-25)
+    # the eval sets of phases 26-29, written now and planned without a
+    # model, so that phase 3 holds K1 at every shape their batches give
     icfg = idefics2_config()
-    k1_shapes = {**K1_SHAPES, **idefics2_k1_shapes(icfg)}
+    eval_tmp = tempfile.TemporaryDirectory(prefix="leopard_eval_")
+    eval_root = Path(eval_tmp.name)
+    write_s = write_eval_sets(eval_root)
+    eval_plans = llava_eval_plans(leopard_llava_8b(), load_eval_sets(
+        eval_root, ("mpdocvqa", "slidevqa", "visualwebbench")))
+    seq_b, tile_b, bucket = engine_buckets()
+    eval_masks = idefics2_eval_masks(idefics2_eval_prepared(icfg, load_eval_sets(
+        eval_root, ("mirb",))["mirb"]), tile_b, bucket)
+    eval_shapes = eval_k1_shapes(leopard_llava_8b(), eval_plans, icfg, eval_masks)
+    print(f"eval sets written in {write_s:.2f} s; planned rows (crops, prompt tokens): "
+          f"{eval_plans}; K1 shapes of phases 26-29: {sorted(eval_shapes)}", flush=True)
+
+    # phase 3: kernel against its plain version at the serving path's shapes
+    # (Leopard-LLaVA's, then those of the Idefics2 phases 22-25 and of the
+    # eval phases 26-29)
+    k1_shapes = {**K1_SHAPES, **idefics2_k1_shapes(icfg), **eval_shapes}
     per_shape = {name: kernel_vs_plain(name, device=device, card=card, **kw)
                  for name, kw in k1_shapes.items()}
     k1_checked = k1_held(k1_shapes)
@@ -3259,6 +4226,10 @@ def main() -> int:
     # transformers' Llama and SigLIP on the exported tensors
     features["hf"] = hf_phase(model, cfg, launches, card, device)
     peak["hf"] = phase_memory("HF conversion and transformers")
+
+    # phase 26 (eval A): the eval harness on Leopard-LLaVA-8B
+    evals = {"llava": llava_eval_phase(model, cfg, launches, card, k1_checked, eval_root)}
+    peak["eval_llava"] = phase_memory("eval LLaVA-8B")
     del model
     torch.cuda.empty_cache()
 
@@ -3283,13 +4254,24 @@ def main() -> int:
         grads_check = train_grads_vs_dense(model, tcfg, batch, card)
         torch.cuda.empty_cache()
         train_run = train_phase(model, tcfg, batch, card)
-        del model, batch
         peak["train"] = phase_memory("train")
+        # phase 30 (eval E): the "attn" and "selective" recompute policies
+        evals["remat"] = train_policies_phase(model, tcfg, batch, card)
+        del model, batch
+        peak["train_policies"] = phase_memory("train under attn / selective")
 
         # phase 21: the train CLI from a manifest, --init-from phase 19's
         # checkpoint, through the data pipeline
         features["train_cli"] = train_cli_phase(hf_dir, card, Path(tmp), device)
         peak["train_cli"] = phase_memory("train CLI")
+
+        # phases 28-29 (eval C-D): the run_eval CLI and LeopardLM on phase
+        # 19's checkpoint
+        evals["run_eval"] = run_eval_phase(hf_dir, launches, card, k1_checked, k4_checked,
+                                           eval_root, Path(tmp), device)
+        peak["run_eval"] = phase_memory("run_eval CLI")
+        evals["lm_eval"] = lm_eval_phase(hf_dir, launches, card, k1_checked, device)
+        peak["lm_eval"] = phase_memory("LeopardLM")
 
     # phases 22-25 (A-D): Leopard-Idefics2 serving at 8B, full depth and
     # width (A-C), then from a depth-4 checkpoint on disk (D)
@@ -3304,6 +4286,10 @@ def main() -> int:
     peak["idefics2_dense"] = phase_memory("Idefics2 K1 vs dense and no window")
     idefics2["hf"] = idefics2_hf_phase(model, icfg, launches, card, device, k1_checked)
     peak["idefics2_hf"] = phase_memory("Idefics2 HF conversion and transformers")
+    # phase 27 (eval B): the eval harness on Leopard-Idefics2-8B
+    evals["idefics2"] = idefics2_eval_phase(model, icfg, launches, card, k1_checked, eval_root)
+    peak["eval_idefics2"] = phase_memory("eval Idefics2-8B")
+    eval_tmp.cleanup()
     del model
     torch.cuda.empty_cache()
     dcfg = dataclasses.replace(icfg, text=dataclasses.replace(
@@ -3314,7 +4300,7 @@ def main() -> int:
     peak["idefics2_checkpoint"] = phase_memory("Idefics2 checkpoint and the convert, serve CLIs")
     features["idefics2"] = idefics2
 
-    # phase 26: no JAX
+    # phase 31: no JAX
     if "jax" in sys.modules or any(m.split(".")[0] == "leopard_tpu" for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
     print("no jax: ok", flush=True)
@@ -3342,6 +4328,20 @@ def main() -> int:
                 "launches_generate_cli": ckpt["generate"]["launches"][name],
                 "launches_serve_cli_int4": ckpt["serve_int4"]["launches"][name],
                 "launches_train_cli": features["train_cli"]["launches"].get(name, 0)}
+
+    def eval_paths(name):
+        """A kernel's launches on phases 26-29's paths."""
+        return {"launches_eval_llava": {k: r["launches"].get(name, 0)
+                                        for k, r in evals["llava"]["sets"].items()},
+                "launches_eval_idefics2": evals["idefics2"]["launches"].get(name, 0),
+                "launches_run_eval_cli": {k: r["launches"].get(name, 0)
+                                          for k, r in evals["run_eval"]["runs"].items()},
+                "launches_lm_eval": evals["lm_eval"]["kernel"]["launches"].get(name, 0)}
+
+    def remat_paths(name):
+        """K1's or K2's launches a train step under each policy (phase 30)."""
+        return {"launches_train_step_by_remat": {
+            p: evals["remat"][p]["launches"][name] for p in REMAT_POLICIES}}
 
     def bound_by(parts):
         """What bounds a sum of calls: the side holding most of its bound."""
@@ -3374,6 +4374,8 @@ def main() -> int:
         "launches_turn2": features["multiturn"]["launches"]["flash_attention"],
         "launches_chunked_prefill": features["chunked"]["launches"]["flash_attention"],
         **new_paths("flash_attention"),
+        **eval_paths("flash_attention"),
+        **remat_paths("flash_attention"),
         "idefics2": {
             "launches_per_generate": idefics2["serve"]["launches"]["flash_attention"],
             "launches_serve_cli_depth4": idefics2["checkpoint"]["serve"]["launches"][
@@ -3436,6 +4438,7 @@ def main() -> int:
         "launches_spec_int4_kv8": features["spec_int4_kv8"]["launches"]["int4_matmul"],
         "spec_rounds_int4_kv8": features["spec_int4_kv8"]["rounds"],
         **new_paths("int4_matmul"),
+        **eval_paths("int4_matmul"),
         "serve_int8": timings_int8,
         "end_to_end_cosine": cos4,
         "end_to_end_argmax_agrees": same_argmax4,
@@ -3461,6 +4464,7 @@ def main() -> int:
         "ms_is": f"per train step: {tcfg.text.num_layers} x decoder + "
                  f"{tcfg.vision.num_layers} x tower",
         "launches_train_cli": features["train_cli"]["launches"]["flash_attention_bwd"],
+        **remat_paths("flash_attention_bwd"),
         "shapes": list(k2.values()),
         "card": card,
         "train": train_run,
@@ -3476,6 +4480,7 @@ def main() -> int:
         "launches_serving_features": {phase: rec["launches"][name] for phase, rec in
                                       features.items() if "launches" in rec},
         **new_paths(name),
+        **eval_paths(name),
         "max_abs_err": k3[kind]["max_abs_err"],
         "ms": k3[kind]["ms"],
         "plain_ms": k3[kind]["plain_ms"],
@@ -3490,6 +4495,7 @@ def main() -> int:
         ("fused_rms_norm", "rms", 54, "F.rms_norm"),
         ("fused_layer_norm", "ln", 88, "F.layer_norm"))]]}
     print(json.dumps({"serving_features": features}), flush=True)
+    print(json.dumps({"eval": evals}), flush=True)
     print(smi.splitlines()[0], flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,10 @@ either.
 Training (JAX decoder.py:435-634 with `return_hidden` and `remat`): packed
 rows carry multi-valued segment ids and positions that restart in each
 segment; the flash tier masks by segment (K1 forward, K2 backward through
-autograd), and `remat="full"` recomputes each layer in the backward.
+autograd). `remat` recomputes each layer in the backward: "full" all of it,
+"attn" all but the attention output (K1's out and lse, or the dense tier's
+tagged output), "selective" all but that and the matmul outputs
+(ops/remat.py).
 `return_hidden=True` returns the final-normed hidden states for the
 trainer's chunked cross-entropy, which reads the live `lm_head`, never the
 serving fp32 copy.
@@ -53,7 +56,7 @@ from leopard_tpu_torch.ops.chunked_attention import chunked_continuation_attenti
 from leopard_tpu_torch.ops.flash_attention import TileRanges, flash_attention, tile_ranges
 from leopard_tpu_torch.ops.norms import rms_norm
 from leopard_tpu_torch.ops.quant import is_quantized, matmul
-from leopard_tpu_torch.ops.remat import remat_wrap
+from leopard_tpu_torch.ops.remat import remat_wrap, tag_attn_out
 from leopard_tpu_torch.ops.rotary import apply_rope, compute_inv_freq, rope_cos_sin
 
 
@@ -180,7 +183,7 @@ class DecoderLayer(nn.Module):
         elif quant_kv is not None:
             o = attention_quant_kv(q, *quant_kv, mask=mask)
         else:
-            o = attention(q, k, v, mask=mask)
+            o = tag_attn_out(attention(q, k, v, mask=mask))  # saved under "attn"/"selective"
         x = x + matmul(o.reshape(b, s, -1), a.wo)
 
         y = rms_norm(x, self.post_attn_norm, cfg.rms_norm_eps)
@@ -252,7 +255,7 @@ class Decoder(nn.Module):
         segment_ids: Optional[torch.Tensor] = None,   # [B, S]; 0 = padding
         cache: Optional[KVCache] = None,
         return_hidden: bool = False,
-        remat=False,                                  # "none" | "full" (ops/remat.py)
+        remat=False,                                  # "none" | "full" | "attn" | "selective"
         logits_indices: Optional[torch.Tensor] = None,  # [B]: only these positions
         fresh_cache: bool = False,
     ):

@@ -5,8 +5,9 @@ Pre-LN layers with qkv bias, GELU-tanh MLP and a post-LN over the sequence;
 the patchify conv is an unfold-matmul. Attention on a CUDA tensor goes
 through the flash kernel, which masks the ragged tail itself (676 or 4,900
 patches), so the sequence is not padded to a block multiple as on the TPU.
-In training the kernel's backward (K2) runs at head dim 72, and
-`remat="full"` recomputes each layer in the backward.
+In training the kernel's backward (K2) runs at head dim 72, and `remat`
+("full", "attn", "selective"; ops/remat.py) recomputes each layer in the
+backward.
 
 NaViT (`patch_mask`): an image's real patches are the top-left rectangle of
 the batch's patch grid, flattened row-major, so inside each row of the
@@ -35,7 +36,7 @@ from leopard_tpu_torch.models.params import Params, new_param, torch_dtype
 from leopard_tpu_torch.ops.attention import attention
 from leopard_tpu_torch.ops.flash_attention import TileRanges, flash_attention, tile_ranges
 from leopard_tpu_torch.ops.norms import layer_norm
-from leopard_tpu_torch.ops.remat import remat_wrap
+from leopard_tpu_torch.ops.remat import remat_wrap, tag_attn_out
 
 
 def navit_position_ids(patch_mask: torch.Tensor, patches_per_side: int) -> torch.Tensor:
@@ -94,8 +95,8 @@ class SiglipLayer(nn.Module):
         if impl == "flash":
             o = flash_attention(q, k, v, causal=False, q_segment_ids=seg,
                                 kv_segment_ids=seg, ranges=ranges)
-        else:
-            o = attention(q, k, v, q_segment_ids=seg, kv_segment_ids=seg)
+        else:  # saved under "attn"/"selective", as K1's output is
+            o = tag_attn_out(attention(q, k, v, q_segment_ids=seg, kv_segment_ids=seg))
         x = x + F.linear(o.reshape(b, s, -1), a.wo, a.bo)
         y = layer_norm(x, self.ln2.scale, self.ln2.bias, cfg.layer_norm_eps)
         y = F.gelu(F.linear(y, self.mlp.fc1, self.mlp.b1), approximate="tanh")
@@ -123,8 +124,8 @@ class SiglipVisionTower(nn.Module):
                 remat=False) -> torch.Tensor:
         """pixel_values [B, 3, H, W] → [B, (H/p)·(W/p), hidden] post-LN
         features. `patch_mask` [B, H/p, W/p] bool: NaViT position ids and
-        attention among real patches only. `remat`: "none" | "full" per
-        layer (ops/remat.py)."""
+        attention among real patches only. `remat`: "none" | "full" | "attn"
+        | "selective" per layer (ops/remat.py)."""
         cfg = self.cfg
         x = patchify(pixel_values.to(self.pos_embed.dtype), cfg.patch_size)
         x = F.linear(x, self.patch_embed.kernel, self.patch_embed.bias)

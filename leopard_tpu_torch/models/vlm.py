@@ -102,7 +102,7 @@ class LeopardVLM(nn.Module):
         fresh_cache: bool = False,
         positions: Optional[torch.Tensor] = None,       # [B, S]; default: slot order
         return_hidden: bool = False,
-        remat=False,                                    # "none" | "full"
+        remat=False,                                    # "none" | "full" | "attn" | "selective"
         remat_vision=None,                              # None: same as remat
         feature_row_offsets: Optional[torch.Tensor] = None,  # [B] chunked prefill
     ):

@@ -12,10 +12,14 @@ q [B, Sq, Hq, D] and k/v [B, Skv, Hkv, D]:
     (ops/attention.py).
 
 When autograd needs it (grad enabled and an input that requires grad),
-`flash_attention` is a `torch.autograd.Function`: the forward also writes
-the per-row logsumexp, [B, Hq, Sq] fp32, and the backward is K2 (on the CPU,
-the plain versions of both). Otherwise the forward writes no lse, as
-serving needs none.
+`flash_attention` calls the operator `torch.ops.leopard.flash_attention_fwd`
+(a `torch.library.custom_op`), whose forward also writes the per-row
+logsumexp, [B, Hq, Sq] fp32, and whose backward, registered with it, is K2
+(on the CPU, the plain versions of both). Being an operator, the forward is
+seen by the dispatcher, so a selective-checkpoint policy can save its
+output and lse and skip K1 in the recompute (ops/remat.py, the counterpart
+of the JAX package's tags inside `_flash_fwd`). Otherwise the forward writes
+no lse, as serving needs none.
 
 Masking is the full segment mask (q_seg == kv_seg, both non-zero). On a
 right-padded batch it gives the valid rows the same result as the TPU
@@ -46,7 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -262,8 +266,12 @@ def flash_attention(
     kw = dict(causal=causal, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
               sliding_window=sliding_window)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, q_segment_ids, kv_segment_ids, causal,
-                                     sliding_window, ranges)
+        rng = (None,) * len(TileRanges._fields)
+        if q.device.type == "cuda":  # the ranges K1 runs by, saved for K2
+            rng = _ranges(q, k, ranges, causal, sliding_window,
+                          *_segments(q, k, q_segment_ids, kv_segment_ids))
+        return torch.ops.leopard.flash_attention_fwd(
+            q, k, v, q_segment_ids, kv_segment_ids, causal, sliding_window or 0, *rng)[0]
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, **kw)
     return _launch(q, k, v, ranges=ranges, **kw)[0]
@@ -288,35 +296,43 @@ flash_attention.copies = 0
 flash_attention_bwd.launches = 0
 
 
-class _FlashAttention(torch.autograd.Function):
-    """The `_flash` custom_vjp of the JAX package: the forward saves its
-    output and lse, and on the card the tile ranges, and the backward is K2."""
+@torch.library.custom_op("leopard::flash_attention_fwd", mutates_args=())
+def _flash_fwd_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_seg: Optional[torch.Tensor],
+    kv_seg: Optional[torch.Tensor], causal: bool, window: int,
+    kv_of_q: Optional[torch.Tensor], q_of_kv: Optional[torch.Tensor],
+    q_uid: Optional[torch.Tensor], kv_uid: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The `_flash` custom_vjp's forward rule of the JAX package: (out, lse).
+    K1 on a CUDA tensor, with the tile ranges the caller checked; the plain
+    versions on a CPU tensor. `window` 0 means none."""
+    kw = dict(causal=causal, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
+              sliding_window=window or None)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, **kw), flash_attention_lse_ref(q, k, v, **kw)
+    return _launch(q, k, v, with_lse=True,
+                   ranges=TileRanges(kv_of_q, q_of_kv, q_uid, kv_uid), **kw)
 
-    @staticmethod
-    def forward(ctx, q, k, v, q_seg, kv_seg, causal, sliding_window, ranges):
-        kw = dict(causal=causal, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
-                  sliding_window=sliding_window)
-        if q.device.type == "cpu":
-            out = flash_attention_ref(q, k, v, **kw)
-            lse = flash_attention_lse_ref(q, k, v, **kw)
-            ranges = (None,) * len(TileRanges._fields)
-        else:
-            ranges = _ranges(q, k, ranges, causal, sliding_window, *_segments(q, k, q_seg, kv_seg))
-            out, lse = _launch(q, k, v, with_lse=True, ranges=ranges, **kw)
-        ctx.causal, ctx.sliding_window = causal, sliding_window
-        # saved, the segment ids are checked for in-place changes before the
-        # backward, which reads ranges made from them
-        ctx.save_for_backward(q, k, v, q_seg, kv_seg, out, lse, *ranges)
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, q_seg, kv_seg, out, lse, *ranges = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(
-            q, k, v, q_seg, kv_seg, out, lse, dout, causal=ctx.causal,
-            sliding_window=ctx.sliding_window,
-            ranges=None if ranges[0] is None else TileRanges(*ranges))
-        return dq, dk, dv, None, None, None, None, None
+def _flash_setup_context(ctx, inputs, output):
+    q, k, v, q_seg, kv_seg, causal, window, *ranges = inputs
+    ctx.causal, ctx.window = causal, window or None
+    # saved, the segment ids are checked for in-place changes before the
+    # backward, which reads ranges made from them
+    ctx.save_for_backward(q, k, v, q_seg, kv_seg, *output, *ranges)
+
+
+def _flash_backward(ctx, dout, _dlse):
+    q, k, v, q_seg, kv_seg, out, lse, *ranges = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(
+        q, k, v, q_seg, kv_seg, out, lse, dout, causal=ctx.causal,
+        sliding_window=ctx.window,
+        ranges=None if ranges[0] is None else TileRanges(*ranges))
+    return dq, dk, dv, *(None,) * 8
+
+
+torch.library.register_autograd("leopard::flash_attention_fwd", _flash_backward,
+                                setup_context=_flash_setup_context)
 
 
 def _fill_segments(q, k, q_seg, kv_seg):

@@ -15,6 +15,12 @@ HF checkpoint written by the JAX package's own export:
   - serve: /health and one /api/generate over HTTP; with --arch
     leopard_idefics2, one request of two PNGs against `Engine.generate` on
     the server's own `_prepare_row` output;
+  - run_eval: two shards and a merge over an MP-DocVQA folder in its raw
+    layout and two prepared `eval_<name>.jsonl` sets, each shard file equal
+    to the harness called directly on the same model, the merged
+    `all_bench_results.json` equal to a one-shard run's; --prefix-caching
+    and --spec give the plain run's responses; --arch leopard_idefics2
+    --quantize int4 is refused before anything is read;
   - without a GPU, each CLI refuses to run unless given --device cpu.
 """
 
@@ -41,7 +47,13 @@ from leopard_tpu.inference.engine import Engine as JEngine
 from leopard_tpu.models import vlm as jvlm
 from leopard_tpu.training import trainer as jtrainer
 from leopard_tpu_torch import config as tcfgs
-from leopard_tpu_torch.cli import convert_checkpoint, generate, serve, train_leopard_llava
+from leopard_tpu_torch.cli import (
+    convert_checkpoint,
+    generate,
+    run_eval,
+    serve,
+    train_leopard_llava,
+)
 from leopard_tpu_torch.data import dataset as tds
 from tests.test_chat import FakeTokenizer
 from tests.test_torch_idefics2 import CharTokenizer
@@ -385,7 +397,127 @@ def test_serve_idefics2_answers_an_image_request(idefics2_dir):
     assert status == 200 and out["tokens"] == [want.tokens[0].tolist()]
 
 
-@pytest.mark.parametrize("name", ["generate", "serve", "train", "convert"])
+def write_eval_sets(root, rng):
+    """MP-DocVQA in its raw layout (val.json, images/<page>.jpg: 3 questions
+    of 1-2 pages) and prepared eval_mmmu.jsonl (multiple-choice) and
+    eval_visualwebbench.jsonl (captioning and webqa) of 1-2 PNGs each."""
+    from leopard_tpu_torch.evaluation.loaders import write_jsonl
+    from leopard_tpu_torch.evaluation.metrics import option_block
+
+    doc = root / "mpdocvqa"
+    (doc / "images").mkdir(parents=True)
+    data = []
+    for i in range(3):
+        pages = [f"d{i}_p{j}" for j in range(1 + i % 2)]
+        for page in pages:
+            w, h = rng.randint(40, 160, size=2)
+            Image.fromarray(rng.randint(0, 256, (h, w, 3), dtype=np.uint8)).save(
+                doc / "images" / f"{page}.jpg")
+        data.append({"page_ids": pages, "question": f"what is on page {i}?",
+                     "answers": ["noise", "nothing"]})
+    (doc / "val.json").write_text(json.dumps({"data": data}))
+    for name, kinds in (("mmmu", ["multiple-choice"] * 3),
+                        ("visualwebbench", ["captioning", "webqa", "webqa"])):
+        (root / name).mkdir()
+        rows = []
+        for i, kind in enumerate(kinds):
+            paths = [noise_png(root / name / f"{i}_{j}.png", rng, *rng.randint(40, 160, size=2))
+                     for j in range(1 + i % 2)]
+            opts = ["red", "green", "blue"] if kind == "multiple-choice" else None
+            rows.append({"images_path": paths, "question": "<image>" * len(paths) + f" q{i}",
+                         "options": opts, "concated_options": option_block(opts) if opts else None,
+                         "answers": "B" if opts else ["a noisy picture"], "ques_type": kind})
+        write_jsonl(str(root / name / f"eval_{name}.jsonl"), rows)
+
+
+EVAL_SETS = ["mpdocvqa", "mmmu", "visualwebbench"]
+
+
+def eval_argv(workdir, data_root, result_dir, *extra):
+    return ["--checkpoint", workdir["hf"], "--data-root", str(data_root), "--datasets",
+            *EVAL_SETS, "--result-dir", str(result_dir), "--batch-size", "2",
+            "--max-new-tokens", "4", "--device", "cpu", *extra]
+
+
+def _fresh_rng():
+    """What a new process has: the multiple-choice parser's generator at
+    its seed."""
+    from leopard_tpu_torch.evaluation import metrics
+
+    metrics._rng.seed(42)
+
+
+def _cli_eval(workdir, data_root, result_dir, *extra):
+    _fresh_rng()
+    with redirect_stdout(io.StringIO()):
+        return run_eval.run_eval(run_eval.parse_args(eval_argv(workdir, data_root, result_dir,
+                                                               *extra)),
+                                 tokenizer=TOK, cfg=cfg_pair()[1])
+
+
+def _details(result_dir, name):
+    with open(os.path.join(result_dir, name)) as f:
+        return [json.loads(line) for line in f]
+
+
+def test_run_eval_shards_and_merge(workdir, tmp_path):
+    from leopard_tpu_torch.convert.hf import load_leopard_llava
+    from leopard_tpu_torch.evaluation import harness
+    from leopard_tpu_torch.evaluation.adapter import LeopardLlavaEvalAdapter
+    from leopard_tpu_torch.evaluation.loaders import load_benchmark
+
+    write_eval_sets(tmp_path / "data", np.random.RandomState(3))
+    two, one = tmp_path / "two", tmp_path / "one"
+    assert _cli_eval(workdir, tmp_path / "data", two, "--num-shards", "2", "--shard", "1") is None
+    merged = _cli_eval(workdir, tmp_path / "data", two, "--num-shards", "2", "--shard", "0")
+    assert _cli_eval(workdir, tmp_path / "data", one) is not None
+    assert set(merged) == {f"{d}_direct" for d in EVAL_SETS}
+    # each shard file is the harness called directly on the shard's rows
+    tcfg = cfg_pair()[1]
+    adapter = LeopardLlavaEvalAdapter(
+        tcfg, load_leopard_llava(workdir["hf"], tcfg, "cpu"), TOK,
+        gen_cfg=tcfgs.GenerateConfig(max_new_tokens=4, greedy=True,
+                                     eos_token_ids=(128001, 128009)))
+    for shard in (1, 0):
+        _fresh_rng()
+        for d in EVAL_SETS:
+            want = harness.run_benchmark_batched(
+                load_benchmark(d, str(tmp_path / "data" / d)), adapter, d, shard=shard,
+                num_shards=2, batch_size=2)
+            assert _details(two, f"{shard}_direct_{d}_shard_details.jsonl") == want
+    # the merge equals the one-shard run where no score draws from the
+    # multiple-choice generator (each shard's process draws from its own)
+    for d in EVAL_SETS:
+        a, b = _details(two, f"{d}_direct_details.jsonl"), _details(one, f"{d}_direct_details.jsonl")
+        assert [x["raw"] for x in a] == [x["raw"] for x in b]
+        if d != "mmmu":
+            assert a == b and merged[f"{d}_direct"] == json.loads(
+                (one / "all_bench_results.json").read_text())[f"{d}_direct"]
+    assert json.loads((two / "all_bench_results.json").read_text()) == merged
+
+
+@pytest.mark.parametrize("extra", [["--prefix-caching"], ["--spec", "3"]],
+                         ids=["prefix_caching", "spec"])
+def test_run_eval_serving_options_keep_the_tokens(workdir, tmp_path, extra):
+    write_eval_sets(tmp_path / "data", np.random.RandomState(4))
+    _cli_eval(workdir, tmp_path / "data", tmp_path / "plain")
+    _cli_eval(workdir, tmp_path / "data", tmp_path / "opt", *extra)
+    for d in EVAL_SETS:
+        assert (_details(tmp_path / "opt", f"{d}_direct_details.jsonl")
+                == _details(tmp_path / "plain", f"{d}_direct_details.jsonl"))
+
+
+def test_run_eval_refuses_idefics2_int4(tmp_path, capsys):
+    with pytest.raises(SystemExit):
+        run_eval.main(["--arch", "leopard_idefics2", "--quantize", "int4", "--checkpoint",
+                       str(tmp_path / "missing"), "--data-root", str(tmp_path)])
+    err = capsys.readouterr().err
+    assert "32,003" in err and "multiple of 128" in err
+    assert run_eval.parse_args(["--arch", "leopard_idefics2", "--quantize", "int8",
+                                "--checkpoint", "c", "--data-root", "d"]).quantize == "int8"
+
+
+@pytest.mark.parametrize("name", ["generate", "serve", "train", "convert", "run_eval"])
 def test_refuses_without_gpu(workdir, tmp_path, name, monkeypatch):
     """With no card and no --device cpu, each CLI exits with an error before
     it reads anything."""
@@ -397,6 +529,8 @@ def test_refuses_without_gpu(workdir, tmp_path, name, monkeypatch):
                   train_argv(workdir, tmp_path / "t", 1)[:-len(SETS) - 3] + ["--tiny"]),
         "convert": (convert_checkpoint.main, ["--direction", "hf2native", "--input",
                                               workdir["hf"], "--output", str(tmp_path / "n")]),
+        "run_eval": (run_eval.main, ["--checkpoint", workdir["hf"], "--data-root",
+                                     str(tmp_path), "--result-dir", str(tmp_path / "n")]),
     }
     main, args = argv[name]
     assert "--device" not in args

@@ -38,7 +38,9 @@ REQUIRED = ("ops.flash_attention", "ops.int4_matmul", "ops.fused_norms",
             "convert.hf", "data.conversation", "data.processor", "data.native",
             "data.text_dataset", "data.dataset", "cli.generate", "cli.serve",
             "cli.train_leopard_llava", "cli.convert_checkpoint", "data.idefics2_processor",
-            "models.perceiver")
+            "models.perceiver", "evaluation.metrics", "evaluation.vqa_metrics",
+            "evaluation.loaders", "evaluation.harness", "evaluation.adapter",
+            "evaluation.lm_eval_adapter", "cli.run_eval", "ops.remat")
 
 
 def _run(args, cwd):

@@ -205,13 +205,6 @@ def test_full_remat_matches_none():
         np.testing.assert_allclose(g1[k].numpy(), g2[k].numpy(), rtol=1e-4, atol=1e-7, err_msg=k)
 
 
-@pytest.mark.parametrize("mode", ["selective", "attn"])
-def test_policies_not_ported_raise(mode):
-    cfg, _, state, step = _setup(mode)
-    with pytest.raises(NotImplementedError, match=mode):
-        step(state, _batch(cfg))
-
-
 def test_frozen_groups_dont_update():
     cfg = cfgs.tiny_vlm()
     tcfg = TrainConfig(remat="none", optimizer=OptimizerConfig(lr=1e-2, warmup_steps=1,
