@@ -23,9 +23,13 @@ script exits non-zero without printing a result:
      NaViT tower at phase 22's eight images and phase 25's two, their patch
      masks' interleaved segment ids, with SDPA under the same boolean mask,
      and the decoder at [1, 8,192] with Mistral's window of 4,096 and
-     without it); K2 at the
+     without it; for phases 32-33 the decoder at [2, 8,192] with the window
+     and the train batch's rows); K2 at the
      train path's shapes (the decoder's packed two-segment rows with a
-     padding tail, the tower's 16 tiles at head dim 72); K3a/K3b at the
+     padding tail, the tower's 16 tiles at head dim 72; for phases 32-33
+     the NaViT tower at phase 22's patch masks, where the padding patches'
+     gradients must be exactly 0, and Mistral's [2, 8,192] rows with the
+     window of 4,096, the plain version in slices); K3a/K3b at the
      train path's rows, (8192, 4096) RMSNorm and (16·676, 1152) LayerNorm,
      cold L2;
      K4 at the 8B decode shapes (M = 2, M = 8 as in the slot pool's decode,
@@ -185,7 +189,26 @@ script exits non-zero without printing a result:
  30. (eval E, after phase 20) the train step under "attn" and "selective"
      against "full": the first step's loss and gradients (cosine >= 0.999
      per group), K1 31 a step against 62, K2 31, step ms and peak memory;
- 31. no JAX was imported.
+ 32. (after phase 25) Leopard-Idefics2 training at 8B widths with the text
+     depth cut to 4 of 32 (the tower's 27 layers and the perceiver's 3
+     kept), seeded weights, 2 rows x 8,192 slots a step from the port's
+     batch builder over an 8-sample manifest (4 of phase 22's image sizes
+     a row, every row one sample past the 4,096-token window): step 1's
+     loss and gradients through K1 + K2 against dense attention in tower
+     and decoder (one row at a time), cosine per parameter group >= 0.999,
+     and the same without the window, whose text layers must fall below
+     that limit; then
+     3 steps of `train()` under "full" and under "selective" with the
+     perceiver frozen and no weight decay: params unchanged by step 1
+     (lr 0), changed by steps 2-3 but the perceiver's (bit-equal), K1 62 /
+     31, K2 31, K3a 27, K3b 109 a step, each K2 launch timed in the step,
+     step ms, tokens/s, peak memory;
+ 33. the train_leopard_idefics2 CLI from that manifest, --init-from phase
+     25's checkpoint, --freeze-perceiver: 4 steps saving at step 3, the
+     first loss against the train step's on the builder's first batch
+     (rel 1e-4), the launches, the perceiver unchanged; a second run on the
+     same directory resumes at step 3 and its loss equals the fourth;
+ 31. no JAX was imported (checked last).
 Each engine is freed after its phase, with the phase's peak device memory
 printed. Then the card's name and power limit as nvidia-smi prints them, one
 JSON line with every kernel ({"kernels": [...]}) and, last, the JSON line
@@ -547,12 +570,12 @@ PLAIN_SLICE_MAX = 4 * 2**30
 PLAIN_SLICED_REPS = 3   # timed passes over the slices (2.4 s each at [8, 16,384])
 
 
-def plain_slices(b, hq, hkv, s):
+def plain_slices(b, hq, hkv, s, whole_max=PLAIN_WHOLE_MAX):
     """(rows, kv heads) slices of one plain-version call, the whole call
-    where its scores fit PLAIN_WHOLE_MAX."""
+    where its scores fit `whole_max`."""
     whole = [(slice(0, b), slice(0, hkv))]
     per_head = hq // hkv * s * s * 4
-    if b * hkv * per_head <= PLAIN_WHOLE_MAX:
+    if b * hkv * per_head <= whole_max:
         return whole
     heads = max(1, min(hkv, PLAIN_SLICE_MAX // per_head))
     while hkv % heads:
@@ -578,55 +601,101 @@ def segments_of(rows, s, device):
     return seg.to(device)
 
 
-def flash_bwd_vs_plain(name, b, s, hq, hkv, d, causal, rows, device, card):
+def flash_bwd_vs_plain(name, b, s, hq, hkv, d, causal, rows, device, card, window=None,
+                       seg_ids=None):
     """Phase 3, K2 at one shape: dq/dk/dv max abs error against the plain
     version on the same inputs (out and lse from K1), times, and the bound.
-    `rows`: each row's packed sample lengths, or None (no segments)."""
+    `rows`: each row's packed sample lengths, or None (no segments).
+    `seg_ids` [B, S] (numpy): segment ids as they come (a NaViT patch mask's
+    interleaved 0/1 ids), with `rows` each image's count of real patches;
+    then the gradients of padding patches must be exactly 0 from K2 (they
+    attend nothing and nothing attends them) and finite from the plain
+    version. `window`: the decoder's sliding window. The plain version runs
+    in slices of rows and kv heads where its fp32 scores pass
+    PLAIN_SLICE_MAX (it holds several such tensors at once)."""
     import torch
 
     from leopard_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, dout, seg = attn_inputs(b, s, hq, hkv, d, rows, device)
-    kw = dict(causal=causal)
-    out, lse = fa._launch(q, k, v, q_segment_ids=seg, kv_segment_ids=seg, with_lse=True,
-                          sliding_window=None, **kw)
+    q, k, v, dout, seg = attn_inputs(b, s, hq, hkv, d, None if seg_ids is not None else rows,
+                                     device)
+    if seg_ids is not None:
+        seg = torch.from_numpy(np.ascontiguousarray(seg_ids, np.int32)).to(device)
+        dout = dout * (seg != 0)[:, :, None, None].to(dout.dtype)
+    kw = dict(causal=causal, sliding_window=window)
+    out, lse = fa._launch(q, k, v, q_segment_ids=seg, kv_segment_ids=seg, with_lse=True, **kw)
     got = fa.flash_attention_bwd(q, k, v, seg, seg, out, lse, dout, **kw)
-    want = fa.flash_attention_bwd_ref(q, k, v, seg, seg, out, lse, dout, **kw)
+    slices = plain_slices(b, hq, hkv, s, whole_max=PLAIN_SLICE_MAX)
+    g = hq // hkv
+
+    def plain(sl):
+        rows_, heads = sl
+        qh = slice(heads.start * g, heads.stop * g)
+        sg = None if seg is None else seg[rows_]
+        return fa.flash_attention_bwd_ref(
+            q[rows_, :, qh], k[rows_, :, heads], v[rows_, :, heads], sg, sg,
+            out[rows_, :, qh], lse[rows_, qh], dout[rows_, :, qh], **kw)
+
     torch.cuda.synchronize()
-    errs = {}
-    for gname, a, w in zip(("dq", "dk", "dv"), got, want):
-        if not torch.isfinite(a).all():
-            raise AssertionError(f"{name}: {gname} has non-finite values")
-        errs[gname] = (a.float() - w.float()).abs().max().item()
-        torch.testing.assert_close(a.float(), w.float(), **K2_TOL, msg=f"{name} {gname}")
+    errs = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for sl in slices:
+        rows_, heads = sl
+        qh = slice(heads.start * g, heads.stop * g)
+        for gname, a, w in zip(errs, (got[0][rows_, :, qh], got[1][rows_, :, heads],
+                                      got[2][rows_, :, heads]), plain(sl)):
+            if not (torch.isfinite(a).all() and torch.isfinite(w).all()):
+                raise AssertionError(f"{name}: {gname} has non-finite values")
+            errs[gname] = max(errs[gname], (a.float() - w.float()).abs().max().item())
+            torch.testing.assert_close(a.float(), w.float(), **K2_TOL, msg=f"{name} {gname}")
+    padding = None
+    if seg_ids is not None:  # padding patches: exactly 0 from K2
+        pad = seg == 0
+        padding = {gname: t[pad].abs().max().item() if pad.any() else 0.0
+                   for gname, t in zip(errs, got)}
+        if any(padding.values()):
+            raise AssertionError(f"{name}: K2 gives padding patches gradients {padding}")
     again = fa.flash_attention_bwd(q, k, v, seg, seg, out, lse, dout, **kw)
     if not all(torch.equal(a, c) for a, c in zip(got, again)):
         raise AssertionError(f"{name}: K2 does not repeat bit for bit")
-    del want, got, again
-    ranges = fa.tile_ranges(seg, seg, sq=s, skv=s, causal=causal, device=device)
+    del got, again
+    ranges = fa.tile_ranges(seg, seg, sq=s, skv=s, causal=causal, window=window, device=device)
     ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, seg, seg, out, lse, dout,
                                                 ranges=ranges, **kw))  # as a train step
-    plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, seg, seg, out, lse, dout, **kw))
+    if len(slices) == 1:
+        plain_ms = cuda_ms(lambda: plain(slices[0]))
+    else:
+        def every_slice():
+            for sl in slices:
+                plain(sl)
+
+        plain_ms = cuda_ms(every_slice, reps=PLAIN_SLICED_REPS)
     # reads q, k, v, out, dout, lse and the segments; writes dq, dk, dv
     n_bytes = nbytes(q, k, v, out, dout, lse, seg, seg, q, k, v)
     del q, k, v, dout, out, lse
     torch.cuda.empty_cache()
     segs = rows if rows is not None else [[s]] * b
     library_ms = sdpa_ms([s] * b, hq, hkv, d, causal, device, backward=True)
-    attended_ms = sdpa_ms([n for row in segs for n in row], hq, hkv, d, causal, device,
+    attended_ms = sdpa_ms([n for row in segs for n in row if n > 0], hq, hkv, d, causal, device,
                           backward=True)
-    pairs = attended_pairs(segs, causal)
+    pairs = attended_pairs(segs, causal, window)
     bound_ms, bound_by = attn_bound_ms(pairs, hq, d, 5, n_bytes)
     rate = achieved(pairs, hq, d, 5, ms, bound_ms)
     shape = (f"B={b} S={s} heads={hq}/{hkv} D={d} {'causal' if causal else 'non-causal'}"
-             + (f" packed rows={[list(r) for r in rows]}" if rows else ""))
+             + (f" window={window}" if window else "")
+             + (" NaViT patch-mask segments," if seg_ids is not None else "")
+             + (f" rows={[list(r) for r in rows]}" if rows else ""))
     print(f"kernel flash_attention_bwd {name}: {shape}: max_abs_err "
           + ", ".join(f"{k_}={e:.6g}" for k_, e in errs.items())
-          + f" (tol {K2_TOL}), repeats bit for bit; kernel {ms:.4f} ms ({rate['tflops']:.1f} "
-          f"TF/s attended, {rate['bound_fraction']:.3f} of the bound), plain {plain_ms:.4f} ms, "
+          + f" (tol {K2_TOL}), repeats bit for bit"
+          + (f", padding patches' gradients {padding}" if padding is not None else "")
+          + f"; kernel {ms:.4f} ms ({rate['tflops']:.1f} "
+          f"TF/s attended, {rate['bound_fraction']:.3f} of the bound), plain {plain_ms:.4f} ms"
+          f"{f' (one pass over {len(slices)} slices)' if len(slices) > 1 else ''}, "
           f"sdpa backward {library_ms:.4f} ms (unsegmented), {attended_ms:.4f} ms (attended "
-          f"segments only), bound {bound_ms:.4f} ms [{card}]", flush=True)
+          f"segments only{', the window not skipped' if window else ''}), bound "
+          f"{bound_ms:.4f} ms [{card}]", flush=True)
     return {"shape": f"{name}: {shape}", "max_abs_err": max(errs.values()), "errs": errs,
+            "padding_grads": padding, "plain_slices": len(slices),
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library_attended_ms": attended_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             **rate}
@@ -2420,9 +2489,23 @@ def param_group(name):
         return "text layers"
     if name.startswith("vision.layers."):
         return "tower layers"
+    for group in ("projector", "perceiver"):
+        if name.startswith(group + "."):
+            return group
     return {"text.embed_tokens": "embed", "text.lm_head": "head",
-            "text.final_norm": "text final norm"}.get(
-        name, "projector" if name.startswith("projector.") else "tower patch/pos/post-LN")
+            "text.final_norm": "text final norm"}.get(name, "tower patch/pos/post-LN")
+
+
+def group_cosines(a_grads, b_grads):
+    """Cosine of two gradient sets per parameter group, in float64."""
+    sums = {}
+    for n, a in a_grads.items():
+        a, b = a.double(), b_grads[n].double()
+        acc = sums.setdefault(param_group(n), [0.0, 0.0, 0.0])
+        acc[0] += float((a * b).sum())
+        acc[1] += float(a.square().sum())
+        acc[2] += float(b.square().sum())
+    return {g: dot / max((na * nb) ** 0.5, 1e-30) for g, (dot, na, nb) in sums.items()}
 
 
 def train_grads_vs_dense(model, cfg, batch, card):
@@ -2455,14 +2538,7 @@ def train_grads_vs_dense(model, cfg, batch, card):
     if launches != {"kernel": (2 * layers, layers), "dense": (0, 0)}:
         raise AssertionError(f"K1/K2 launches {launches}, expected kernel ({2 * layers}, "
                              f"{layers}) and dense (0, 0)")
-    sums = {}
-    for n, a in grads["kernel"].items():
-        a, b = a.float(), grads["dense"][n].float()
-        acc = sums.setdefault(param_group(n), [0.0, 0.0, 0.0])
-        acc[0] += float((a * b).sum())
-        acc[1] += float(a.square().sum())
-        acc[2] += float(b.square().sum())
-    cosines = {grp: dot / max((na * nb) ** 0.5, 1e-30) for grp, (dot, na, nb) in sums.items()}
+    cosines = group_cosines(grads["kernel"], grads["dense"])
     del grads, dense
     print(f"train, K1 + K2 vs dense gradients (one step, {cfg.text.num_layers} text layers): "
           f"loss {losses['kernel']:.6f} vs {losses['dense']:.6f}; cosine per group "
@@ -3140,6 +3216,439 @@ def idefics2_checkpoint_phase(cfg, launches, card, tmp, device, k1_checked):
           f"(bucket {bucket}), {SERVE_TOKENS} tokens identical to Engine.generate on the "
           f"server's _prepare_row output; launches {counts} [{card}]", flush=True)
     del model, state
+    return rec
+
+
+# phases 32-33: Leopard-Idefics2 training at 8B widths with the text depth
+# cut to 4 of 32 (as phase 20: the train state, ~18 B a parameter, does not
+# fit one card; the tower keeps its 27 layers and the perceiver its 3). Each
+# step takes 2 rows x 8,192 slots from the port's batch builder over an
+# 8-sample manifest: a sample is one row of 4 of phase 22's image sizes and a
+# two-turn chat whose answer takes the row past the 4,096-token window;
+# samples alternate between the first four sizes and the last four, so that
+# every batch holds phase 22's eight images and its NaViT masks.
+IDEFICS2_TRAIN_SEQ = 8192
+IDEFICS2_TRAIN_SAMPLES = 8
+IDEFICS2_TRAIN_ANSWER = (4600, 7200)   # characters: rows of ~4,950-7,550 tokens
+IDEFICS2_TRAIN_STEPS = 3
+IDEFICS2_REMAT = ("full", "selective")
+# step 1's gradients through K1 + K2 against dense, per group: the sound
+# path reads 0.999995-0.999996 and the run without the window 0.9915-0.997
+# (text layers 0.994; this script on an NVIDIA H100 80GB HBM3 at 700 W), which
+# COSINE_MIN (0.99) would let pass; this limit fails it
+IDEFICS2_GRAD_COSINE_MIN = 0.999
+
+
+class Idefics2ByteTokenizer(MistralByteTokenizer):
+    """MistralByteTokenizer with Idefics2's <end_of_utterance> (32002), which
+    opens and closes the assistant turns that carry the loss."""
+
+    SPECIALS = {"<end_of_utterance>": 32002}
+
+
+def write_idefics2_manifest(directory):
+    """IDEFICS2_TRAIN_SAMPLES rows {text, images}: seeded noise PNGs of
+    phase 22's sizes, four a row, and `User:<image>x4 question<eou>\\n
+    Assistant: answer<eou>\\n`."""
+    rng = np.random.RandomState(SEED + 32)
+    directory.mkdir(parents=True)
+    rows = []
+    for i in range(IDEFICS2_TRAIN_SAMPLES):
+        names = []
+        for j, (w, h) in enumerate(IDEFICS2_IMAGES[4 * (i % 2):4 * (i % 2) + 4]):
+            names.append(f"{i}_{j}.png")
+            noise_png_file(directory / names[-1], rng, w, h)
+        answer = random_text(rng, int(rng.randint(*IDEFICS2_TRAIN_ANSWER)))
+        rows.append({"text": "User:" + "<image>" * len(names) + random_text(rng, 60)
+                     + "<end_of_utterance>\nAssistant: " + answer + "<end_of_utterance>\n",
+                     "images": names})
+    path = directory / "data.jsonl"
+    path.write_text("".join(json.dumps(r) + "\n" for r in rows))
+    return path, rows
+
+
+def idefics2_train_batches(cfg, rows, folder, steps=IDEFICS2_TRAIN_STEPS, start=0):
+    """The batch builder's first `steps` batches (numpy), as the CLI draws
+    them."""
+    from leopard_tpu_torch.data.idefics2_batches import idefics2_batches
+
+    return list(itertools.islice(idefics2_batches(
+        rows, Idefics2ByteTokenizer(), cfg, 2, IDEFICS2_TRAIN_SEQ, str(folder), start=start),
+        steps))
+
+
+def row_lengths(batch):
+    return [[int(n)] for n in (batch["segment_ids"] != 0).sum(1)]
+
+
+def idefics2_train_shapes(cfg, batches):
+    """Phase 3's K1 and K2 entries of phases 32-33: the decoder at
+    [2, 8,192] with the window (every batch's rows), the tower's K2 at the
+    NaViT masks (K1 there is phase 22's `navit_b8`)."""
+    t, v = cfg.text, cfg.vision
+    first = batches[0]
+    if any(b["patch_mask"].shape != first["patch_mask"].shape
+           or not np.array_equal(b["patch_mask"], first["patch_mask"]) for b in batches):
+        raise AssertionError("the train batches' patch masks differ")
+    mask = first["patch_mask"]
+    n = mask.shape[0]
+    dec = dict(b=2, s=IDEFICS2_TRAIN_SEQ, hq=t.num_heads, hkv=t.num_kv_heads, d=t.head_dim,
+               causal=True, rows=row_lengths(first), window=t.sliding_window)
+    navit = dict(b=n, s=mask[0].size, hq=v.num_heads, hkv=v.num_heads, d=v.head_dim,
+                 causal=False, rows=[[r * c] for r, c in grids_of(mask)],
+                 seg_ids=mask.reshape(n, -1).astype(np.int32))
+    return ({f"mistral_train_{IDEFICS2_TRAIN_SEQ}": dec},
+            {f"navit_b{n}": navit, f"mistral_train_{IDEFICS2_TRAIN_SEQ}": dec})
+
+
+def k2_ran(batch, cfg):
+    """The K2 shapes of one Idefics2 train step, which are also its K1
+    shapes (keyed as `k1_held`)."""
+    mask = batch["patch_mask"]
+    return {("navit", mask.shape[0], mask[0].size),
+            ("decoder", *batch["tokens"].shape, cfg.text.sliding_window)}
+
+
+def k2_held(shapes):
+    """The K2 shapes phase 3 holds, keyed as k2_ran."""
+    return ({("navit", kw["b"], kw["s"]) for kw in shapes.values()
+             if kw.get("seg_ids") is not None}
+            | {("decoder", kw["b"], kw["s"], kw.get("window")) for kw in shapes.values()
+               if kw["causal"]})
+
+
+def to_device(batch, device):
+    import torch
+
+    return {k: None if v is None else torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def idefics2_grads_vs_dense(model, cfg, batch, card):
+    """Phase 32, first: step 1's loss and gradients through K1 + K2 against
+    dense attention in tower and decoder on the same weights (one row at a
+    time: the dense decoder's fp32 scores of two 8,192-token rows would not
+    fit beside the model), cosine per parameter group at least
+    IDEFICS2_GRAD_COSINE_MIN; then the kernel path without the window,
+    whose text layers must fall below it."""
+    import torch
+
+    from leopard_tpu_torch.models.vlm import LeopardVLM
+    from leopard_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from leopard_tpu_torch.training.trainer import vlm_loss
+
+    def twin(c):
+        m = LeopardVLM(c, device="meta")
+        m.load_state_dict(model.state_dict(), assign=True)  # shares the weights
+        return m
+
+    def grads_of(m):
+        out = {n: p.grad for n, p in m.named_parameters()}
+        for p in m.parameters():
+            p.grad = None
+        return out
+
+    dense_cfg = dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, attn_impl="dense"),
+        text=dataclasses.replace(cfg.text, attn_impl="dense"))
+    dense = twin(dense_cfg)
+    tokens = batch["tokens"]
+    weights = (batch["loss_weights"][:, 1:] * (tokens[:, 1:] != cfg.image_token_id)
+               * (batch["segment_ids"][:, 1:] != 0))
+    total_w = float(weights.sum())
+    per_row = (tokens == cfg.image_token_id).sum(1) // cfg.perceiver.num_latents
+    first = np.r_[0, np.cumsum(per_row)]
+    dense_loss = 0.0
+    for r in range(tokens.shape[0]):
+        row = {k: batch[k][r:r + 1] for k in ("tokens", "segment_ids", "loss_weights")}
+        row["images"] = batch["images"][first[r]:first[r + 1]]
+        row["patch_mask"] = batch["patch_mask"][first[r]:first[r + 1]]
+        loss, aux = vlm_loss(dense, dense_cfg, to_device(row, model.text.lm_head.device),
+                             remat="full")
+        (loss * (aux["tokens_in_loss"] / total_w)).backward()
+        dense_loss += loss.item() * aux["tokens_in_loss"].item() / total_w
+        del loss, aux
+    want = grads_of(dense)
+    del dense
+    torch.cuda.empty_cache()
+    dev = to_device(batch, model.text.lm_head.device)
+    rec = {"dense_loss": dense_loss}
+    lt, lv = cfg.text.num_layers, cfg.vision.num_layers
+    for name, c in (("kernel", cfg), ("no_window", dataclasses.replace(
+            cfg, text=dataclasses.replace(cfg.text, sliding_window=None)))):
+        m = model if name == "kernel" else twin(c)
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        loss, _ = vlm_loss(m, c, dev, remat="full")
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = (flash_attention.launches, flash_attention_bwd.launches)
+        if launches != (2 * (lt + lv), lt + lv):
+            raise AssertionError(f"Idefics2 train, {name}: K1/K2 launches {launches}, "
+                                 f"expected {(2 * (lt + lv), lt + lv)}")
+        rec[name] = {"loss": loss.item(), "cosines": group_cosines(grads_of(m), want)}
+        del loss, m
+        torch.cuda.empty_cache()
+    del want
+    kc, nc = rec["kernel"]["cosines"], rec["no_window"]["cosines"]
+    print(f"Idefics2 train, K1 + K2 vs dense gradients (step 1, {lt} text layers, the dense "
+          f"path a row at a time): loss {rec['kernel']['loss']:.6f} vs {dense_loss:.6f}; "
+          "cosine per group " + ", ".join(f"{g}: {c:.6f}" for g, c in kc.items())
+          + f" (min {IDEFICS2_GRAD_COSINE_MIN}); without the window, which must fall below "
+          f"it in the text layers: loss {rec['no_window']['loss']:.6f}, "
+          + ", ".join(f"{g}: {c:.6f}" for g, c in nc.items()) + f" [{card}]", flush=True)
+    if (not np.isfinite([rec["kernel"]["loss"], dense_loss]).all()
+            or min(kc.values()) < IDEFICS2_GRAD_COSINE_MIN):
+        raise AssertionError(f"Idefics2 train: kernel gradients disagree with dense: {rec}")
+    if abs(rec["kernel"]["loss"] - dense_loss) > 1e-2 * abs(dense_loss):
+        raise AssertionError(f"Idefics2 train: loss {rec['kernel']['loss']} vs dense "
+                             f"{dense_loss}")
+    if nc["text layers"] >= IDEFICS2_GRAD_COSINE_MIN:
+        raise AssertionError("Idefics2 train: the run without the window passes the text "
+                             f"layers' limit ({nc['text layers']}): the check cannot see "
+                             "the window")
+    return rec
+
+
+def idefics2_train_phase(model, cfg, batches, card, k1_checked, k2_checked):
+    """Phase 32, then: IDEFICS2_TRAIN_STEPS steps of train() under each of
+    IDEFICS2_REMAT, the perceiver frozen and no weight decay, a warmup from
+    0: params unchanged by step 1, changed by steps 2-3 but the perceiver's,
+    bit-equal throughout; K1, K2, K3 launches of every step against the
+    formulas, each K2 launch timed by CUDA events; step ms, tokens/s, peak
+    memory."""
+    import torch
+
+    from leopard_tpu_torch.config import OptimizerConfig, TrainConfig
+    from leopard_tpu_torch.ops import flash_attention as fa
+    from leopard_tpu_torch.ops.fused_norms import fused_layer_norm, fused_rms_norm
+    from leopard_tpu_torch.training import trainer
+    from leopard_tpu_torch.training.loop import train
+
+    for b in batches:  # K1 and K2 run at the same shapes
+        held("Idefics2 train", "K1", k2_ran(b, cfg), k1_checked)
+        held("Idefics2 train", "K2", k2_ran(b, cfg), k2_checked)
+    counters = {"flash_attention": fa.flash_attention, "flash_attention_bwd":
+                fa.flash_attention_bwd, "fused_rms_norm": fused_rms_norm,
+                "fused_layer_norm": fused_layer_norm}
+    lt, lv, lp = cfg.text.num_layers, cfg.vision.num_layers, cfg.perceiver.num_layers
+    device = model.text.lm_head.device
+    dev_batches = [to_device(b, device) for b in batches]
+    real_bwd = fa._launch_bwd
+    k2_events = []
+
+    def timed_bwd(*a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_bwd(*a, **kw)
+        end.record()
+        k2_events.append((start, end))
+        return out
+
+    recs = {}
+    fa._launch_bwd = timed_bwd
+    try:
+        for policy in IDEFICS2_REMAT:
+            # "full" runs each tower and decoder layer's forward twice (K1,
+            # K3) and its backward once (K2); "selective" saves K1's output,
+            # so only the norms run again; the perceiver runs once
+            want = {"flash_attention": (2 if policy == "full" else 1) * (lt + lv),
+                    "flash_attention_bwd": lt + lv,
+                    "fused_rms_norm": 2 * 2 * lt + 1 + 3 * lp + 1,
+                    "fused_layer_norm": 2 * 2 * lv + 1}
+            tcfg = TrainConfig(
+                seq_len=IDEFICS2_TRAIN_SEQ, global_batch_size=2,
+                train_steps=IDEFICS2_TRAIN_STEPS, log_interval=1, eval_interval=0,
+                save_interval=0, remat=policy, loss_chunk=1024,
+                optimizer=OptimizerConfig(lr=1e-5, warmup_steps=1, decay_steps=1000,
+                                          grad_clip=1.0, weight_decay=0.0))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state = trainer.create_train_state(model, tcfg)
+            step = trainer.make_train_step(cfg, tcfg, frozen=("perceiver",), model=model)
+            snaps = [{n: p.reshape(-1)[:: max(1, p.numel() // 4096)][:4096].clone()
+                      for n, p in state.params.items()}]
+            records = []
+
+            def step_fn(st, b):
+                before = {k: c.launches for k, c in counters.items()}
+                k2_events.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, metrics = step(st, b)
+                torch.cuda.synchronize()
+                records.append({
+                    "ms": (time.perf_counter() - t0) * 1e3, "loss": float(metrics["loss"]),
+                    "grad_norm": float(metrics["grad_norm"]),
+                    "nan_step": bool(metrics["nan_step"]),
+                    "k2_ms": sum(s.elapsed_time(e) for s, e in k2_events),
+                    "launches": {k: c.launches - before[k] for k, c in counters.items()}})
+                snaps.append({n: p.reshape(-1)[:: max(1, p.numel() // 4096)][:4096].clone()
+                              for n, p in st.params.items()})
+                return st, metrics
+
+            fa.flash_attention.copies = 0
+            state = train(cfg, tcfg, state, step_fn, iter(dev_batches))
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            copies = fa.flash_attention.copies
+            del state, step
+            torch.cuda.empty_cache()
+            for i, r in enumerate(records, start=1):
+                print(f"Idefics2 train {policy} step {i}: loss {r['loss']:.6f}, grad norm "
+                      f"{r['grad_norm']:.6f}, {r['ms']:.1f} ms (K2 {r['k2_ms']:.2f} ms), "
+                      f"launches {r['launches']} [{card}]", flush=True)
+                if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])) or r["nan_step"]:
+                    raise AssertionError(f"Idefics2 train {policy} step {i}: non-finite {r}")
+                if r["launches"] != want:
+                    raise AssertionError(f"Idefics2 train {policy} step {i}: launches "
+                                         f"{r['launches']}, expected {want}")
+            if len(records) != IDEFICS2_TRAIN_STEPS or copies:
+                raise AssertionError(f"Idefics2 train {policy}: {len(records)} steps, "
+                                     f"{copies} K1/K2 input copies")
+            changed_1 = [n for n in snaps[0] if not torch.equal(snaps[0][n], snaps[1][n])]
+            if changed_1:
+                raise AssertionError(f"Idefics2 train {policy}: step 1 (lr 0) changed "
+                                     f"{changed_1[:5]}")
+            moved = {}
+            for n in snaps[0]:
+                grp = moved.setdefault(param_group(n), [0, 0])
+                grp[0] += int(not torch.equal(snaps[0][n], snaps[-1][n]))
+                grp[1] += 1
+            if moved["perceiver"][0] or any(c == 0 for g, (c, _) in moved.items()
+                                            if g != "perceiver"):
+                raise AssertionError(f"Idefics2 train {policy}: tensors changed per group "
+                                     f"{moved} (the frozen perceiver must stay, every other "
+                                     "group move)")
+            step_ms = statistics.mean(r["ms"] for r in records[1:])
+            k2_ms = statistics.mean(r["k2_ms"] for r in records[1:])
+            tokens = 2 * IDEFICS2_TRAIN_SEQ
+            recs[policy] = {"steps": records, "launches_per_step": want, "copies": copies,
+                            "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+                            "k2_ms_per_step": k2_ms, "peak_memory_gib": peak,
+                            "params_moved": moved}
+            print(f"Idefics2 train remat={policy}: {IDEFICS2_TRAIN_STEPS} steps of train(), "
+                  "step 1 left the params unchanged (lr 0), steps 2-3 changed tensors per "
+                  "group " + ", ".join(f"{g}: {c}/{t}" for g, (c, t) in moved.items())
+                  + f" (the perceiver frozen, bit-equal); launches a step {want}; step "
+                  f"{step_ms:.1f} ms (mean of steps 2-{IDEFICS2_TRAIN_STEPS}), "
+                  f"{tokens / step_ms * 1e3:.1f} tokens/s (slots), K2 {k2_ms:.2f} ms a step "
+                  f"({lv} + {lt} launches); peak device memory {peak:.2f} GiB [{card}]",
+                  flush=True)
+    finally:
+        fa._launch_bwd = real_bwd
+    return recs
+
+
+def idefics2_train_cli_phase(hf_dir, manifest, rows, cfg, card, tmp, device, k1_checked,
+                             k2_checked):
+    """Phase 33: train_leopard_idefics2 --init-from phase 25's depth-4
+    checkpoint --freeze-perceiver on the manifest: 4 steps, saving at step
+    3; its first loss against the train step's loss on the builder's first
+    batch with the model loaded from the checkpoint, the launches against
+    the formulas, the perceiver unchanged; then a second run on the same
+    directory to step 4 resumes at step 3 and its loss equals the unbroken
+    run's fourth."""
+    import torch
+
+    from leopard_tpu_torch.cli import train_leopard_idefics2 as cli
+    from leopard_tpu_torch.config import TrainConfig
+    from leopard_tpu_torch.convert.hf import load_leopard_idefics2
+    from leopard_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from leopard_tpu_torch.ops.fused_norms import fused_layer_norm, fused_rms_norm
+    from leopard_tpu_torch.training import trainer
+
+    steps = IDEFICS2_TRAIN_STEPS + 1
+    batches = idefics2_train_batches(cfg, rows, manifest.parent, steps)
+    for b in batches:
+        held("Idefics2 train CLI", "K1", k2_ran(b, cfg), k1_checked)
+        held("Idefics2 train CLI", "K2", k2_ran(b, cfg), k2_checked)
+    run = tmp / "idefics2_run"
+    argv = ["--manifest", str(manifest), "--image-folder", str(manifest.parent),
+            "--tokenizer", "(the smoke's own)", "--init-from", str(hf_dir),
+            "--checkpoint-dir", str(run), "--seq-len", str(IDEFICS2_TRAIN_SEQ),
+            "--global-batch-size", "2", "--set", f"text.num_layers={cfg.text.num_layers}",
+            "--freeze-perceiver", "--device", device.type]
+    ref = load_leopard_idefics2(str(hf_dir), cfg, device)
+    perceiver = {n: p.detach().float().clone() for n, p in ref.named_parameters()
+                 if n.startswith("perceiver.")}
+    tc = TrainConfig()
+    with torch.no_grad():
+        ref_loss = trainer.make_train_step(cfg, tc, model=ref).eval_loss(
+            dict(ref.named_parameters()), to_device(batches[0], device))[0].item()
+    del ref
+    torch.cuda.empty_cache()
+
+    lt, lv, lp = cfg.text.num_layers, cfg.vision.num_layers, cfg.perceiver.num_layers
+    counters = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+                "fused_rms_norm": fused_rms_norm, "fused_layer_norm": fused_layer_norm}
+    per_step = {"flash_attention": 2 * (lt + lv), "flash_attention_bwd": lt + lv,
+                "fused_rms_norm": 2 * 2 * lt + 1 + 3 * lp + 1,
+                "fused_layer_norm": 2 * 2 * lv + 1}
+    tok = Idefics2ByteTokenizer()
+    walls, totals = [], []
+    states = []
+    for n_steps in (steps, steps):  # the unbroken run saving at step 3, then the resume
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        flash_attention.copies = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            state = cli.train_main(cli.parse_args(argv + ["--train-steps", str(n_steps)]),
+                                   tokenizer=tok, save_interval=IDEFICS2_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        totals.append({k: c.launches for k, c in counters.items()})
+        states.append({"step": int(state.step), "peak_gib":
+                       torch.cuda.max_memory_allocated() / 2**30, "stdout": out.getvalue(),
+                       "copies": flash_attention.copies,
+                       "perceiver_equal": all(torch.equal(state.params[n], p.to(device))
+                                              for n, p in perceiver.items())})
+        del state
+        torch.cuda.empty_cache()
+    with open(run / "metrics.jsonl") as f:
+        logged = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in logged]
+    if [r["step"] for r in logged] != [*range(1, steps + 1), steps]:
+        raise AssertionError(f"Idefics2 train CLI: logged steps {[r['step'] for r in logged]}")
+    if not np.isfinite(losses).all() or any(r["nan_iters"] for r in logged):
+        raise AssertionError(f"Idefics2 train CLI: non-finite losses {losses}")
+    if f"resumed from step {IDEFICS2_TRAIN_STEPS}" not in states[1]["stdout"]:
+        raise AssertionError(f"Idefics2 train CLI: the second run did not resume: "
+                             f"{states[1]['stdout']!r}")
+    rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    if rel > TRAIN_CLI_LOSS_RTOL:
+        raise AssertionError(f"Idefics2 train CLI: step 1 loss {losses[0]} vs the train "
+                             f"step's {ref_loss} (rel {rel:.3g} > {TRAIN_CLI_LOSS_RTOL})")
+    resume_rel = abs(losses[-1] - losses[steps - 1]) / abs(losses[steps - 1])
+    if resume_rel > TRAIN_CLI_LOSS_RTOL:
+        raise AssertionError(f"Idefics2 train CLI: the resumed step {steps} loss {losses[-1]} "
+                             f"vs the unbroken run's {losses[steps - 1]}")
+    expect("Idefics2 train CLI", totals[0], {k: steps * n for k, n in per_step.items()})
+    expect("Idefics2 train CLI resumed", totals[1], per_step)
+    if any(s["copies"] for s in states) or not all(s["perceiver_equal"] for s in states):
+        raise AssertionError(f"Idefics2 train CLI: copies or a moved frozen perceiver {states}")
+    step_ms = statistics.mean(r["step_time"] for r in logged[1:steps]) * 1e3
+    rec = {"losses": losses, "train_step_loss": ref_loss, "loss_rel_diff": rel,
+           "resume_rel_diff": resume_rel, "row_lengths": [row_lengths(b) for b in batches],
+           "step_ms": [r["step_time"] * 1e3 for r in logged], "step_ms_mean_2_4": step_ms,
+           "tokens_per_s": 2 * IDEFICS2_TRAIN_SEQ / step_ms * 1e3,
+           "data_ms": [r["data_time"] * 1e3 for r in logged], "wall_s": walls,
+           "peak_memory_gib": [s["peak_gib"] for s in states], "launches": totals,
+           "launches_per_step": per_step}
+    print(f"train_leopard_idefics2 CLI: {IDEFICS2_TRAIN_SAMPLES}-sample manifest, --init-from "
+          f"phase 25's checkpoint, --freeze-perceiver, {steps} steps at 2 x "
+          f"{IDEFICS2_TRAIN_SEQ} saving at step {IDEFICS2_TRAIN_STEPS}: losses "
+          f"{[round(x, 6) for x in losses[:steps]]}, step 1 vs the train step on the "
+          f"builder's first batch {ref_loss:.6f} (rel {rel:.3g}, tol {TRAIN_CLI_LOSS_RTOL}); "
+          f"resumed at step {IDEFICS2_TRAIN_STEPS}, step {steps} loss {losses[-1]:.6f} vs the "
+          f"unbroken {losses[steps - 1]:.6f} (rel {resume_rel:.3g}); launches {totals} = "
+          f"{steps} x and 1 x {per_step}; the perceiver unchanged; step {step_ms:.1f} ms "
+          f"(mean of steps 2-{steps}), the builder's wait a step "
+          f"{[round(x, 1) for x in rec['data_ms']]} ms; the runs {[round(w, 2) for w in walls]} "
+          f"s; peak device memory {[round(s['peak_gib'], 2) for s in states]} GiB [{card}]",
+          flush=True)
     return rec
 
 
@@ -3961,15 +4470,7 @@ def train_policies_phase(model, cfg, batch, card):
         if ref is None:
             ref = grads
         else:
-            sums = {}
-            for n, a in grads.items():
-                b = ref[n]
-                acc = sums.setdefault(param_group(n), [0.0, 0.0, 0.0])
-                acc[0] += float((a.double() * b.double()).sum())
-                acc[1] += float(a.double().square().sum())
-                acc[2] += float(b.double().square().sum())
-            r["cosines"] = {g: dot / max((na * nb) ** 0.5, 1e-30)
-                            for g, (dot, na, nb) in sums.items()}
+            r["cosines"] = group_cosines(grads, ref)
             r["loss_rel_diff"] = abs(r["loss"] - rec["full"]["loss"]) / abs(rec["full"]["loss"])
         del grads
         rec[policy] = r
@@ -4061,10 +4562,23 @@ def main() -> int:
     print(f"eval sets written in {write_s:.2f} s; planned rows (crops, prompt tokens): "
           f"{eval_plans}; K1 shapes of phases 26-29: {sorted(eval_shapes)}", flush=True)
 
+    # the manifest of phases 32-33 and its batches, built now, so that phase
+    # 3 holds K1 and K2 at their shapes
+    train_tmp = tempfile.TemporaryDirectory(prefix="leopard_idefics2_train_")
+    dcfg = dataclasses.replace(icfg, text=dataclasses.replace(
+        icfg.text, num_layers=IDEFICS2_TEXT_LAYERS))
+    t0 = time.perf_counter()
+    i2_manifest, i2_rows = write_idefics2_manifest(Path(train_tmp.name) / "manifest")
+    i2_batches = idefics2_train_batches(dcfg, i2_rows, i2_manifest.parent)
+    i2_k1, i2_k2 = idefics2_train_shapes(dcfg, i2_batches)
+    print(f"Idefics2 train manifest written and {IDEFICS2_TRAIN_STEPS} batches built in "
+          f"{time.perf_counter() - t0:.2f} s: rows of {[row_lengths(b) for b in i2_batches]} "
+          f"tokens, images {[b['patch_mask'].shape for b in i2_batches]}", flush=True)
+
     # phase 3: kernel against its plain version at the serving path's shapes
-    # (Leopard-LLaVA's, then those of the Idefics2 phases 22-25 and of the
-    # eval phases 26-29)
-    k1_shapes = {**K1_SHAPES, **idefics2_k1_shapes(icfg), **eval_shapes}
+    # (Leopard-LLaVA's, then those of the Idefics2 phases 22-25, of the eval
+    # phases 26-29 and of the Idefics2 train phases 32-33)
+    k1_shapes = {**K1_SHAPES, **idefics2_k1_shapes(icfg), **eval_shapes, **i2_k1}
     per_shape = {name: kernel_vs_plain(name, device=device, card=card, **kw)
                  for name, kw in k1_shapes.items()}
     k1_checked = k1_held(k1_shapes)
@@ -4088,6 +4602,9 @@ def main() -> int:
     n_tiles = sum(len(row) for row in TRAIN_ROWS) * TRAIN_TILES_PER_SAMPLE
     k2 = {name: flash_bwd_vs_plain(name, device=device, card=card, **kw)
           for name, kw in k2_shapes(text, vis).items()}
+    k2_idefics2 = {name: flash_bwd_vs_plain(name, device=device, card=card, **kw)
+                   for name, kw in i2_k2.items()}
+    k2_checked = k2_held(i2_k2)
     k3 = {"rms": norm_vs_plain("rms", len(TRAIN_ROWS) * TRAIN_SEQ, text.hidden_size, device,
                                card, flush),
           "ln": norm_vs_plain("ln", n_tiles * vis.tokens_per_tile, vis.hidden_size, device,
@@ -4292,12 +4809,31 @@ def main() -> int:
     eval_tmp.cleanup()
     del model
     torch.cuda.empty_cache()
-    dcfg = dataclasses.replace(icfg, text=dataclasses.replace(
-        icfg.text, num_layers=IDEFICS2_TEXT_LAYERS))
     with tempfile.TemporaryDirectory(prefix="leopard_smoke_") as tmp:
         idefics2["checkpoint"] = idefics2_checkpoint_phase(dcfg, launches, card, Path(tmp),
                                                            device, k1_checked)
-    peak["idefics2_checkpoint"] = phase_memory("Idefics2 checkpoint and the convert, serve CLIs")
+        peak["idefics2_checkpoint"] = phase_memory(
+            "Idefics2 checkpoint and the convert, serve CLIs")
+
+        # phase 32: the Idefics2 train step at 8B widths, text depth 4
+        model = idefics2_model(dcfg, device)
+        n_train = sum(p.numel() for p in model.parameters())
+        print(f"Idefics2 train model: 8B widths, {IDEFICS2_TEXT_LAYERS} of 32 text layers, "
+              f"27 tower and 3 perceiver layers, {n_train} parameters", flush=True)
+        i2_train = {"grads_vs_dense": idefics2_grads_vs_dense(model, dcfg, i2_batches[0], card)}
+        peak["idefics2_train_grads"] = phase_memory("Idefics2 train, K1 + K2 vs dense")
+        i2_train["remat"] = idefics2_train_phase(model, dcfg, i2_batches, card, k1_checked,
+                                                 k2_checked)
+        del model
+        peak["idefics2_train"] = phase_memory("Idefics2 train")
+
+        # phase 33: the train_leopard_idefics2 CLI on phase 25's checkpoint
+        i2_train["cli"] = idefics2_train_cli_phase(
+            Path(tmp) / "idefics2_hf", i2_manifest, i2_rows, dcfg, card, Path(tmp), device,
+            k1_checked, k2_checked)
+        peak["idefics2_train_cli"] = phase_memory("Idefics2 train CLI")
+    train_tmp.cleanup()
+    idefics2["train"] = i2_train
     features["idefics2"] = idefics2
 
     # phase 31: no JAX
@@ -4311,6 +4847,9 @@ def main() -> int:
                     (icfg.text.num_layers, per_shape[f"mistral_{IDEFICS2_BUCKET}"]))
     per_train_step = ((tcfg.text.num_layers, k2["decoder"]),
                       (tcfg.vision.num_layers, k2["tower"]))
+    per_idefics2_step = ((dcfg.text.num_layers, k2_idefics2[f"mistral_train_{IDEFICS2_TRAIN_SEQ}"]),
+                         (dcfg.vision.num_layers,
+                          k2_idefics2[f"navit_b{len(IDEFICS2_IMAGES)}"]))
 
     def total(parts, key):
         return sum(n * r[key] for n, r in parts)
@@ -4342,6 +4881,13 @@ def main() -> int:
         """K1's or K2's launches a train step under each policy (phase 30)."""
         return {"launches_train_step_by_remat": {
             p: evals["remat"][p]["launches"][name] for p in REMAT_POLICIES}}
+
+    def idefics2_train_paths(name):
+        """A kernel's launches a step of phase 32 under each policy and over
+        phase 33's unbroken run."""
+        return {"launches_idefics2_train_step_by_remat": {
+                    p: r["launches_per_step"][name] for p, r in i2_train["remat"].items()},
+                "launches_idefics2_train_cli": i2_train["cli"]["launches"][0][name]}
 
     def bound_by(parts):
         """What bounds a sum of calls: the side holding most of its bound."""
@@ -4376,6 +4922,7 @@ def main() -> int:
         **new_paths("flash_attention"),
         **eval_paths("flash_attention"),
         **remat_paths("flash_attention"),
+        **idefics2_train_paths("flash_attention"),
         "idefics2": {
             "launches_per_generate": idefics2["serve"]["launches"]["flash_attention"],
             "launches_serve_cli_depth4": idefics2["checkpoint"]["serve"]["launches"][
@@ -4449,7 +4996,7 @@ def main() -> int:
         "source": "leopard_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "leopard_tpu/ops/pallas/flash_attention.py:443",
         "launches": train_run["launches"]["flash_attention_bwd"],
-        "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in [*k2.values(), *k2_idefics2.values()]),
         "ms": total(per_train_step, "ms"),
         "plain_ms": total(per_train_step, "plain_ms"),
         "bound_ms": total(per_train_step, "bound_ms"),
@@ -4465,6 +5012,18 @@ def main() -> int:
                  f"{tcfg.vision.num_layers} x tower",
         "launches_train_cli": features["train_cli"]["launches"]["flash_attention_bwd"],
         **remat_paths("flash_attention_bwd"),
+        **idefics2_train_paths("flash_attention_bwd"),
+        "idefics2": {
+            **{key: total(per_idefics2_step, key)
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms", "library_attended_ms")},
+            "bound_by": bound_by(per_idefics2_step),
+            "ms_is": f"per Idefics2 train step: {dcfg.text.num_layers} x mistral_train_"
+                     f"{IDEFICS2_TRAIN_SEQ} + {dcfg.vision.num_layers} x navit_b8 (phase 3)",
+            "k2_ms_per_step_in_train": {p: r["k2_ms_per_step"]
+                                        for p, r in i2_train["remat"].items()},
+            "shapes": list(k2_idefics2.values()),
+            "train": i2_train,
+        },
         "shapes": list(k2.values()),
         "card": card,
         "train": train_run,
@@ -4481,6 +5040,7 @@ def main() -> int:
                                       features.items() if "launches" in rec},
         **new_paths(name),
         **eval_paths(name),
+        **idefics2_train_paths(name),
         "max_abs_err": k3[kind]["max_abs_err"],
         "ms": k3[kind]["ms"],
         "plain_ms": k3[kind]["plain_ms"],

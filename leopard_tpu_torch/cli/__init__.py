@@ -1,6 +1,7 @@
 """The port's entry points, one module per example of the JAX package, run
 as `python -m leopard_tpu_torch.cli.<name>`: generate, serve,
-train_leopard_llava and convert_checkpoint. Each takes the JAX example's
+train_leopard_llava, train_leopard_idefics2, convert_checkpoint and
+run_eval. Each takes the JAX example's
 flags (less those that need a device mesh) and `--device`, `cuda` unless
 the caller asks for `cpu`; without a card it refuses to run on `cuda`."""
 

@@ -418,6 +418,28 @@ def tiny_vlm(vocab_size: int = 512) -> VLMConfig:
     )
 
 
+def tiny_idefics2() -> VLMConfig:
+    """Leopard-Idefics2's topology at toy widths, for tests and `--tiny`
+    runs: a 2-layer NaViT tower at head dim 72 on a 6 × 6 patch table, a
+    2-layer perceiver of 4 latents, and a 2-layer Mistral with its
+    32,003-token vocabulary and a sliding window of 16."""
+    vision = VisionConfig(hidden_size=144, intermediate_size=256, num_layers=2, num_heads=2,
+                          image_size=84, patch_size=14, layer_norm_eps=1e-6, dtype="float32")
+    text = TextConfig(vocab_size=32003, hidden_size=64, intermediate_size=128, num_layers=2,
+                      num_heads=4, num_kv_heads=2, head_dim=16, rope_theta=10000.0,
+                      rope_scaling=None, sliding_window=16,
+                      max_position_embeddings=32768, dtype="float32")
+    perceiver = PerceiverConfig(num_latents=4, num_layers=2, hidden_size=64, num_heads=4,
+                                num_kv_heads=2, head_dim=16, intermediate_size=96,
+                                rms_norm_eps=1e-6, dtype="float32")
+    return VLMConfig(
+        vision=vision, text=text, perceiver=perceiver,
+        projector=ProjectorConfig(projector_type="none", input_size=64, hidden_size=64,
+                                  dtype="float32"),
+        anyres=AnyResConfig(tile_size=84, tile_budget=0, tokens_per_tile=4),
+        image_token_id=32001, pixel_shuffle_factor=1, architecture="leopard_idefics2")
+
+
 # ---------------------------------------------------------------------------
 # Serialization / CLI overrides
 # ---------------------------------------------------------------------------

@@ -238,16 +238,16 @@ def vlm_loss(
     remat_vision=None,
 ):
     """batch: tokens [B, S], loss_weights [B, S], segment_ids [B, S],
-    optional images [N, 3, H, W] and positions [B, S]. Next-token
-    prediction: hidden[:, t] predicts tokens[:, t + 1]; image-token and
-    padding targets carry weight 0. `model` holds the compute weights."""
-    if batch.get("patch_mask") is not None:
-        raise NotImplementedError("NaViT patch masks are not in the port yet")
+    optional images [N, 3, H, W] (with Idefics2's patch_mask [N, H/p, W/p])
+    and positions [B, S]. Next-token prediction: hidden[:, t] predicts
+    tokens[:, t + 1]; image-token and padding targets carry weight 0.
+    `model` holds the compute weights."""
     tokens = batch["tokens"]
     segment_ids = batch.get("segment_ids")
     hidden, _ = model(
-        tokens, images=batch.get("images"), positions=batch.get("positions"),
-        segment_ids=segment_ids, return_hidden=True, remat=remat, remat_vision=remat_vision,
+        tokens, images=batch.get("images"), patch_mask=batch.get("patch_mask"),
+        positions=batch.get("positions"), segment_ids=segment_ids, return_hidden=True,
+        remat=remat, remat_vision=remat_vision,
     )
     targets = tokens[:, 1:]
     weights = batch["loss_weights"][:, 1:].float() * (targets != cfg.image_token_id)
@@ -266,10 +266,11 @@ def _to_device(batch: Mapping[str, Any], device) -> Dict[str, Any]:
 def make_train_step(cfg: VLMConfig, train_cfg: TrainConfig, frozen=(),
                     grad_accum_steps: int = 1, model: Optional[LeopardVLM] = None):
     """Returns train_step(state, batch) → (state, metrics). `frozen` names
-    top-level param groups to freeze ("vision", "text", "projector").
+    top-level param groups to freeze: "vision", "text" and "projector" of
+    Leopard-LLaVA, "vision", "perceiver" and "text" of Leopard-Idefics2.
     `grad_accum_steps` > 1 splits the batch's leading dim into microbatches
     and weights each microbatch's gradients by its tokens in the loss;
-    images must then come pre-stacked [accum, tiles, 3, H, W].
+    images and patch_mask must then come pre-stacked [accum, tiles, ...].
 
     `model` is the compute copy to reuse (its weights are overwritten from
     the masters every step); without one, a model in the text config's

@@ -4,6 +4,9 @@ HF checkpoint written by the JAX package's own export:
 
   - generate: the tokens of `Engine.generate` and of beam search in the JAX
     package on the same checkpoint and the same processor output;
+  - train_leopard_idefics2: two --tiny steps from a manifest of PNGs, step
+    1's loss against a direct train step on the batch builder's first
+    batch; a resumed run takes the unbroken run's third batch and loss;
   - train_leopard_llava: two steps from a manifest; step 1's loss against
     the JAX `make_train_step` on the loader's first batch (rtol 1e-5, as
     tests/test_torch_train_step.py); a run resumed from a saved checkpoint
@@ -20,7 +23,8 @@ HF checkpoint written by the JAX package's own export:
     to the harness called directly on the same model, the merged
     `all_bench_results.json` equal to a one-shard run's; --prefix-caching
     and --spec give the plain run's responses; --arch leopard_idefics2
-    --quantize int4 is refused before anything is read;
+    --quantize int4 is refused before anything is read, by run_eval and
+    by serve;
   - without a GPU, each CLI refuses to run unless given --device cpu.
 """
 
@@ -52,13 +56,16 @@ from leopard_tpu_torch.cli import (
     generate,
     run_eval,
     serve,
+    train_leopard_idefics2,
     train_leopard_llava,
 )
 from leopard_tpu_torch.data import dataset as tds
+from leopard_tpu_torch.data import idefics2_batches as tib
 from tests.test_chat import FakeTokenizer
 from tests.test_torch_idefics2 import CharTokenizer
 from tests.test_torch_idefics2 import init_params as idefics2_params
 from tests.test_torch_idefics2 import tiny_idefics2
+from tests.test_torch_idefics2_train import EouTokenizer, write_rows
 
 torch.set_num_threads(2)
 VOCAB = 128256
@@ -326,6 +333,100 @@ def idefics2_dir(tmp_path_factory):
     return {"hf": str(root), "params": params, "sd": sd}
 
 
+def idefics2_train_argv(idefics2_dir, manifest, ckpt_dir, steps):
+    return ["--manifest", str(manifest), "--image-folder", str(manifest.parent),
+            "--tokenizer", "unused", "--init-from", idefics2_dir["hf"], "--checkpoint-dir",
+            str(ckpt_dir), "--seq-len", "96", "--global-batch-size", "2", "--train-steps",
+            str(steps), "--lr", "1e-3", "--device", "cpu", "--tiny"]
+
+
+@pytest.fixture(scope="module")
+def idefics2_manifest(tmp_path_factory):
+    """5 rows of 1-2 seeded PNGs (27 × 27 and 27 × 36 patches once resized)
+    and a two-turn Idefics2 chat."""
+    root = tmp_path_factory.mktemp("idefics2_manifest")
+    rows = write_rows(root, [(((40, 30), (30, 30)), 5, 12), (((60, 60),), 0, 20),
+                             (((30, 30),), 3, 9), (((25, 25), (35, 35)), 2, 15),
+                             (((35, 35),), 7, 11)], seed=3)
+    (root / "data.jsonl").write_text("".join(json.dumps(r) + "\n" for r in rows))
+    return root / "data.jsonl"
+
+
+def run_idefics2_train(idefics2_dir, manifest, ckpt_dir, steps, monkeypatch, **overrides):
+    """train_leopard_idefics2's train_main with the test tokenizer; returns
+    (state, the batches it built)."""
+    seen = []
+    real = tib.idefics2_batch
+
+    def record(*a, **kw):
+        seen.append(real(*a, **kw))
+        return seen[-1]
+
+    monkeypatch.setattr(tib, "idefics2_batch", record)
+    with redirect_stdout(io.StringIO()) as out:
+        state = train_leopard_idefics2.train_main(train_leopard_idefics2.parse_args(
+            idefics2_train_argv(idefics2_dir, manifest, ckpt_dir, steps)),
+            tokenizer=EouTokenizer(), **overrides)
+    monkeypatch.setattr(tib, "idefics2_batch", real)
+    return state, seen, out.getvalue()
+
+
+def test_train_idefics2_first_loss_equals_a_direct_step(idefics2_dir, idefics2_manifest,
+                                                        tmp_path, monkeypatch):
+    """`train_leopard_idefics2 --tiny --device cpu` from a manifest of PNGs,
+    2 steps: its first loss equals a train step of the port on the same
+    first batch and the checkpoint's weights."""
+    from leopard_tpu_torch.convert.hf import load_leopard_idefics2
+    from leopard_tpu_torch.training import trainer
+
+    state, batches, _ = run_idefics2_train(idefics2_dir, idefics2_manifest, tmp_path / "run", 2,
+                                           monkeypatch)
+    rows = metrics(tmp_path / "run")
+    assert state.step == 2 and [r["step"] for r in rows] == [1, 2] and len(batches) == 2
+    assert all(np.isfinite(r["loss"]) and r["tokens_in_loss"] > 0 for r in rows)
+    assert [b["patch_mask"].shape[0] for b in batches] == [3, 3]
+    cfg = tcfgs.tiny_idefics2()
+    tc = tcfgs.TrainConfig(seq_len=96, global_batch_size=2, train_steps=2,
+                           optimizer=tcfgs.OptimizerConfig(lr=1e-3, decay_steps=2))
+    model = load_leopard_idefics2(idefics2_dir["hf"], cfg, "cpu")
+    _, want = trainer.make_train_step(cfg, tc)(
+        trainer.create_train_state(model, tc),
+        {k: torch.from_numpy(v) for k, v in batches[0].items()})
+    np.testing.assert_allclose(rows[0]["loss"], float(want["loss"]), rtol=1e-6)
+    np.testing.assert_allclose(rows[0]["tokens_in_loss"], float(want["tokens_in_loss"]))
+
+
+def test_train_idefics2_resumes_at_the_next_rows(idefics2_dir, idefics2_manifest, tmp_path,
+                                                 monkeypatch):
+    """Two steps saving after each, then a run to step 3 from that directory,
+    against three unbroken steps: the resumed run restores params and
+    optimizer and starts its batches at row 2 × 2, so its one batch and its
+    loss are the unbroken run's third."""
+    run_idefics2_train(idefics2_dir, idefics2_manifest, tmp_path / "a", 2, monkeypatch,
+                       save_interval=1)
+    state, resumed, out = run_idefics2_train(idefics2_dir, idefics2_manifest, tmp_path / "a", 3,
+                                             monkeypatch)
+    assert "resumed from step 2" in out and state.step == 3 and len(resumed) == 1
+    _, whole, _ = run_idefics2_train(idefics2_dir, idefics2_manifest, tmp_path / "b", 3,
+                                     monkeypatch)
+    for k, v in whole[2].items():
+        np.testing.assert_array_equal(resumed[0][k], v, err_msg=k)
+    np.testing.assert_allclose(metrics(tmp_path / "a")[-1]["loss"],
+                               metrics(tmp_path / "b")[-1]["loss"], rtol=1e-6)
+
+
+def test_serve_refuses_idefics2_int4(tmp_path, capsys):
+    """Refused at parse time, before any weight loads: Mistral's 32,003-wide
+    head is no multiple of 128, which K4 needs."""
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "leopard_idefics2", "--quantize", "int4", "--checkpoint",
+                    str(tmp_path / "missing"), "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert "32,003" in err and "multiple of 128" in err
+    assert serve.parse_args(["--arch", "leopard_idefics2", "--quantize", "int8",
+                             "--checkpoint", "c"]).quantize == "int8"
+
+
 @pytest.mark.parametrize("arch", ["leopard_idefics2", "mistral"])
 def test_convert_idefics2_both_directions(idefics2_dir, tmp_path, arch):
     from safetensors import safe_open
@@ -517,7 +618,8 @@ def test_run_eval_refuses_idefics2_int4(tmp_path, capsys):
                                 "--checkpoint", "c", "--data-root", "d"]).quantize == "int8"
 
 
-@pytest.mark.parametrize("name", ["generate", "serve", "train", "convert", "run_eval"])
+@pytest.mark.parametrize("name", ["generate", "serve", "train", "train_idefics2", "convert",
+                                  "run_eval"])
 def test_refuses_without_gpu(workdir, tmp_path, name, monkeypatch):
     """With no card and no --device cpu, each CLI exits with an error before
     it reads anything."""
@@ -527,6 +629,9 @@ def test_refuses_without_gpu(workdir, tmp_path, name, monkeypatch):
         "serve": (serve.main, ["--checkpoint", workdir["hf"]]),
         "train": (train_leopard_llava.main,
                   train_argv(workdir, tmp_path / "t", 1)[:-len(SETS) - 3] + ["--tiny"]),
+        "train_idefics2": (train_leopard_idefics2.main,
+                           ["--manifest", workdir["manifest"], "--tokenizer", "unused",
+                            "--checkpoint-dir", str(tmp_path / "t"), "--tiny"]),
         "convert": (convert_checkpoint.main, ["--direction", "hf2native", "--input",
                                               workdir["hf"], "--output", str(tmp_path / "n")]),
         "run_eval": (run_eval.main, ["--checkpoint", workdir["hf"], "--data-root",

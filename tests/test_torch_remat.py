@@ -57,6 +57,14 @@ def _params():
     return jax.device_get(jvlm.init_params(jcfgs.tiny_vlm(), jax.random.PRNGKey(0)))
 
 
+def _first_layer(cfg):
+    """Decoder layer 0 of a VLM holding the JAX init's weights (a module
+    built without loading holds whatever `torch.empty` gave it)."""
+    model = vlm.LeopardVLM(cfg)
+    model.load_state_dict(state_dict_from_jax(_params(), cfg), strict=True)
+    return model.text.layers[0]
+
+
 def _port_grads(cfg, params, batch, remat, remat_vision=None):
     model = vlm.LeopardVLM(cfg)
     model.load_state_dict(state_dict_from_jax(params, cfg), strict=True)
@@ -162,7 +170,7 @@ def test_selective_saves_plain_matmuls(mode, recomputed):
     recomputed forward matmuls but the last (w_down: the recompute stops
     once it has every saved tensor, and no backward reads that output)."""
     cfg = _flash_cfg()
-    layer = vlm.LeopardVLM(cfg).text.layers[0]
+    layer = _first_layer(cfg)
     torch.nn.init.normal_(layer.attn.wq, std=0.1)
     h = cfg.text.hidden_size
     x = torch.randn(1, 16, h, requires_grad=True)
@@ -195,7 +203,7 @@ def test_attn_out_tagged_only_where_saved(mode, tags):
     """One dense decoder layer's forward: tag_attn_out's copy runs once
     under the policies that save it and never under "none" or "full"."""
     cfg = cfgs.tiny_vlm()
-    layer = vlm.LeopardVLM(cfg).text.layers[0]
+    layer = _first_layer(cfg)
     x = torch.randn(1, 16, cfg.text.hidden_size, requires_grad=True)
     from leopard_tpu_torch.ops.rotary import compute_inv_freq, rope_cos_sin
 
