@@ -37,6 +37,10 @@ script exits non-zero without printing a result:
      plain version and the fp32 oracle, with its GB/s, tinygemm's time
      (torch._weight_int4pack_mm, bf16 scales), F.linear's on the bf16 weight
      it replaces, and host µs per call of both, per shape and per step;
+     for phases 34-36: K1 and K2 at the MoE model's head dim 64 ([4, 4,096]
+     causal, 32/16 heads, and K1 at phase 35's [2, 4,096] prefill), held by
+     cosine >= KERNEL_COSINE_MIN too, K3a at (16,384, 2,048), and K4 at
+     Mistral's head padded to 32,128 columns (M = 1, K = 4,096);
   4. serving at 8B: Engine.generate on Leopard-LLaVA-8B with seeded random
      weights, 2 requests of 16 uint8 364×364 tiles each, 16 greedy tokens;
      K1's and K3's launch counts, no K1 input copied (TMA reads every
@@ -208,6 +212,29 @@ script exits non-zero without printing a result:
      first loss against the train step's on the builder's first batch
      (rel 1e-4), the launches, the perceiver unchanged; a second run on the
      same directory resumes at step 3 and its loss equals the fourth;
+ 36. (after phase 23) phase 22's request through Engine(quantize="int4"):
+     Mistral's head, 32,003 columns held padded to 32,128, reaches K4 at
+     the prefill and every decode step (launches counted by N), every
+     other decode matmul too; tokens in the vocab and repeated; TTFT and
+     decode ms/step;
+ 34. (after phase 33) the MoE decoder with tied embeddings at the full width
+     of the JAX package's MoE model (tools/bench_moe.py's compute-dense
+     shape: hidden 2,048, ffn 5,632, 4 experts top-2, 4 layers, 32/16 heads
+     of dim 64, vocab 32,768; 0.671 B parameters), seeded weights, 4 x
+     4,096 seeded tokens: dropless against the capacity path at capacity
+     factor 4, where nothing drops, as one layer on layer 0's weights
+     (output and gradients at cosine >= 0.999) and as one whole step (losses
+     within 1e-3, layer 0's routing identical; the gradient cosines and the
+     tokens later layers route otherwise, through bf16 near-ties,
+     reported), then 3 steps of make_train_step under dropless and
+     capacity (factor 1.25) each with "full" and "selective": losses finite,
+     dropless drops nothing, K1/K2/K3a launches a step as the formulas,
+     moe_fraction_dropped, step ms, tokens/s, MFU(6ND_active) against the
+     card's dense bf16 peak, peak memory;
+ 35. Engine.generate on that model (dropless): two text prompts of 3,000
+     and 2,000 tokens (bucket 4,096), 16 greedy tokens, twice: tokens
+     repeat, K1 and K3a launches as the formulas, the group sizes read on
+     the host once a layer a forward; TTFT and decode ms/step;
  31. no JAX was imported (checked last).
 Each engine is freed after its phase, with the phase's peak device memory
 printed. Then the card's name and power limit as nvidia-smi prints them, one
@@ -468,12 +495,13 @@ def attn_inputs(b, s, hq, hkv, d, rows, device):
 
 
 def kernel_vs_plain(name, b, s, hq, hkv, d, causal, rows, device, card, window=None,
-                    seg_ids=None):
+                    seg_ids=None, cosine_min=None):
     """Phase 3 for one shape: max abs error over valid rows, both times.
     `seg_ids` [B, S] (numpy): segment ids as they come, e.g. a NaViT patch
     mask's interleaved 0/1 ids, in place of `rows`' contiguous ones; then
     `rows` gives each row's count of real patches for the pair count and the
-    attended SDPA. `window`: the decoder's sliding window."""
+    attended SDPA. `window`: the decoder's sliding window. `cosine_min`: the
+    cosine of the valid rows to the plain version must reach it too."""
     import torch
 
     from leopard_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_ref,
@@ -501,6 +529,7 @@ def kernel_vs_plain(name, b, s, hq, hkv, d, causal, rows, device, card, window=N
                                    sliding_window=window)
 
     err = 0.0
+    sums = [0.0, 0.0, 0.0]  # the valid rows' a·b, |a|², |b|² in float64
     for sl in slices:
         part, ok = got[sl[0], :, sl[1].start * g:sl[1].stop * g], valid[sl[0]]
         if not ok.any():  # rows of padding images alone (a tile bucket's)
@@ -508,7 +537,12 @@ def kernel_vs_plain(name, b, s, hq, hkv, d, causal, rows, device, card, window=N
         want = plain(sl)
         err = max(err, (part[ok].float() - want[ok].float()).abs().max().item())
         torch.testing.assert_close(part[ok].float(), want[ok].float(), **KERNEL_TOL)
+        for i, term in enumerate(cosine_sums(part[ok], want[ok])):
+            sums[i] += term
         del want
+    cos = sums[0] / max((sums[1] * sums[2]) ** 0.5, 1e-30)
+    if cosine_min is not None and cos < cosine_min:
+        raise AssertionError(f"{name}: cosine {cos} to the plain version < {cosine_min}")
     ranges = tile_ranges(seg, seg, sq=s, skv=s, causal=causal, window=window, device=device)
     ms = cuda_ms(lambda: flash_attention(q, k, v, ranges=ranges, **kw))  # as the decoder
     # a plain version too large for the card in one call runs in slices:
@@ -547,7 +581,8 @@ def kernel_vs_plain(name, b, s, hq, hkv, d, causal, rows, device, card, window=N
         lib_masked = (f", {masked['library_masked_ms']:.4f} ms (boolean mask)"
                       if masked["library_masked_ms"] is not None
                       else f", boolean mask refused: {masked['library_masked_error']}")
-    print(f"kernel {name}: {shape}: max_abs_err={err:.6g} (tol {KERNEL_TOL}) "
+    cos_note = f", cosine {cos:.7f} (min {cosine_min})" if cosine_min is not None else ""
+    print(f"kernel {name}: {shape}: max_abs_err={err:.6g} (tol {KERNEL_TOL}){cos_note} "
           f"kernel {ms:.4f} ms ({rate['tflops']:.1f} TF/s attended, "
           f"{rate['bound_fraction']:.3f} of the bound), plain {plain_ms:.4f} ms"
           f"{f' (one pass over {len(slices)} slices)' if len(slices) > 1 else ''}, sdpa "
@@ -555,8 +590,8 @@ def kernel_vs_plain(name, b, s, hq, hkv, d, causal, rows, device, card, window=N
           f"{', the window not skipped' if window else ''}){lib_masked}, "
           f"bound {bound_ms:.4f} ms; tile ranges of a lone call {lone_ranges_ms:.4f} ms "
           f"(host) [{card}]", flush=True)
-    return {"shape": f"{name}: {shape}", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "plain_slices": len(slices),
+    return {"shape": f"{name}: {shape}", "max_abs_err": err, "cosine": cos, "ms": ms,
+            "plain_ms": plain_ms, "plain_slices": len(slices),
             "library_ms": library_ms, "library_attended_ms": attended_ms, **masked,
             "tile_ranges_ms": lone_ranges_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, **rate}
@@ -587,6 +622,12 @@ def plain_slices(b, hq, hkv, s, whole_max=PLAIN_WHOLE_MAX):
             for r in range(0, b, rows) for h in range(0, hkv, heads)]
 
 
+def cosine_sums(a, b):
+    """(a·b, |a|², |b|²) in float64, for a cosine summed over slices."""
+    a, b = a.double(), b.double()
+    return (a * b).sum().item(), a.square().sum().item(), b.square().sum().item()
+
+
 def segments_of(rows, s, device):
     """Segment ids [B, S] for rows of consecutive samples (ids 1, 2, ...)
     followed by padding (0)."""
@@ -602,7 +643,7 @@ def segments_of(rows, s, device):
 
 
 def flash_bwd_vs_plain(name, b, s, hq, hkv, d, causal, rows, device, card, window=None,
-                       seg_ids=None):
+                       seg_ids=None, cosine_min=None):
     """Phase 3, K2 at one shape: dq/dk/dv max abs error against the plain
     version on the same inputs (out and lse from K1), times, and the bound.
     `rows`: each row's packed sample lengths, or None (no segments).
@@ -612,7 +653,8 @@ def flash_bwd_vs_plain(name, b, s, hq, hkv, d, causal, rows, device, card, windo
     attend nothing and nothing attends them) and finite from the plain
     version. `window`: the decoder's sliding window. The plain version runs
     in slices of rows and kv heads where its fp32 scores pass
-    PLAIN_SLICE_MAX (it holds several such tensors at once)."""
+    PLAIN_SLICE_MAX (it holds several such tensors at once). `cosine_min`:
+    each of dq, dk, dv must reach it in cosine to the plain version too."""
     import torch
 
     from leopard_tpu_torch.ops import flash_attention as fa
@@ -638,6 +680,7 @@ def flash_bwd_vs_plain(name, b, s, hq, hkv, d, causal, rows, device, card, windo
 
     torch.cuda.synchronize()
     errs = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    sums = {gname: [0.0, 0.0, 0.0] for gname in errs}
     for sl in slices:
         rows_, heads = sl
         qh = slice(heads.start * g, heads.stop * g)
@@ -647,6 +690,11 @@ def flash_bwd_vs_plain(name, b, s, hq, hkv, d, causal, rows, device, card, windo
                 raise AssertionError(f"{name}: {gname} has non-finite values")
             errs[gname] = max(errs[gname], (a.float() - w.float()).abs().max().item())
             torch.testing.assert_close(a.float(), w.float(), **K2_TOL, msg=f"{name} {gname}")
+            for i, term in enumerate(cosine_sums(a, w)):
+                sums[gname][i] += term
+    cosines = {gname: dot / max((na * nb) ** 0.5, 1e-30) for gname, (dot, na, nb) in sums.items()}
+    if cosine_min is not None and min(cosines.values()) < cosine_min:
+        raise AssertionError(f"{name}: K2 cosines {cosines} to the plain version < {cosine_min}")
     padding = None
     if seg_ids is not None:  # padding patches: exactly 0 from K2
         pad = seg == 0
@@ -686,7 +734,10 @@ def flash_bwd_vs_plain(name, b, s, hq, hkv, d, causal, rows, device, card, windo
              + (f" rows={[list(r) for r in rows]}" if rows else ""))
     print(f"kernel flash_attention_bwd {name}: {shape}: max_abs_err "
           + ", ".join(f"{k_}={e:.6g}" for k_, e in errs.items())
-          + f" (tol {K2_TOL}), repeats bit for bit"
+          + f" (tol {K2_TOL})"
+          + (", cosine " + ", ".join(f"{k_}={c:.7f}" for k_, c in cosines.items())
+             + f" (min {cosine_min})" if cosine_min is not None else "")
+          + ", repeats bit for bit"
           + (f", padding patches' gradients {padding}" if padding is not None else "")
           + f"; kernel {ms:.4f} ms ({rate['tflops']:.1f} "
           f"TF/s attended, {rate['bound_fraction']:.3f} of the bound), plain {plain_ms:.4f} ms"
@@ -695,7 +746,7 @@ def flash_bwd_vs_plain(name, b, s, hq, hkv, d, causal, rows, device, card, windo
           f"segments only{', the window not skipped' if window else ''}), bound "
           f"{bound_ms:.4f} ms [{card}]", flush=True)
     return {"shape": f"{name}: {shape}", "max_abs_err": max(errs.values()), "errs": errs,
-            "padding_grads": padding, "plain_slices": len(slices),
+            "cosines": cosines, "padding_grads": padding, "plain_slices": len(slices),
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library_attended_ms": attended_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             **rate}
@@ -4506,6 +4557,394 @@ def train_policies_phase(model, cfg, batch, card):
     return rec
 
 
+
+# phases 34-35: the JAX package's only MoE model, tools/bench_moe.py's
+# compute-dense shape (README: hidden 2,048, ffn 5,632, 4 experts top-2, 4
+# layers, 32 query / 16 KV heads of dim 64, vocab 32,768, tied embeddings;
+# 0.671 B parameters), at that tool's batch of 4 x 4,096 tokens, and
+# phase 36: int4 Leopard-Idefics2 at phase 22's request
+MOE_SHAPE = dict(hidden=2048, ff=5632, experts=4, topk=2, layers=4)
+MOE_BATCH, MOE_SEQ = 4, 4096
+MOE_STEPS = 3
+MOE_CAPACITY_FACTOR = 1.25
+MOE_RUNS = (("dropless", "full"), ("dropless", "selective"), ("capacity", "full"),
+            ("capacity", "selective"))
+# dropless against the capacity path at capacity factor E (nothing drops),
+# one layer on one input: the same routing and expert math, the combine
+# rounded in another order in bf16, so output and gradients agree to bf16
+# noise
+MOE_GRAD_COSINE_MIN = 0.999
+MOE_SERVE_TEXT = (3000, 2000)     # tokens of phase 35's two text prompts (bucket 4,096)
+# K1 and K2 at head dim 64 against their plain versions: bf16 outputs of
+# std ~1 agree to ~2^-9 relative, cosine ~1 - 1e-5
+KERNEL_COSINE_MIN = 0.9999
+# K4 at Mistral's head padded to whole 128-column tiles (phase 36)
+MISTRAL_HEAD_PADDED = 32128
+
+
+def moe_config(mode):
+    """tools/bench_torch_moe.py's config at MOE_SHAPE; `mode` "dropless" or
+    "capacity" (factor MOE_CAPACITY_FACTOR)."""
+    from tools.bench_torch_moe import moe_config as bench_config
+
+    cfg = bench_config(dropless=mode == "dropless", **MOE_SHAPE)
+    return dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, moe_capacity_factor=MOE_CAPACITY_FACTOR))
+
+
+def moe_k1_shapes():
+    """Phase 3's K1 entries of phases 34-35: the train batch's four full
+    rows and the serve prefill's two prompts at bucket 4,096, head dim 64,
+    held by cosine too."""
+    t = moe_config("dropless").text
+    kw = dict(s=MOE_SEQ, hq=t.num_heads, hkv=t.num_kv_heads, d=t.head_dim, causal=True,
+              cosine_min=KERNEL_COSINE_MIN)
+    return {"moe_train": dict(b=MOE_BATCH, rows=((MOE_SEQ,),) * MOE_BATCH, **kw),
+            "moe_serve": dict(b=len(MOE_SERVE_TEXT), rows=tuple((n,) for n in MOE_SERVE_TEXT),
+                              **kw)}
+
+
+def moe_batch(device):
+    """tools/bench_moe.py's batch: seeded ids, every position in the loss."""
+    import torch
+
+    ids = np.random.RandomState(SEED).randint(1, 30000, (MOE_BATCH, MOE_SEQ))
+    return {"tokens": torch.from_numpy(ids).to(device),
+            "loss_weights": torch.ones((MOE_BATCH, MOE_SEQ), device=device),
+            "segment_ids": torch.ones((MOE_BATCH, MOE_SEQ), dtype=torch.int32, device=device)}
+
+
+def moe_train_config(remat):
+    from leopard_tpu_torch.config import OptimizerConfig, TrainConfig
+
+    return TrainConfig(seq_len=MOE_SEQ, global_batch_size=MOE_BATCH, remat=remat,
+                       loss_chunk=1024, optimizer=OptimizerConfig(
+                           lr=1e-5, warmup_steps=1, decay_steps=1000, grad_clip=1.0))
+
+
+def moe_dropless_vs_capacity(model, batch, card, device):
+    """Phase 34, first: dropless against the capacity path at capacity factor
+    E, where nothing drops (the JAX package's tests/test_moe.py:146 at full
+    size). (a) One MoE layer on layer 0's weights and a seeded input of the
+    batch's size, where both route identically: output and gradients (input,
+    router, experts) at cosine >= MOE_GRAD_COSINE_MIN. (b) One whole step of
+    each: nothing dropped, losses within 1e-3 relative, layer 0's routing
+    identical; the step's gradient cosines per text group and each layer's
+    share of tokens routed otherwise are reported: in bf16 a later layer's
+    input differs in its last bits between the two dispatches (the combine
+    rounds in another order), which flips tokens whose k-th and (k+1)-th
+    router probabilities are near ties."""
+    import torch
+
+    from leopard_tpu_torch.ops import moe
+    from leopard_tpu_torch.training import trainer
+
+    cap = moe_config("capacity")
+    e = cap.text.num_experts
+    cfgs_ = {"dropless": moe_config("dropless"),
+             "capacity": dataclasses.replace(cap, text=dataclasses.replace(
+                 cap.text, moe_capacity_factor=float(e)))}
+    # (a) the layer alone
+    layer = model.text.layers[0]
+    g = torch.Generator(device=device).manual_seed(SEED + 34)
+    h = cap.text.hidden_size
+    x0 = torch.randn((MOE_BATCH, MOE_SEQ, h), generator=g, device=device).to(
+        layer.experts.w_gate.dtype)
+    cot = torch.randn((MOE_BATCH, MOE_SEQ, h), generator=g, device=device)
+    leaves = {"router": layer.router.w, **dict(layer.experts.named_parameters())}
+    outs, grads = {}, {}
+    for mode, c in cfgs_.items():
+        mine = {k: v.detach().clone().requires_grad_() for k, v in leaves.items()}
+        x = x0.clone().requires_grad_()
+        out, aux = moe.moe_layer(mine["router"], {k: mine[k] for k in ("w_gate", "w_up", "w_down")},
+                                 moe.MoEConfig(num_experts=e, top_k=c.text.moe_top_k,
+                                               capacity_factor=c.text.moe_capacity_factor,
+                                               dropless=c.text.moe_dropless), x)
+        if float(aux["fraction_dropped"]):
+            raise AssertionError(f"MoE layer {mode} at factor {e} dropped tokens")
+        ((out.float() * cot).sum() + aux["aux_loss"] + aux["z_loss"]).backward()
+        outs[mode] = out.detach()
+        grads[mode] = {"x": x.grad, **{k: v.grad for k, v in mine.items()}}
+    pairs = {"out": (outs["dropless"], outs["capacity"]),
+             **{k: (grads["dropless"][k], grads["capacity"][k]) for k in grads["dropless"]}}
+    layer_cos = {k: cosine(a.reshape(-1), b.reshape(-1), dim=0).item()
+                 for k, (a, b) in pairs.items()}
+    del outs, grads, pairs, x0, cot
+    print(f"MoE layer dropless vs capacity at factor {e} ([{MOE_BATCH} x {MOE_SEQ}, {h}], layer "
+          f"0's weights): cosine " + ", ".join(f"{k}: {c:.7f}" for k, c in layer_cos.items())
+          + f" (min {MOE_GRAD_COSINE_MIN}) [{card}]", flush=True)
+    if min(layer_cos.values()) < MOE_GRAD_COSINE_MIN:
+        raise AssertionError(f"MoE layer: dropless differs from capacity at factor E: "
+                             f"{layer_cos}")
+
+    # (b) a whole step of each, its routing recorded
+    routes, real = [], moe.router_top_k
+
+    def recorded(logits, k):
+        top_p, top_i = real(logits, k)
+        routes.append(top_i.sort(dim=-1).values)
+        return top_p, top_i
+
+    tcfg = moe_train_config("full")
+    state = trainer.create_train_state(model, tcfg)
+    lt = cap.text.num_layers
+    grads, metrics, forward_routes = {}, {}, {}
+    moe.router_top_k = recorded
+    try:
+        for mode, c in cfgs_.items():
+            routes.clear()
+            m = model if mode == "dropless" else idefics2_twin(model, c)
+            loss, metrics[mode], grads[mode] = trainer.make_train_step(
+                c, tcfg, model=m).loss_and_grads(state, batch)
+            metrics[mode] = {k: float(v) for k, v in metrics[mode].items()}
+            metrics[mode]["total_loss"] = float(loss)
+            forward_routes[mode] = routes[:lt]  # the forward's; the recompute's follow
+    finally:
+        moe.router_top_k = real
+    del state
+    flipped = [(a != b).any(dim=-1).float().mean().item()
+               for a, b in zip(forward_routes["dropless"], forward_routes["capacity"])]
+    # text-only batches: the stub tower and projector get no gradient
+    text = {m: {n: g_ for n, g_ in gs.items() if n.startswith("text.")}
+            for m, gs in grads.items()}
+    cosines = group_cosines(text["dropless"], text["capacity"])
+    del grads, text, forward_routes
+    drops = {m: r["moe_fraction_dropped"] for m, r in metrics.items()}
+    rel = abs(metrics["dropless"]["loss"] - metrics["capacity"]["loss"]) / abs(
+        metrics["capacity"]["loss"])
+    print(f"MoE step dropless vs capacity at factor {e}: loss {metrics['dropless']['loss']:.6f} "
+          f"vs {metrics['capacity']['loss']:.6f} (rel {rel:.3g}), dropped {drops}; tokens "
+          f"routed otherwise per layer {flipped} (layer 0 must be 0); the step's gradient "
+          "cosine per group " + ", ".join(f"{g_}: {c:.6f}" for g_, c in cosines.items())
+          + f" (reported) [{card}]", flush=True)
+    if any(drops.values()) or rel > 1e-3 or flipped[0] != 0.0:
+        raise AssertionError(f"MoE step: dropless differs from capacity at factor E: "
+                             f"{metrics}, flipped {flipped}")
+    return {"layer_cosines": layer_cos, "step_cosines": cosines, "metrics": metrics,
+            "loss_rel_diff": rel, "tokens_routed_otherwise_per_layer": flipped}
+
+
+def moe_train_phase(model, batch, card):
+    """Phase 34: MOE_STEPS steps of make_train_step under each (dispatch,
+    recompute) of MOE_RUNS, each from a fresh train state of the model's
+    current weights: loss finite, dropless drops nothing, K1/K2/K3a launches
+    a step as the formulas, step ms, tokens/s, MFU, peak memory."""
+    import torch
+
+    from leopard_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from leopard_tpu_torch.ops.fused_norms import fused_rms_norm
+    from leopard_tpu_torch.training import trainer
+
+    counters = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+                "fused_rms_norm": fused_rms_norm}
+    n_params = sum(p.numel() for p in model.parameters())
+    n_expert = sum(p.numel() for n, p in model.named_parameters() if ".experts." in n)
+    t = moe_config("dropless").text
+    n_active = n_params - n_expert * (1 - t.moe_top_k / t.num_experts)
+    lt = t.num_layers
+    tokens = MOE_BATCH * MOE_SEQ
+    rec = {}
+    for mode, remat in MOE_RUNS:
+        cfg = moe_config(mode)
+        m = model if mode == "dropless" else idefics2_twin(model, cfg)
+        # K1 in the forward and again in a full recompute (saved under
+        # "selective"), K2 once, two RMSNorms a layer forward and recomputed
+        # and the final one
+        want = {"flash_attention": (2 if remat == "full" else 1) * lt,
+                "flash_attention_bwd": lt, "fused_rms_norm": 2 * 2 * lt + 1}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tcfg = moe_train_config(remat)
+        state = trainer.create_train_state(m, tcfg)
+        step = trainer.make_train_step(cfg, tcfg, model=m)
+        steps = []
+        for i in range(MOE_STEPS):
+            for c in counters.values():
+                c.launches = 0
+            flash_attention.copies = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            r = {"ms": ms, "loss": float(metrics["loss"]),
+                 "aux_loss": float(metrics["moe_aux_loss"]),
+                 "z_loss": float(metrics["moe_z_loss"]),
+                 "fraction_dropped": float(metrics["moe_fraction_dropped"]),
+                 "grad_norm": float(metrics["grad_norm"]),
+                 "launches": {k: c.launches for k, c in counters.items()},
+                 "copies": flash_attention.copies}
+            steps.append(r)
+            label = f"MoE train {mode}/{remat} step {i + 1}"
+            if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+                raise AssertionError(f"{label}: non-finite loss or grad norm: {r}")
+            if mode == "dropless" and r["fraction_dropped"] != 0.0:
+                raise AssertionError(f"{label}: dropless dropped {r['fraction_dropped']}")
+            if r["launches"] != want or r["copies"]:
+                raise AssertionError(f"{label}: launches {r['launches']} (copies "
+                                     f"{r['copies']}), expected {want}")
+        del state, step
+        step_ms = statistics.mean(r["ms"] for r in steps[1:])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        mfu = 6 * n_active * tokens / (step_ms * 1e-3) / PEAK_BF16_FLOPS
+        rec[f"{mode}/{remat}"] = {"steps": steps, "step_ms": step_ms,
+                                  "tokens_per_s": tokens / step_ms * 1e3, "mfu_6nd_active": mfu,
+                                  "peak_memory_gib": peak, "launches_per_step": want,
+                                  "fraction_dropped": steps[-1]["fraction_dropped"]}
+        print(f"MoE train {mode}/{remat}: losses {[round(r['loss'], 6) for r in steps]}, aux "
+              f"{steps[-1]['aux_loss']:.6f}, z {steps[-1]['z_loss']:.6f}, moe_fraction_dropped "
+              f"{[r['fraction_dropped'] for r in steps]}; launches a step {want} (K1 "
+              f"{want['flash_attention']}, K2 {lt}, K3a 2 x 2 x {lt} + 1); step ms "
+              f"{[round(r['ms'], 1) for r in steps]} (mean of steps 2-{MOE_STEPS} "
+              f"{step_ms:.1f} ms), {tokens / step_ms * 1e3:.1f} tokens/s, MFU(6ND_active, "
+              f"{n_active / 1e9:.3f} B active of {n_params / 1e9:.3f} B) {mfu * 100:.1f}%, peak "
+              f"{peak:.2f} GiB [{card}]", flush=True)
+    return {"runs": rec, "parameters": n_params, "active_parameters": n_active}
+
+
+def moe_serve_phase(model, card, device):
+    """Phase 35: Engine.generate on the phase-34 model (dropless), two text
+    prompts of MOE_SERVE_TEXT tokens (bucket 4,096), 16 greedy tokens, twice:
+    tokens repeat and lie in the vocab, K1 (prefill) and K3a launches as the
+    formulas, the dropless dispatch called once a layer a forward (one host
+    read of the group sizes each); TTFT and decode ms a step."""
+    import torch
+
+    from leopard_tpu_torch.config import GenerateConfig
+    from leopard_tpu_torch.inference.engine import Engine
+    from leopard_tpu_torch.ops import moe
+    from leopard_tpu_torch.ops.flash_attention import flash_attention
+    from leopard_tpu_torch.ops.fused_norms import fused_rms_norm
+
+    cfg = moe_config("dropless")
+    lt = cfg.text.num_layers
+    rng = np.random.RandomState(SEED + 35)
+    prompts = [rng.randint(1, 30000, n).astype(np.int32) for n in MOE_SERVE_TEXT]
+    engine = Engine(cfg, model)
+    gen = GenerateConfig(max_new_tokens=MAX_NEW_TOKENS, eos_token_ids=(NO_EOS,))
+    steps = MAX_NEW_TOKENS - 1
+    want = {"flash_attention": lt, "fused_rms_norm": (2 * lt + 1) * (1 + steps),
+            "host_reads": lt * (1 + steps)}
+    real = moe._dropless_dispatch
+    reads = []
+
+    def counted(*args, **kw):
+        reads.append(1)
+        return real(*args, **kw)
+
+    moe._dropless_dispatch = counted
+    runs = []
+    try:
+        for _ in range(2):
+            reads.clear()
+            flash_attention.launches = fused_rms_norm.launches = flash_attention.copies = 0
+            res = engine.generate(prompts, gen_cfg=gen)
+            torch.cuda.synchronize()
+            got = {"flash_attention": flash_attention.launches,
+                   "fused_rms_norm": fused_rms_norm.launches, "host_reads": len(reads)}
+            if got != want or flash_attention.copies:
+                raise AssertionError(f"MoE serve: {got} (copies {flash_attention.copies}), "
+                                     f"expected {want}")
+            for toks, lps in zip(res.tokens, res.logprobs):
+                if len(toks) != MAX_NEW_TOKENS or not np.all((toks >= 0)
+                                                               & (toks < cfg.text.vocab_size)):
+                    raise AssertionError(f"MoE serve: tokens {toks}")
+                if not np.all(np.isfinite(lps)):
+                    raise AssertionError(f"MoE serve: non-finite logprobs {lps}")
+            runs.append([t.tolist() for t in res.tokens])
+        if runs[0] != runs[1]:
+            raise AssertionError(f"MoE serve: generate is not repeatable: {runs}")
+        ttft = wall_s(lambda: engine.generate(prompts, gen_cfg=dataclasses.replace(
+            gen, max_new_tokens=1)))
+        full = wall_s(lambda: engine.generate(prompts, gen_cfg=gen))
+    finally:
+        moe._dropless_dispatch = real
+    del engine
+    model.text._head_f32 = None
+    rec = {"prompt_tokens": list(MOE_SERVE_TEXT), "tokens": runs[0], "launches": want,
+           "host_reads_per_decode_step": lt, "ttft_s": ttft,
+           "prefill_tok_s": sum(MOE_SERVE_TEXT) / ttft,
+           "decode_ms_per_step": (full - ttft) / steps * 1e3}
+    print(f"MoE serve (dropless): 2 prompts of {list(MOE_SERVE_TEXT)} tokens (bucket "
+          f"{MOE_SEQ}), {MAX_NEW_TOKENS} greedy tokens identical in two runs; launches {want} "
+          f"(K1 {lt} prefill, K3a {2 * lt + 1} x {1 + steps} forwards; group sizes read on the "
+          f"host {lt} times a forward, once a layer); TTFT {ttft * 1e3:.1f} ms, prefill "
+          f"{rec['prefill_tok_s']:.1f} tok/s, decode {rec['decode_ms_per_step']:.2f} ms/step "
+          f"(batch 2, {steps} steps; median of 3) [{card}]", flush=True)
+    return rec
+
+
+def idefics2_int4_phase(model, cfg, launches, card):
+    """Phase 36: phase 22's request through Engine(quantize="int4"): the
+    head (N = 32,003, held padded to 32,128 columns) reaches K4 at the
+    prefill and every decode step, beside the 7 K4 matmuls of each layer;
+    tokens in the vocab, logprobs finite, tokens repeat; TTFT and decode
+    ms/step."""
+    import torch
+
+    from leopard_tpu_torch.config import GenerateConfig
+    from leopard_tpu_torch.inference.engine import Engine
+    from leopard_tpu_torch.ops import quant
+
+    prompt, pixels, _, patch_mask = idefics2_request(cfg)
+    engine = Engine(cfg, model, quantize="int4")
+    head = engine.model.text.lm_head
+    if head.q4.shape[-1] != MISTRAL_HEAD_PADDED or head.n != cfg.text.vocab_size:
+        raise AssertionError(f"int4 Idefics2 head q4 {tuple(head.q4.shape)}, n {head.n}")
+    gen = GenerateConfig(max_new_tokens=MAX_NEW_TOKENS, eos_token_ids=(NO_EOS,))
+    steps = MAX_NEW_TOKENS - 1
+    widths = collections.Counter()
+    real = quant.int4_matmul
+
+    def counted(x, q4, s, **kw):
+        widths[q4.shape[-1]] += 1
+        return real(x, q4, s, **kw)
+
+    quant.int4_matmul = counted
+    runs = []
+    try:
+        for _ in range(2):
+            widths.clear()
+            with launches:
+                res = engine.generate([prompt], images=pixels, patch_mask=patch_mask,
+                                      gen_cfg=gen)
+            toks, lps = res.tokens[0], res.logprobs[0]
+            if len(toks) != MAX_NEW_TOKENS or not np.all((toks >= 0)
+                                                           & (toks < cfg.text.vocab_size)):
+                raise AssertionError(f"int4 Idefics2: tokens {toks}")
+            if not np.all(np.isfinite(lps)):
+                raise AssertionError(f"int4 Idefics2: non-finite logprobs {lps}")
+            want = {**idefics2_counts(cfg, steps),
+                    "int4_matmul": 1 + (7 * cfg.text.num_layers + 1) * steps}
+            expect("int4 Idefics2", launches.counts, want)
+            if widths[MISTRAL_HEAD_PADDED] != 1 + steps:
+                raise AssertionError(f"int4 Idefics2: K4 at N = {MISTRAL_HEAD_PADDED} "
+                                     f"{widths[MISTRAL_HEAD_PADDED]} times, expected "
+                                     f"{1 + steps}: {dict(widths)}")
+            runs.append(toks.tolist())
+        if runs[0] != runs[1]:
+            raise AssertionError(f"int4 Idefics2: generate is not repeatable: {runs}")
+        by_n = dict(widths)  # one generate's; the timed runs below count on
+        ttft = wall_s(lambda: engine.generate([prompt], images=pixels, patch_mask=patch_mask,
+                                              gen_cfg=dataclasses.replace(gen,
+                                                                          max_new_tokens=1)))
+        full = wall_s(lambda: engine.generate([prompt], images=pixels, patch_mask=patch_mask,
+                                              gen_cfg=gen))
+    finally:
+        quant.int4_matmul = real
+    del engine, head
+    torch.cuda.synchronize()
+    rec = {"tokens": runs[0], "launches": launches.counts,
+           "k4_calls_by_n": {str(k): v for k, v in by_n.items()},
+           "head_k4_launches": by_n[MISTRAL_HEAD_PADDED], "ttft_s": ttft,
+           "decode_ms_per_step": (full - ttft) / steps * 1e3}
+    print(f"int4 Idefics2 serve at 8B: phase 22's request, {MAX_NEW_TOKENS} greedy tokens "
+          f"identical in two runs: {runs[0]}; launches {launches.counts}; K4 calls by N "
+          f"{by_n} (the head padded 32,003 -> {MISTRAL_HEAD_PADDED}: 1 prefill + "
+          f"{steps} decode); TTFT {ttft * 1e3:.1f} ms, decode {rec['decode_ms_per_step']:.2f} "
+          f"ms/step (batch 1; median of 3) [{card}]", flush=True)
+    return rec
+
 def main() -> int:
     import torch
 
@@ -4578,7 +5017,8 @@ def main() -> int:
     # phase 3: kernel against its plain version at the serving path's shapes
     # (Leopard-LLaVA's, then those of the Idefics2 phases 22-25, of the eval
     # phases 26-29 and of the Idefics2 train phases 32-33)
-    k1_shapes = {**K1_SHAPES, **idefics2_k1_shapes(icfg), **eval_shapes, **i2_k1}
+    k1_shapes = {**K1_SHAPES, **idefics2_k1_shapes(icfg), **eval_shapes, **i2_k1,
+                 **moe_k1_shapes()}
     per_shape = {name: kernel_vs_plain(name, device=device, card=card, **kw)
                  for name, kw in k1_shapes.items()}
     k1_checked = k1_held(k1_shapes)
@@ -4605,6 +5045,9 @@ def main() -> int:
     k2_idefics2 = {name: flash_bwd_vs_plain(name, device=device, card=card, **kw)
                    for name, kw in i2_k2.items()}
     k2_checked = k2_held(i2_k2)
+    # K2 at the MoE train batch's shape (phase 34), head dim 64, by cosine too
+    k2_moe = flash_bwd_vs_plain("moe_train", device=device, card=card,
+                                **moe_k1_shapes()["moe_train"])
     k3 = {"rms": norm_vs_plain("rms", len(TRAIN_ROWS) * TRAIN_SEQ, text.hidden_size, device,
                                card, flush),
           "ln": norm_vs_plain("ln", n_tiles * vis.tokens_per_tile, vis.hidden_size, device,
@@ -4616,6 +5059,12 @@ def main() -> int:
                                         card, flush, eps=icfg.perceiver.rms_norm_eps),
                    "ln": norm_vs_plain("ln", navit_rows, icfg.vision.hidden_size, device, card,
                                        flush, eps=icfg.vision.layer_norm_eps)}
+    # K3a at the MoE train batch's rows, width 2,048 (phase 34)
+    k3_moe = norm_vs_plain("rms", MOE_BATCH * MOE_SEQ, MOE_SHAPE["hidden"], device, card, flush)
+    # K4 at the int4 Idefics2 head (phase 36): Mistral's 32,003 columns held
+    # padded to whole 128-column tiles, K = 4,096, one request's decode
+    k4_mistral_head = int4_vs_plain("mistral_head_m1", 1, icfg.text.hidden_size,
+                                    MISTRAL_HEAD_PADDED, device, card, flush)
     del flush
     # K4 in one 8B decode step: the seven matmuls of each layer and lm_head
     n_layers = leopard_llava_8b().text.num_layers
@@ -4801,6 +5250,9 @@ def main() -> int:
     peak["idefics2_serve"] = phase_memory("Idefics2 serve")
     idefics2["dense"] = idefics2_dense_phase(model, icfg, launches, card, k1_checked)
     peak["idefics2_dense"] = phase_memory("Idefics2 K1 vs dense and no window")
+    # phase 36: phase 22's request with int4 weights, the head through K4
+    idefics2["int4"] = idefics2_int4_phase(model, icfg, launches, card)
+    peak["idefics2_int4"] = phase_memory("Idefics2 int4")
     idefics2["hf"] = idefics2_hf_phase(model, icfg, launches, card, device, k1_checked)
     peak["idefics2_hf"] = phase_memory("Idefics2 HF conversion and transformers")
     # phase 27 (eval B): the eval harness on Leopard-Idefics2-8B
@@ -4835,6 +5287,23 @@ def main() -> int:
     train_tmp.cleanup()
     idefics2["train"] = i2_train
     features["idefics2"] = idefics2
+
+    # phases 34-35: the MoE decoder with tied embeddings at tools/bench_moe.py's
+    # full width, trained under both dispatches and both policies, then served
+    t0 = time.perf_counter()
+    model = vlm.init_params(moe_config("dropless"),
+                            torch.Generator(device=device).manual_seed(SEED))
+    batch = moe_batch(device)
+    moe_rec = {"dropless_vs_capacity": moe_dropless_vs_capacity(model, batch, card, device)}
+    moe_rec["train"] = moe_train_phase(model, batch, card)
+    del batch
+    peak["moe_train"] = phase_memory("MoE train")
+    moe_rec["serve"] = moe_serve_phase(model, card, device)
+    del model
+    peak["moe_serve"] = phase_memory("MoE serve")
+    moe_rec["phases_s"] = time.perf_counter() - t0
+    print(f"MoE phases 34-35 took {moe_rec['phases_s']:.1f} s", flush=True)
+    features["moe"] = moe_rec
 
     # phase 31: no JAX
     if "jax" in sys.modules or any(m.split(".")[0] == "leopard_tpu" for m in sys.modules):
@@ -4889,6 +5358,14 @@ def main() -> int:
                     p: r["launches_per_step"][name] for p, r in i2_train["remat"].items()},
                 "launches_idefics2_train_cli": i2_train["cli"]["launches"][0][name]}
 
+    def moe_paths(name):
+        """A kernel's launches a step of phase 34 per (dispatch, recompute)
+        and in one generate of phase 35."""
+        return {"launches_moe_train_step_by_run": {
+                    run: r["launches_per_step"].get(name, 0)
+                    for run, r in features["moe"]["train"]["runs"].items()},
+                "launches_moe_generate": features["moe"]["serve"]["launches"].get(name, 0)}
+
     def bound_by(parts):
         """What bounds a sum of calls: the side holding most of its bound."""
         share = {"operations": 0.0, "bytes": 0.0}
@@ -4923,8 +5400,11 @@ def main() -> int:
         **eval_paths("flash_attention"),
         **remat_paths("flash_attention"),
         **idefics2_train_paths("flash_attention"),
+        **moe_paths("flash_attention"),
+        "moe_shapes": [per_shape["moe_train"], per_shape["moe_serve"]],
         "idefics2": {
             "launches_per_generate": idefics2["serve"]["launches"]["flash_attention"],
+            "launches_int4_generate": idefics2["int4"]["launches"]["flash_attention"],
             "launches_serve_cli_depth4": idefics2["checkpoint"]["serve"]["launches"][
                 "flash_attention"],
             **{key: total(per_idefics2, key)
@@ -4986,6 +5466,10 @@ def main() -> int:
         "spec_rounds_int4_kv8": features["spec_int4_kv8"]["rounds"],
         **new_paths("int4_matmul"),
         **eval_paths("int4_matmul"),
+        "launches_idefics2_int4_generate": idefics2["int4"]["launches"]["int4_matmul"],
+        "launches_idefics2_int4_head": idefics2["int4"]["head_k4_launches"],
+        "idefics2_int4": idefics2["int4"],
+        "mistral_head_shape": k4_mistral_head,
         "serve_int8": timings_int8,
         "end_to_end_cosine": cos4,
         "end_to_end_argmax_agrees": same_argmax4,
@@ -4996,7 +5480,10 @@ def main() -> int:
         "source": "leopard_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "leopard_tpu/ops/pallas/flash_attention.py:443",
         "launches": train_run["launches"]["flash_attention_bwd"],
-        "max_abs_err": max(r["max_abs_err"] for r in [*k2.values(), *k2_idefics2.values()]),
+        "max_abs_err": max(r["max_abs_err"] for r in [*k2.values(), *k2_idefics2.values(),
+                                                       k2_moe]),
+        **moe_paths("flash_attention_bwd"),
+        "moe_shape": k2_moe,
         "ms": total(per_train_step, "ms"),
         "plain_ms": total(per_train_step, "plain_ms"),
         "bound_ms": total(per_train_step, "bound_ms"),
@@ -5041,6 +5528,7 @@ def main() -> int:
         **new_paths(name),
         **eval_paths(name),
         **idefics2_train_paths(name),
+        **moe_paths(name),
         "max_abs_err": k3[kind]["max_abs_err"],
         "ms": k3[kind]["ms"],
         "plain_ms": k3[kind]["plain_ms"],
@@ -5050,6 +5538,7 @@ def main() -> int:
         "library": library,
         "ms_is": f"per call at {k3[kind]['shape']}",
         "idefics2_shape": k3_idefics2[kind],
+        "moe_shape": k3_moe if kind == "rms" else None,
         "card": card,
     } for name, kind, line, library in (
         ("fused_rms_norm", "rms", 54, "F.rms_norm"),

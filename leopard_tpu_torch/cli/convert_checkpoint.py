@@ -11,13 +11,16 @@ tools/convert_checkpoint.py), both directions:
 
 `--arch leopard_idefics2` takes an Idefics2ForConditionalGeneration checkpoint.
 `--arch llama` and `--arch mistral` convert the text decoder alone
-(`model.*` keys) of Leopard-LLaVA and Leopard-Idefics2.
+(`model.*` keys) of Leopard-LLaVA and Leopard-Idefics2; native2hf writes
+their `config.json` beside the tensors (a tied decoder: no `lm_head.weight`,
+`tie_word_embeddings: true`).
 `convert(args, cfg)` is the whole path for a caller with its own config.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 from typing import Optional, Sequence
 
@@ -80,6 +83,9 @@ def convert(args: argparse.Namespace, cfg=None) -> None:
     os.makedirs(args.output, exist_ok=True)
     save_file({k: v.float().contiguous() for k, v in sd.items()},
               os.path.join(args.output, "model.safetensors"))
+    if export_vlm is None:
+        with open(os.path.join(args.output, "config.json"), "w") as f:
+            json.dump(chf.hf_decoder_config(cfg.text), f, indent=2)
     print(f"exported {len(sd)} tensors to {args.output}", flush=True)
 
 

@@ -65,12 +65,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="dotted config override, e.g. text.num_layers=4")
     add_device_arg(p)
     args = p.parse_args(argv)
-    if args.arch == "leopard_idefics2" and args.quantize == "int4":
-        # K4 (and the JAX package's int4 matmul) needs N % 128 == 0: Mistral's
-        # head is 32,003 wide, so the first decode step would fail
-        p.error("--quantize int4 is not servable with --arch leopard_idefics2: the int4 "
-                "matmul needs an output width that is a multiple of 128, and the Mistral "
-                "head is 32,003 wide")
     return args
 
 

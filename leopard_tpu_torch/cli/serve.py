@@ -56,12 +56,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         p.error("--spec applies only to the plain engine path; the "
                 "continuous slot pool decodes one token per row per step. "
                 "Drop one of --spec / --continuous.")
-    if args.arch == "leopard_idefics2" and args.quantize == "int4":
-        # K4 needs N % 128 == 0: Mistral's head is 32,003 wide, so the first
-        # decode step would fail (run_eval refuses the same combination)
-        p.error("--quantize int4 is not servable with --arch leopard_idefics2: the int4 "
-                "matmul needs an output width that is a multiple of 128, and the Mistral "
-                "head is 32,003 wide")
     return args
 
 

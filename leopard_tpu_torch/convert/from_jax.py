@@ -20,6 +20,11 @@ same way:
 the layers and transposes the matrices back, so that the port's params or
 gradients can be held against the JAX tree leaf by leaf.
 
+An MoE decoder's `router.w` and `experts.{w_gate,w_up,w_down}` are matrices
+too, the experts' stacked on an expert axis: the bridge swaps their last two
+axes as it transposes the others. A tied decoder has no `lm_head` on either
+side.
+
 An Idefics2 tree carries its `perceiver` subtree across like any other. Its
 `projector` subtree is dropped: the JAX `init_params` makes one that its
 forward never reads, and the port's model has none (HF's Idefics2 layout has
@@ -43,6 +48,18 @@ LINEAR_LEAVES = frozenset({
 })
 
 
+def _is_matrix(path) -> bool:
+    """A leaf stored transposed in the port: a LINEAR_LEAVES name, or the
+    MoE router's `router.w`."""
+    return path[-1] in LINEAR_LEAVES or tuple(path[-2:]) == ("router", "w")
+
+
+def _swap(a: np.ndarray) -> np.ndarray:
+    """[..., in, out] ↔ [..., out, in]: the last two axes (a 2-D transpose;
+    the experts' leading expert axis stays)."""
+    return np.swapaxes(a, -1, -2)
+
+
 def _to_torch(a: np.ndarray) -> torch.Tensor:
     a = np.array(a, order="C")  # a writable copy: device_get arrays are read-only
     if a.dtype.name == "bfloat16":  # ml_dtypes, as jax.device_get returns it
@@ -59,8 +76,8 @@ def state_dict_from_jax(params: Mapping[str, Any], cfg: VLMConfig) -> Dict[str, 
     out: Dict[str, torch.Tensor] = {}
 
     def put(path, a):
-        if path[-1] in LINEAR_LEAVES:
-            a = a.T
+        if _is_matrix(path):
+            a = _swap(a)
         out[".".join(path)] = _to_torch(a)
 
     def walk(tree, path):
@@ -97,8 +114,8 @@ def jax_tree_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, Any
     for name, t in state.items():
         path = tuple(name.split("."))
         a = np.array(t.detach().to("cpu", torch.float32))  # a copy: the state moves on
-        if path[-1] in LINEAR_LEAVES:
-            a = a.T
+        if _is_matrix(path):
+            a = _swap(a)
         if "layers" in path:
             at = path.index("layers") + 1
             stacks.setdefault(path[:at] + path[at + 1:], {})[int(path[at])] = a

@@ -129,6 +129,9 @@ def _lm_head_key(sd: StateDict, prefix: str) -> str:
 
 def _decoder_names(cfg: TextConfig, prefix: str) -> Dict[str, str]:
     """{port name: HF name} of a decoder, lm_head excluded."""
+    if cfg.num_experts > 0:
+        # the JAX package has no HF layout for its expert banks either
+        raise NotImplementedError("no HF checkpoint layout for MoE decoders")
     names = {"embed_tokens": f"{prefix}embed_tokens.weight", "final_norm": f"{prefix}norm.weight"}
     for i in range(cfg.num_layers):
         for ours, theirs in DECODER_LAYER.items():
@@ -254,11 +257,45 @@ def export_decoder(params, cfg: TextConfig, prefix: str = "model.",
                    lm_head_key: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """The port's `Decoder` state dict → HF LlamaForCausalLM /
     MistralForCausalLM keys; the head goes beside the decoder's prefix
-    (model.* → lm_head.weight) unless `lm_head_key` names it."""
+    (model.* → lm_head.weight) unless `lm_head_key` names it. A tied decoder
+    has no head to write: HF ties it to the embedding on load
+    (`hf_decoder_config` says so)."""
     state = _state(params)
     out = {theirs: state[ours] for ours, theirs in _decoder_names(cfg, prefix).items()}
     if "lm_head" in state:
         out[lm_head_key or prefix.rsplit("model.", 1)[0] + "lm_head.weight"] = state["lm_head"]
+    return out
+
+
+def hf_decoder_config(cfg: TextConfig) -> Dict[str, Any]:
+    """The HF config.json of a decoder alone: LlamaForCausalLM, or
+    MistralForCausalLM for a windowed config, with `tie_word_embeddings` as
+    the config has it."""
+    mistral = cfg.sliding_window is not None
+    rope = None
+    if cfg.rope_scaling == "llama3.1":
+        rope = {"rope_type": "llama3", "factor": cfg.rope_scaling_factor,
+                "low_freq_factor": cfg.rope_low_freq_factor,
+                "high_freq_factor": cfg.rope_high_freq_factor,
+                "original_max_position_embeddings": cfg.rope_original_max_position}
+    elif cfg.rope_scaling == "linear":
+        rope = {"rope_type": "linear", "factor": cfg.rope_scaling_factor}
+    out = {
+        "architectures": ["MistralForCausalLM" if mistral else "LlamaForCausalLM"],
+        "model_type": "mistral" if mistral else "llama",
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+        "head_dim": cfg.head_dim, "rms_norm_eps": cfg.rms_norm_eps,
+        "rope_theta": cfg.rope_theta, "rope_scaling": rope,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "tie_word_embeddings": cfg.tie_word_embeddings, "hidden_act": "silu",
+        "torch_dtype": cfg.dtype,
+    }
+    if mistral:
+        out["sliding_window"] = cfg.sliding_window
+    else:
+        out.update(attention_bias=cfg.attention_bias, mlp_bias=cfg.mlp_bias)
     return out
 
 

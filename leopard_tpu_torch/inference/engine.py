@@ -29,7 +29,14 @@ done" after each step, where the JAX engine runs one `lax.while_loop`.
 `quantize="int8"|"int4"` serves from a new model whose text decoder holds
 quantized weights (ops/quant.py) and shares every other tensor with the
 caller's model, which is left as it is; `quantize_kv=True` keeps the KV cache
-in int8 (models/decoder.py).
+in int8 (models/decoder.py). A tied decoder's head is `embed_tokens`, which
+is not quantized, so it stays fp32, as in the JAX package; an MoE decoder is
+refused with `quantize` (the JAX package cannot serve it either).
+
+An MoE decoder serves like a dense one: its layers run on every position of
+the padded bucket, so capacity-mode drops are those of the JAX engine at the
+same buckets, and dropless dispatch reads its group sizes on the host once a
+layer at every forward.
 
 Not in the port: a device mesh (raises). Where the JAX engine clamps a
 cache write that falls outside a too-small `max_cache`, this engine raises
@@ -176,6 +183,12 @@ class Engine:
             raise ValueError(f"unknown quantize mode {quantize}")
         if mesh is not None:
             raise NotImplementedError("serving over a device mesh is not in the port yet")
+        if quantize is not None and cfg.text.num_experts > 0:
+            # the JAX quantize_tree would quantize the expert banks, which
+            # its moe_layer reads as raw weights: neither package serves it
+            raise NotImplementedError(
+                "quantized serving of an MoE decoder: the expert weights would be "
+                "quantized, and the MoE layer reads them unquantized")
         if quantize is not None:
             # a new model on the caller's tensors (no copy), then its text
             # weights replaced by quantized ones

@@ -17,9 +17,21 @@ without a cache, or into a fresh cache, takes the flash tier; shorter ones
 take dense. On a CUDA tensor the flash tier is the Hopper kernel; on a CPU
 tensor it is the kernel's plain version, which stands in for the JAX
 package's CPU chunked tier (the same function). `attn_impl="dense"` and
-`"flash"` force a tier for uncached and fresh-cache calls. Not in the port
-(they raise): MoE, tied embeddings; context parallelism is not ported
-either.
+`"flash"` force a tier for uncached and fresh-cache calls. Context
+parallelism is not ported.
+
+MoE (JAX decoder.py:407-431, 543-611): with `num_experts > 0` every layer's
+MLP is a routed expert bank, `ops/moe.py`, whose parameters are `router.w`
+[E, H] (fp32 at init) and `experts.w_gate`, `experts.w_up` [E, F, H] and
+`experts.w_down` [E, H, F], the port's [out, in] layout per expert.
+`forward(..., return_aux=True)` also returns {aux_loss, z_loss,
+fraction_dropped}: the losses summed over layers, the dropped share the
+worst layer's. Calls with a cache run the same layers and drop their aux
+values, as the JAX package does.
+
+Tied embeddings (`tie_word_embeddings`): there is no `lm_head`; logits are
+the fp32 hidden states times the fp32 `embed_tokens` transposed (JAX
+decoder.py:626-627), and `keep_fp32_head` copies `embed_tokens`.
 
 Training (JAX decoder.py:435-634 with `return_hidden` and `remat`): packed
 rows carry multi-valued segment ids and positions that restart in each
@@ -29,8 +41,9 @@ autograd). `remat` recomputes each layer in the backward: "full" all of it,
 tagged output), "selective" all but that and the matmul outputs
 (ops/remat.py).
 `return_hidden=True` returns the final-normed hidden states for the
-trainer's chunked cross-entropy, which reads the live `lm_head`, never the
-serving fp32 copy.
+trainer's chunked cross-entropy, which reads the live unembedding
+(`unembedding`: `lm_head`, or `embed_tokens` when tied), never the serving
+fp32 copy.
 
 Quantized serving (JAX decoder.py:131-178, 302-322, 391-394): the seven
 projections and `lm_head` go through `ops/quant.py::matmul`, so a weight that
@@ -54,6 +67,7 @@ from leopard_tpu_torch.models.params import Params, new_param, torch_dtype
 from leopard_tpu_torch.ops.attention import attention, attention_quant_kv, make_attention_mask
 from leopard_tpu_torch.ops.chunked_attention import chunked_continuation_attention, pick_chunk
 from leopard_tpu_torch.ops.flash_attention import TileRanges, flash_attention, tile_ranges
+from leopard_tpu_torch.ops.moe import MoEConfig, moe_layer
 from leopard_tpu_torch.ops.norms import rms_norm
 from leopard_tpu_torch.ops.quant import is_quantized, matmul
 from leopard_tpu_torch.ops.remat import remat_wrap, tag_attn_out
@@ -106,19 +120,33 @@ def _q8(x: torch.Tensor):
     return q, s
 
 
+def moe_config(cfg: TextConfig) -> MoEConfig:
+    return MoEConfig(num_experts=cfg.num_experts, top_k=cfg.moe_top_k,
+                     capacity_factor=cfg.moe_capacity_factor, dropless=cfg.moe_dropless,
+                     aux_loss_coef=cfg.moe_aux_loss_coef, z_loss_coef=cfg.moe_z_loss_coef)
+
+
 class DecoderLayer(nn.Module):
+    """One pre-norm block: attention, then the SwiGLU MLP or, with
+    `num_experts > 0`, the expert bank. A dense layer returns x; an MoE
+    layer returns (x, its aux values)."""
+
     def __init__(self, cfg: TextConfig, *, dtype: torch.dtype, device=None):
         super().__init__()
-        if cfg.num_experts > 0:
-            raise NotImplementedError("MoE layers are not in the port yet")
-        h, f = cfg.hidden_size, cfg.intermediate_size
+        h, f, e = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
         qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
         kw = dict(dtype=dtype, device=device)
         self.input_norm = new_param((h,), dtype, device)
         self.attn = Params({"wq": (qd, h), "wk": (kvd, h), "wv": (kvd, h),
                             "wo": (h, qd)}, **kw)
         self.post_attn_norm = new_param((h,), dtype, device)
-        self.mlp = Params({"w_gate": (f, h), "w_up": (f, h), "w_down": (h, f)}, **kw)
+        self.moe = moe_config(cfg) if e > 0 else None
+        if self.moe is None:
+            self.mlp = Params({"w_gate": (f, h), "w_up": (f, h), "w_down": (h, f)}, **kw)
+        else:
+            self.router = Params({"w": (e, h)}, dtype=torch.float32, device=device)
+            self.experts = Params({"w_gate": (e, f, h), "w_up": (e, f, h),
+                                   "w_down": (e, h, f)}, **kw)
 
     def forward(
         self,
@@ -187,6 +215,11 @@ class DecoderLayer(nn.Module):
         x = x + matmul(o.reshape(b, s, -1), a.wo)
 
         y = rms_norm(x, self.post_attn_norm, cfg.rms_norm_eps)
+        if self.moe is not None:
+            ex = self.experts
+            out, aux = moe_layer(self.router.w, {"w_gate": ex.w_gate, "w_up": ex.w_up,
+                                                 "w_down": ex.w_down}, self.moe, y)
+            return x + out, aux
         m = self.mlp
         gated = F.silu(matmul(y, m.w_gate)) * matmul(y, m.w_up)
         return x + matmul(gated, m.w_down)
@@ -195,8 +228,6 @@ class DecoderLayer(nn.Module):
 class Decoder(nn.Module):
     def __init__(self, cfg: TextConfig, device=None):
         super().__init__()
-        if cfg.tie_word_embeddings:
-            raise NotImplementedError("tied embeddings are not in the port yet")
         self.cfg = cfg
         dt = torch_dtype(cfg.dtype)
         h = cfg.hidden_size
@@ -205,7 +236,8 @@ class Decoder(nn.Module):
             DecoderLayer(cfg, dtype=dt, device=device) for _ in range(cfg.num_layers)
         )
         self.final_norm = new_param((h,), dt, device)
-        self.lm_head = new_param((cfg.vocab_size, h), dt, device)
+        if not cfg.tie_word_embeddings:
+            self.lm_head = new_param((cfg.vocab_size, h), dt, device)
         self._head_f32: Optional[torch.Tensor] = None
         self._inv_freq = torch.from_numpy(compute_inv_freq(cfg))  # moved on first use
 
@@ -217,6 +249,12 @@ class Decoder(nn.Module):
             self._inv_freq = self._inv_freq.to(device)
         return self._inv_freq
 
+    @property
+    def unembedding(self):
+        """The live unembedding [vocab, hidden]: `lm_head`, or `embed_tokens`
+        when tied (a quantized head is a QuantizedWeight)."""
+        return self.embed_tokens if self.cfg.tie_word_embeddings else self.lm_head
+
     def keep_fp32_head(self) -> None:
         """Keep one fp32 copy of the unembedding, made once from the final
         weights. Logits are fp32 as in the JAX package, where the bf16 head
@@ -225,15 +263,16 @@ class Decoder(nn.Module):
         quantized head keeps no copy: it goes through quant.matmul. The copy
         serves only calls without autograd: a call that records gradients
         reads the live head."""
-        if not is_quantized(self.lm_head):
-            self._head_f32 = self.lm_head.detach().float()
+        if not is_quantized(self.unembedding):
+            self._head_f32 = self.unembedding.detach().float()
 
     def _head(self):
-        if is_quantized(self.lm_head):
-            return self.lm_head
+        head = self.unembedding
+        if is_quantized(head):
+            return head
         if self._head_f32 is not None and not torch.is_grad_enabled():
             return self._head_f32
-        return self.lm_head.float()
+        return head.float()
 
     def _attn_impl(self, s: int, cache: Optional[KVCache], fresh_cache: bool) -> str:
         cfg = self.cfg
@@ -258,10 +297,13 @@ class Decoder(nn.Module):
         remat=False,                                  # "none" | "full" | "attn" | "selective"
         logits_indices: Optional[torch.Tensor] = None,  # [B]: only these positions
         fresh_cache: bool = False,
+        return_aux: bool = False,                     # also the MoE aux values
     ):
         """Returns (logits [B, S, V] fp32, or [B, 1, V] with logits_indices,
         and the cache, updated in place, or None); with `return_hidden`, the
-        final-normed hidden states [B, S, H] in place of the logits.
+        final-normed hidden states [B, S, H] in place of the logits; with
+        `return_aux`, a third item {aux_loss, z_loss, fraction_dropped}
+        (zeros without experts or with a cache).
         `fresh_cache=True` says the cache is just created and empty: the
         tokens are then the whole history, and attention runs over them
         through the uncached tiers while the cache is still written for
@@ -305,6 +347,7 @@ class Decoder(nn.Module):
             ranges = tile_ranges(segment_ids, segment_ids, sq=s, skv=s, causal=True,
                                  window=cfg.sliding_window, device=dev)
 
+        aux = None  # the MoE aux values, summed (losses) and maxed over layers
         for i, layer in enumerate(self.layers):
             run = layer if cache is not None else remat_wrap(layer, remat)
             x = run(
@@ -312,14 +355,25 @@ class Decoder(nn.Module):
                 segment_ids=segment_ids, ranges=ranges, cache=cache, layer_idx=i,
                 slots=slots, fresh_cache=fresh_cache, positions=positions,
             )
+            if layer.moe is not None:
+                x, layer_aux = x
+                if cache is None and return_aux:
+                    aux = layer_aux if aux is None else {
+                        "aux_loss": aux["aux_loss"] + layer_aux["aux_loss"],
+                        "z_loss": aux["z_loss"] + layer_aux["z_loss"],
+                        "fraction_dropped": torch.maximum(aux["fraction_dropped"],
+                                                          layer_aux["fraction_dropped"])}
+        if return_aux and aux is None:
+            zero = torch.zeros((), dtype=torch.float32, device=dev)
+            aux = {"aux_loss": zero, "z_loss": zero, "fraction_dropped": zero}
         if cache is not None:
             cache.index = cache.index + (segment_ids != 0).sum(dim=1, dtype=torch.int32)
 
         x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
-        if return_hidden:
-            return x, cache
-        if logits_indices is not None:
-            x = x.gather(1, logits_indices.long()[:, None, None].expand(b, 1, x.shape[-1]))
-        # fp32 logits: an int4 head at M ≤ 64 on the card takes K4, which
-        # rounds x to bf16 as the TPU kernel does
-        return matmul(x.float(), self._head()), cache
+        if not return_hidden:
+            if logits_indices is not None:
+                x = x.gather(1, logits_indices.long()[:, None, None].expand(b, 1, x.shape[-1]))
+            # fp32 logits: an int4 head at M ≤ 64 on the card takes K4, which
+            # rounds x to bf16 as the TPU kernel does
+            x = matmul(x.float(), self._head())
+        return (x, cache, aux) if return_aux else (x, cache)

@@ -105,10 +105,12 @@ class LeopardVLM(nn.Module):
         remat=False,                                    # "none" | "full" | "attn" | "selective"
         remat_vision=None,                              # None: same as remat
         feature_row_offsets: Optional[torch.Tensor] = None,  # [B] chunked prefill
+        return_aux: bool = False,
     ):
         """Returns (logits [B, S, V] fp32, the cache or None); with
         `return_hidden`, the decoder's final-normed hidden states in place of
-        the logits (JAX vlm.py:105-168). `feature_row_offsets` maps one
+        the logits (JAX vlm.py:105-168); with `return_aux`, a third item, the
+        decoder's MoE aux values. `feature_row_offsets` maps one
         chunk's image tokens to their rows of the whole prompt's features
         (see splice_image_features)."""
         embeds = F.embedding(tokens.clamp(min=0), self.text.embed_tokens)
@@ -123,7 +125,7 @@ class LeopardVLM(nn.Module):
         return self.text(
             input_embeds=embeds, positions=positions, segment_ids=segment_ids, cache=cache,
             return_hidden=return_hidden, remat=remat, logits_indices=logits_indices,
-            fresh_cache=fresh_cache,
+            fresh_cache=fresh_cache, return_aux=return_aux,
         )
 
 

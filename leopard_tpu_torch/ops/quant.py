@@ -18,7 +18,11 @@ so `quantize_int8` / `quantize_int4` transpose before packing.
 
 `matmul` keeps the JAX dispatch one for one, with "on TPU" read as "on
 CUDA": int4 at M ≤ 64 with group 128 on a CUDA tensor goes through K4
-(ops/int4_matmul.py); every other int4 call unpacks the weight densely. The
+(ops/int4_matmul.py); every other int4 call unpacks the weight densely. An
+int4 weight whose output width is not a multiple of 128 (Mistral's head,
+32,003) is held padded with zero columns (models/params.py::QuantizedWeight)
+and the product is sliced back, so it reaches K4 too, where the JAX package's
+TPU kernel refuses it. The
 dense path scales in fp32 and casts once to x's dtype, where the JAX package
 scales in x's dtype (ADVICE r5: bf16 group scales lose precision).
 """
@@ -98,9 +102,12 @@ def matmul(x: torch.Tensor, w: Weight) -> torch.Tensor:
         q4, s = w.q4, w.s
         if use_int4_kernel(x, q4, s):
             # [..., K] in, [..., N] out, in x's dtype: one launch a call
-            return int4_matmul(x, q4, s, out_dtype=x.dtype)
-        # dense-dequant path: the CPU, prefill (M > 64) and non-128 groups
-        return x @ _unpack_int4(q4, s).to(x.dtype)
+            y = int4_matmul(x, q4, s, out_dtype=x.dtype)
+        else:
+            # dense-dequant path: the CPU, prefill (M > 64) and non-128 groups
+            y = x @ _unpack_int4(q4, s).to(x.dtype)
+        # a weight padded to whole 128-column tiles (models/params.py)
+        return y[..., :w.n] if w.padded else y
     y = x @ w.q.to(x.dtype)
     return y * w.s.to(x.dtype)[..., 0, :]
 
@@ -143,6 +150,7 @@ def dequantize_tree(module: nn.Module, dtype: torch.dtype = torch.bfloat16) -> n
         for name, w in list(sub.named_children()):
             if is_quantized(w):
                 wf = _unpack_int4(w.q4, w.s) if w.int4 else w.q.float() * w.s
+                wf = wf[..., :w.n]
                 delattr(sub, name)
                 sub.register_parameter(name, nn.Parameter(
                     wf.to(dtype).transpose(-1, -2).contiguous(), requires_grad=False))

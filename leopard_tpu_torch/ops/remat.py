@@ -13,7 +13,10 @@ leopard_tpu/ops/remat.py).
     of every matmul without batch dims (`aten.mm`, `aten.addmm`: the
     projections and MLP GEMMs), as the JAX policy
     `dots_with_no_batch_dims_saveable`; the dense path's batched score
-    products (`aten.bmm`) are recomputed, never saved.
+    products (`aten.bmm`) are recomputed, never saved, and so are the MoE
+    expert GEMMs, which ops/moe.py runs as `aten.bmm` for that reason (JAX
+    saves neither its batched expert einsums nor `ragged_dot`), while the
+    MoE router's product is an `aten.mm` and is saved.
 
 The last two are selective-checkpoint contexts
 (`torch.utils.checkpoint.create_selective_checkpoint_contexts`): a policy

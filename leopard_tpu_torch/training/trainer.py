@@ -241,21 +241,32 @@ def vlm_loss(
     optional images [N, 3, H, W] (with Idefics2's patch_mask [N, H/p, W/p])
     and positions [B, S]. Next-token prediction: hidden[:, t] predicts
     tokens[:, t + 1]; image-token and padding targets carry weight 0.
-    `model` holds the compute weights."""
+    `model` holds the compute weights. The unembedding is `lm_head`, or
+    `embed_tokens` when tied (its gradient then sums both uses). With
+    experts, the returned loss adds the decoder's aux and z losses, and the
+    metrics carry them and the dropped share (JAX trainer.py:213-248); the
+    metric "loss" stays the cross-entropy."""
     tokens = batch["tokens"]
     segment_ids = batch.get("segment_ids")
-    hidden, _ = model(
+    moe = cfg.text.num_experts > 0
+    hidden, _, moe_aux = model(
         tokens, images=batch.get("images"), patch_mask=batch.get("patch_mask"),
         positions=batch.get("positions"), segment_ids=segment_ids, return_hidden=True,
-        remat=remat, remat_vision=remat_vision,
+        remat=remat, remat_vision=remat_vision, return_aux=True,
     )
     targets = tokens[:, 1:]
     weights = batch["loss_weights"][:, 1:].float() * (targets != cfg.image_token_id)
     if segment_ids is not None:
         weights = weights * (segment_ids[:, 1:] != 0)
     loss, total_w = chunked_cross_entropy(
-        hidden[:, :-1], model.text.lm_head, targets, weights, chunk=loss_chunk)
-    return loss, {"loss": loss, "tokens_in_loss": total_w}
+        hidden[:, :-1], model.text.unembedding, targets, weights, chunk=loss_chunk)
+    metrics = {"loss": loss, "tokens_in_loss": total_w}
+    if moe:
+        loss = loss + moe_aux["aux_loss"] + moe_aux["z_loss"]
+        metrics["moe_aux_loss"] = moe_aux["aux_loss"]
+        metrics["moe_z_loss"] = moe_aux["z_loss"]
+        metrics["moe_fraction_dropped"] = moe_aux["fraction_dropped"]
+    return loss, metrics
 
 
 def _to_device(batch: Mapping[str, Any], device) -> Dict[str, Any]:
@@ -330,18 +341,31 @@ def make_train_step(cfg: VLMConfig, train_cfg: TrainConfig, frozen=(),
                 if v.shape[0] % a:
                     raise ValueError(f"batch {v.shape[0]} not divisible by grad_accum_steps={a}")
                 micro[k] = v.reshape(a, v.shape[0] // a, *v.shape[1:])
-        grads, nll, tw = None, 0.0, 0.0
+        grads, nll, tw, moe = None, 0.0, 0.0, {}
         for i in range(a):
             loss, aux = loss_fn(m, {k: v[i] for k, v in micro.items() if v is not None})
             loss.backward()
             w = aux["tokens_in_loss"].detach()
             grads = grads_of(m, scale=w, into=grads)
             nll, tw = nll + loss.detach() * w, tw + w
+            # the MoE metrics: the losses weighted as the gradients are, the
+            # worst microbatch's dropped share (the JAX trainer drops them
+            # under accumulation)
+            for k in ("moe_aux_loss", "moe_z_loss"):
+                if k in aux:
+                    moe[k] = moe.get(k, 0.0) + aux[k].detach() * w
+            if "moe_fraction_dropped" in aux:
+                f = aux["moe_fraction_dropped"].detach()
+                moe["moe_fraction_dropped"] = torch.maximum(
+                    moe.get("moe_fraction_dropped", f), f)
         inv = 1.0 / torch.clamp(tw, min=1e-8)
         for g in grads.values():
             g.mul_(inv)
         loss = nll * inv
-        return loss, {"loss": loss, "tokens_in_loss": tw}, grads
+        for k in ("moe_aux_loss", "moe_z_loss"):
+            if k in moe:
+                moe[k] = moe[k] * inv
+        return loss, {"loss": loss, "tokens_in_loss": tw, **moe}, grads
 
     @torch.no_grad()
     def eval_loss(params: Tensors, batch):

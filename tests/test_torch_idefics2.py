@@ -238,6 +238,22 @@ def test_generate_with_patch_mask_matches_jax(pair, monkeypatch, threshold):
     assert any(not np.array_equal(a, b) for a, b in zip(plain.logprobs, masked.logprobs))
 
 
+@pytest.mark.parametrize("quantize", ["int8", "int4"])
+def test_quantized_generate_matches_jax(pair, quantize):
+    """int8 and int4 weights against the JAX engine's CPU path (its dense
+    dequant for int4). Quantized, the 32,003-wide head is padded to 32,128
+    columns in the port (K4's whole tiles) and its logits sliced back."""
+    cfg, params, model = pair
+    prompts, pixels, mask = _requests(seed=3)
+    jeng = JaxEngine(cfg, params, quantize=quantize, **BUCKETS)
+    teng = Engine(cfg, model, quantize=quantize, **BUCKETS)
+    head = teng.model.text.lm_head
+    assert head.n == cfg.text.vocab_size
+    assert head.s.shape[-1] == (32128 if quantize == "int4" else cfg.text.vocab_size)
+    _assert_same(jeng.generate(prompts, images=pixels, patch_mask=mask, gen_cfg=GEN),
+                 teng.generate(prompts, images=pixels, patch_mask=mask, gen_cfg=GEN))
+
+
 def test_encode_images_pads_the_bucket_with_masked_images(pair):
     cfg, params, model = pair
     _, pixels, mask = _requests(seed=2)

@@ -40,7 +40,7 @@ REQUIRED = ("ops.flash_attention", "ops.int4_matmul", "ops.fused_norms",
             "cli.train_leopard_llava", "cli.convert_checkpoint", "data.idefics2_processor",
             "models.perceiver", "evaluation.metrics", "evaluation.vqa_metrics",
             "evaluation.loaders", "evaluation.harness", "evaluation.adapter",
-            "evaluation.lm_eval_adapter", "cli.run_eval", "ops.remat")
+            "evaluation.lm_eval_adapter", "cli.run_eval", "ops.remat", "ops.moe")
 
 
 def _run(args, cwd):

@@ -117,6 +117,28 @@ def test_unsupported_shapes_raise_on_card(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 8])
+def test_mistral_head_padded_to_whole_tiles_on_card(cuda, m):
+    """Mistral's head, K = 4,096 and N = 32,003: quantized, it is held
+    padded to 32,128 columns, and quant.matmul takes K4 at that width and
+    slices the product back, against the plain version on the same padded
+    weight and against the fp32 oracle."""
+    k, n = 4096, 32003
+    g = torch.Generator(device="cuda").manual_seed(n)
+    w = QuantizedWeight(tquant.quantize_int4(
+        torch.randn((n, k), generator=g, device="cuda") * k**-0.5))
+    assert w.q4.shape == (k // 2, 32128) and w.n == n
+    x = _x(m, k, seed=m)
+    before = tk4.int4_matmul.launches
+    got = tquant.matmul(x.float(), w)
+    assert tk4.int4_matmul.launches == before + 1
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    want = tk4.int4_matmul_ref(x.cpu(), w.q4.cpu(), w.s.cpu())[:, :n].to("cuda")
+    torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(got, _oracle(x, w.q4, w.s)[:, :n], **ORACLE_TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 2, 8, 9, 64])
 @pytest.mark.parametrize("name", list(SHAPES_8B))
 def test_decode_shapes_match_plain_on_card(cuda, name, m):

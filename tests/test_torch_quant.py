@@ -102,6 +102,41 @@ def test_dequantize_tree_matches_jax():
                                       np.asarray(want[k]))
 
 
+def test_int4_weight_of_an_odd_width_is_padded_and_sliced(monkeypatch):
+    """Mistral's head width, N = 32,003 (K = 256): the quantized weight holds
+    q4 and s padded to 32,128 columns (zero scales) and keeps n = 32,003;
+    its state dict gives the JAX bytes, which load back strict into the
+    padded structure; the dense path's product and the kernel tier's (its
+    plain version, with the tier's CUDA condition dropped) are the JAX
+    product sliced back to N, and dequantize_tree slices the weight."""
+    n, k = 32003, 256
+    w = _w((k, n), 21)
+    jq = jquant.quantize_int4(jnp.asarray(w))
+    qw = QuantizedWeight(tquant.quantize_int4(_port(w)))
+    assert qw.q4.shape == (k // 2, 32128) and qw.s.shape == (2, 32128) and qw.n == n
+    assert qw.padded and not qw.s[:, n:].any()
+    _assert_same_leaf(qw.state_dict(), jq)
+    meta = Params({"lm_head": (n, k)}, dtype=torch.float32, device="meta")
+    tquant.quantize_tree(meta, keys=("lm_head",), mode="int4")
+    assert meta.lm_head.q4.shape == (k // 2, 32128)
+    meta.load_state_dict({f"lm_head.{key}": torch.from_numpy(np.array(v))
+                          for key, v in jq.items()}, strict=True, assign=True)
+    torch.testing.assert_close(meta.lm_head.q4, qw.q4, rtol=0, atol=0)
+    torch.testing.assert_close(meta.lm_head.s, qw.s, rtol=0, atol=0)
+    x = np.random.RandomState(22).randn(3, k).astype(np.float32)
+    want = np.asarray(jquant.matmul(jnp.asarray(x), jq))
+    got = tquant.matmul(torch.from_numpy(x), qw)
+    assert got.shape == (3, n)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    monkeypatch.setattr(tquant, "use_int4_kernel", lambda x, q4, s: True)
+    kernel_tier = tquant.matmul(torch.from_numpy(x), qw)
+    assert kernel_tier.shape == (3, n)
+    np.testing.assert_allclose(kernel_tier.numpy(), want, rtol=2e-2, atol=2e-2)
+    tquant.dequantize_tree(meta, dtype=torch.float32)  # its leaves are loaded now
+    np.testing.assert_array_equal(meta.lm_head.detach().numpy().T,
+                                  np.asarray(jquant._unpack_int4(jq)))
+
+
 @pytest.fixture
 def interpret_mode():
     with pltpu.force_tpu_interpret_mode():
