@@ -235,6 +235,28 @@ script exits non-zero without printing a result:
      and 2,000 tokens (bucket 4,096), 16 greedy tokens, twice: tokens
      repeat, K1 and K3a launches as the formulas, the group sizes read on
      the host once a layer a forward; TTFT and decode ms/step;
+ 39. (after phase 9) Engine(mesh=) on a world-1 NCCL process group in this
+     process and a mesh of all ones, at full 8B, bf16 and int4, on phase
+     4's two requests: tokens equal phases 4 and 6, launches as there,
+     TTFT and decode ms/step beside theirs;
+ 37. (after phase 30) phase 20's 8B-width, depth-4 train step through
+     make_train_step(mesh=) against the plain step from the same weights:
+     loss (rel 1e-5), gradient cosine per group (>= 0.9999), 3 steps each
+     with K1 62, K2 31, K3a 17 and K3b 109 launches a step, step ms and
+     peak memory of both; then once more with attn_impl="ring" at seq=1
+     (one diagonal block a layer through K1 with its lse and K2), against
+     the same plain step, and 2 timed ring steps;
+ 38. the ring's per-rank bodies for n = 2 and 4 virtual ranks in this
+     process (the KV rotation reads the other shards from memory) at
+     [1, 16,384, 32/8, 128] bf16 causal, zig-zag: out and dq/dk/dv against
+     one K1 and one K2 call over the whole sequence (cosine >= 0.9999), K1
+     and K2 launched n(2n + 1) times a pass each (one a block), ms per
+     ring pass beside the one call's;
+ 40. (after phase 21) `python -m torch.distributed.run --nproc_per_node=1
+     -m leopard_tpu_torch.cli.train_leopard_llava --mesh data=1` on phase
+     21's checkpoint and manifest, with a tokenizer.json that gives the
+     smoke's ByteTokenizer ids (checked on the loader's first batch): the
+     first loss equals phase 21's (rel 1e-4);
  31. no JAX was imported (checked last).
 Each engine is freed after its phase, with the phase's peak device memory
 printed. Then the card's name and power limit as nvidia-smi prints them, one
@@ -963,7 +985,8 @@ def serve(engine, cfg, prompts, tiles, card, label, k4_per_step=0, runs=2, time_
           f"K3b: {2 * cfg.vision.num_layers + 1}), "
           f"tokens{' identical' if runs > 1 else ''}: {[t.tolist() for t in results[0].tokens]}",
           flush=True)
-    timings = {"launches": launches, "decode_steps": steps, "copies": copies}
+    timings = {"launches": launches, "decode_steps": steps, "copies": copies,
+               "tokens": [t.tolist() for t in results[0].tokens]}
     if not time_reps:
         return timings
 
@@ -2474,7 +2497,7 @@ def train_cli_phase(hf_dir, card, tmp, device):
         raise AssertionError(f"train CLI: K1/K2 copied {copies} inputs")
     step_ms = statistics.mean(r["step_time"] for r in rows[1:]) * 1e3
     tokens = 2 * TRAIN_SEQ
-    rec = {"losses": losses, "vlm_loss": ref_loss, "loss_rel_diff": rel,
+    rec = {"argv": argv, "losses": losses, "vlm_loss": ref_loss, "loss_rel_diff": rel,
            "batch_shapes": [[list(s), t] for s, t in shapes],
            "tokens_in_loss": [r["tokens_in_loss"] for r in rows],
            "step_ms": [r["step_time"] * 1e3 for r in rows], "step_ms_mean_2_3": step_ms,
@@ -4945,6 +4968,306 @@ def idefics2_int4_phase(model, cfg, launches, card):
           f"ms/step (batch 1; median of 3) [{card}]", flush=True)
     return rec
 
+# phases 37-40: the device mesh (leopard_tpu_torch/parallel/) at a world of
+# one; the card is one H100, so no collective runs between two devices here
+MESH_LOSS_RTOL = 1e-5
+MESH_COSINE_MIN = 0.9999
+RING_SHAPE = dict(b=1, s=16384, hq=32, hkv=8, d=128)   # Leopard-LLaVA's training length
+RING_SIZES = (2, 4)
+RING_COSINE_MIN = 0.9999
+MESH_RING_STEPS = 2
+
+
+def world_one_mesh():
+    """A world-1 NCCL process group in this process and a mesh of all ones."""
+    from leopard_tpu_torch.config import MeshConfig
+    from leopard_tpu_torch.parallel.launch import initialize_distributed
+    from leopard_tpu_torch.parallel.mesh import build_mesh, mesh_config
+
+    info = initialize_distributed("cuda")
+    mesh = build_mesh(MeshConfig(), "cuda")
+    print(f"mesh: process group {info}, mesh {mesh_config(mesh)}", flush=True)
+    return mesh
+
+
+def mesh_serve_phase(model, cfg, prompts, tiles, mesh, card, bf16, int4):
+    """Phase 39: Engine(mesh=) in bf16 and int4 against phases 4 and 6."""
+    from leopard_tpu_torch.inference.engine import Engine
+
+    out = {}
+    for label, quantize, ref, k4 in (("bf16", None, bf16, 0),
+                                      ("int4", "int4", int4, 7 * cfg.text.num_layers + 1)):
+        engine = Engine(cfg, model, mesh=mesh, quantize=quantize)
+        t = serve(engine, cfg, prompts, tiles, card, f"serve {label} mesh", k4, runs=1,
+                  time_reps=3 if quantize is None else 1)
+        del engine
+        model.text._head_f32 = None
+        if t["tokens"] != ref["tokens"]:
+            raise AssertionError(f"mesh {label}: tokens {t['tokens']} vs {ref['tokens']}")
+        print(f"serve {label} mesh vs plain [{card}]: tokens equal; TTFT "
+              f"{t['ttft_s'] * 1e3:.1f} vs {ref['ttft_s'] * 1e3:.1f} ms, decode "
+              f"{t['decode_ms_per_step']:.2f} vs {ref['decode_ms_per_step']:.2f} ms/step",
+              flush=True)
+        out[label] = {"mesh": t, "plain_ttft_s": ref["ttft_s"],
+                      "plain_decode_ms_per_step": ref["decode_ms_per_step"]}
+    return out
+
+
+def mesh_train_phase(model, cfg, batch, mesh, card):
+    """Phase 37: the plain step, then make_train_step(mesh=) and its ring
+    form at seq=1, from the same weights. `model`'s parameters become
+    DTensors (create_train_state(mesh=)): run it last on this model."""
+    import torch
+
+    from leopard_tpu_torch.config import OptimizerConfig, TrainConfig
+    from leopard_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from leopard_tpu_torch.ops.fused_norms import fused_layer_norm, fused_rms_norm
+    from leopard_tpu_torch.training import trainer
+
+    counters = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+                "fused_rms_norm": fused_rms_norm, "fused_layer_norm": fused_layer_norm}
+    lt, lv = cfg.text.num_layers, cfg.vision.num_layers
+    want = {"flash_attention": 2 * (lt + lv), "flash_attention_bwd": lt + lv,
+            "fused_rms_norm": 2 * 2 * lt + 1, "fused_layer_norm": 2 * 2 * lv + 1}
+    tc = TrainConfig(
+        seq_len=TRAIN_SEQ, global_batch_size=len(TRAIN_ROWS), remat="full", loss_chunk=1024,
+        optimizer=OptimizerConfig(lr=1e-5, warmup_steps=1, decay_steps=1000, grad_clip=1.0))
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, {k: c.launches for k, c in counters.items()}
+
+    def timed_steps(label, step, state, n):
+        ms = []
+        for i in range(n):
+            (state, metrics), t, launches = counted(lambda: step(state, batch))
+            if launches != want or not np.isfinite(float(metrics["loss"])):
+                raise AssertionError(f"{label} step {i + 1}: launches {launches} (expected "
+                                     f"{want}), loss {float(metrics['loss'])}")
+            ms.append(t)
+        return state, ms
+
+    def cosines(grads, ref):
+        sums = {}
+        for n, g in grads.items():
+            a, b = g.double(), ref[n].to(g.device).double()
+            acc = sums.setdefault(param_group(n), [0.0, 0.0, 0.0])
+            acc[0] += float((a * b).sum())
+            acc[1] += float(a.square().sum())
+            acc[2] += float(b.square().sum())
+        return {grp: dot / max((na * nb) ** 0.5, 1e-30) for grp, (dot, na, nb) in sums.items()}
+
+    rec = {}
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.create_train_state(model, tc)
+    step = trainer.make_train_step(cfg, tc)
+    (loss, _, grads), _, _ = counted(lambda: step.loss_and_grads(state, batch))
+    plain_loss = float(loss)
+    plain_grads = {k: g.cpu() for k, g in grads.items()}
+    del grads
+    state, rec["plain_step_ms"] = timed_steps("plain", step, state, 3)
+    rec["plain_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del state, step
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.create_train_state(model, tc, mesh=mesh)
+    ring_cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, attn_impl="ring"))
+    runs = {}
+    # both against the plain step's gradients before any update; each step
+    # function holds its own compute copy, so one at a time
+    for name, c in (("mesh_ring", ring_cfg), ("mesh", cfg)):
+        step = trainer.make_train_step(c, tc, mesh=mesh)
+        (loss, _, grads), ms, launches = counted(lambda: step.loss_and_grads(state, batch))
+        rel = abs(float(loss) - plain_loss) / abs(plain_loss)
+        cos = cosines(grads, plain_grads)
+        del grads
+        print(f"{name} step vs plain (one step's loss and gradients) [{card}]: loss "
+              f"{float(loss):.6f} vs {plain_loss:.6f} (rel {rel:.3g}, tol {MESH_LOSS_RTOL}), "
+              "cosine per group " + ", ".join(f"{g}: {v:.7f}" for g, v in cos.items())
+              + f" (min {MESH_COSINE_MIN}); launches {launches}", flush=True)
+        if rel > MESH_LOSS_RTOL or min(cos.values()) < MESH_COSINE_MIN or launches != want:
+            raise AssertionError(f"{name}: loss rel {rel}, cosines {cos}, launches {launches}")
+        runs[name] = {"loss": float(loss), "loss_rel": rel, "cosines": cos,
+                      "launches": launches}
+        if name == "mesh_ring":
+            del step
+            torch.cuda.empty_cache()
+    state, rec["mesh_step_ms"] = timed_steps("mesh", step, state, 3)
+    del step
+    torch.cuda.empty_cache()
+    step = trainer.make_train_step(ring_cfg, tc, mesh=mesh)
+    state, rec["mesh_ring_step_ms"] = timed_steps("mesh ring", step, state, MESH_RING_STEPS)
+    rec["mesh_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec.update(runs=runs, plain_loss=plain_loss, launches_per_step=want)
+    del state, step
+    mean = lambda ms: statistics.mean(ms[1:])  # noqa: E731
+    print(f"train step, plain vs mesh of one (world 1, NCCL) [{card}]: "
+          f"{mean(rec['plain_step_ms']):.1f} vs {mean(rec['mesh_step_ms']):.1f} ms (mean of "
+          f"steps 2-3), ring at seq=1 {mean(rec['mesh_ring_step_ms']):.1f} ms (step 2); "
+          f"launches a step {want}; peak device memory {rec['plain_peak_gib']:.2f} (plain) / "
+          f"{rec['mesh_peak_gib']:.2f} GiB (mesh)", flush=True)
+    return rec
+
+
+def ring_kernels_phase(device, card):
+    """Phase 38: the ring's block arithmetic through K1/K2 for n virtual
+    ranks against one K1 and one K2 call over the whole sequence."""
+    import torch
+
+    from leopard_tpu_torch.ops import flash_attention as fa
+    from leopard_tpu_torch.parallel import context_parallel as cp
+
+    b, s, hq, hkv, d = (RING_SHAPE[k] for k in ("b", "s", "hq", "hkv", "d"))
+    g = torch.Generator(device=device).manual_seed(SEED + 38)
+
+    def rand(h):
+        return torch.randn((b, s, h, d), generator=g, device=device).to(torch.bfloat16)
+
+    q, k, v, do = rand(hq), rand(hkv), rand(hkv), rand(hq)
+    kw = dict(causal=True, q_segment_ids=None, kv_segment_ids=None, sliding_window=None)
+    out_ref, lse_ref = fa._launch(q, k, v, with_lse=True, **kw)
+    grads_ref = fa._launch_bwd(q, k, v, None, None, out_ref, lse_ref, do, causal=True,
+                               sliding_window=None)
+    rec = {"shape": dict(RING_SHAPE), "whole_fwd_ms": cuda_ms(
+        lambda: fa._launch(q, k, v, with_lse=True, **kw)),
+        "whole_bwd_ms": cuda_ms(lambda: fa._launch_bwd(
+            q, k, v, None, None, out_ref, lse_ref, do, causal=True, sliding_window=None))}
+    for n in RING_SIZES:
+        idx = [cp.local_positions(s, n, r, "zigzag").to(device) for r in range(n)]
+        qs, ks, vs, dos = ([t[:, i].contiguous() for i in idx] for t in (q, k, v, do))
+        ring = cp.MemoryRing(ks, vs)
+        opts = dict(n=n, layout="zigzag", causal=True)
+
+        def fwd():
+            return [cp.ring_forward(qs[r], None, ring.view(r), rank=r, **opts) for r in range(n)]
+
+        def bwd(outs):
+            for t in (*ring.dk, *ring.dv):
+                t.zero_()
+            return [cp.ring_backward(qs[r], None, *outs[r], dos[r], ring.view(r), rank=r, **opts)
+                    for r in range(n)]
+
+        fa.flash_attention.launches = fa.flash_attention_bwd.launches = 0
+        outs = fwd()
+        torch.cuda.synchronize()
+        k1 = fa.flash_attention.launches
+        dqs = bwd(outs)
+        torch.cuda.synchronize()
+        launches = {"flash_attention": k1, "flash_attention_bwd": fa.flash_attention_bwd.launches}
+        formula = cp.ring_blocks(n, "zigzag")
+        whole = {"out": torch.empty_like(q), "dq": torch.empty_like(q),
+                 "dk": torch.empty(k.shape, device=device), "dv": torch.empty(v.shape, device=device)}
+        for r, i in enumerate(idx):
+            whole["out"][:, i], whole["dq"][:, i] = outs[r][0], dqs[r]
+            whole["dk"][:, i], whole["dv"][:, i] = ring.dk[r], ring.dv[r]
+        refs = {"out": out_ref, "dq": grads_ref[0], "dk": grads_ref[1], "dv": grads_ref[2]}
+        cos = {name: float(cosine(whole[name].float().flatten(), refs[name].float().flatten(),
+                                  dim=0)) for name in whole}
+        fwd_ms = cuda_ms(fwd, reps=3)
+        bwd_ms = cuda_ms(lambda: bwd(outs), reps=3)
+        print(f"ring n={n} (zig-zag, in-memory rotation) at {RING_SHAPE} [{card}]: cosine vs "
+              f"one K1/K2 call {cos} (min {RING_COSINE_MIN}); launches {launches} (a pass: "
+              f"n(2n+1) = {formula} each); ms per ring pass fwd {fwd_ms:.3f} / bwd "
+              f"{bwd_ms:.3f} vs one call {rec['whole_fwd_ms']:.3f} / {rec['whole_bwd_ms']:.3f}",
+              flush=True)
+        if (min(cos.values()) < RING_COSINE_MIN
+                or launches != {"flash_attention": formula, "flash_attention_bwd": formula}):
+            raise AssertionError(f"ring n={n}: cosines {cos}, launches {launches}")
+        rec[f"n{n}"] = {"cosines": cos, "launches": launches, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
+        del ring, outs, dqs, whole
+    return rec
+
+
+def write_byte_tokenizer(directory):
+    """A tokenizer.json whose ids are ByteTokenizer's on ASCII text: a
+    character is its code point, the Llama-3 specials and reserved tokens
+    their ids."""
+    specials = {"<|begin_of_text|>": 128000, "<|end_of_text|>": 128001,
+                "<|start_header_id|>": 128006, "<|end_header_id|>": 128007, "<|eot_id|>": 128009}
+    specials.update({f"<|reserved_special_token_{k}|>": 128010 + k - 5 for k in range(5, 251)})
+    vocab = {chr(i): i for i in range(32, 127)}
+    vocab.update({"\n": 10, **specials})
+    doc = {"version": "1.0", "truncation": None, "padding": None, "normalizer": None,
+           "added_tokens": [{"id": i, "content": t, "single_word": False, "lstrip": False,
+                             "rstrip": False, "normalized": False, "special": True}
+                            for t, i in specials.items()],
+           "pre_tokenizer": {"type": "Split", "pattern": {"Regex": "[\\s\\S]"},
+                             "behavior": "Isolated", "invert": False},
+           "post_processor": None, "decoder": None,
+           "model": {"type": "WordLevel", "vocab": vocab, "unk_token": "<unk>"}}
+    directory.mkdir()
+    (directory / "tokenizer.json").write_text(json.dumps(doc))
+    (directory / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "PreTrainedTokenizerFast", "bos_token": "<|begin_of_text|>",
+        "eos_token": "<|eot_id|>"}))
+    return str(directory)
+
+
+def mesh_train_cli_phase(cli_rec, tmp, card):
+    """Phase 40: the train CLI under torchrun with --mesh data=1 against
+    phase 21's first loss."""
+    import socket
+
+    import torch
+
+    from leopard_tpu_torch.cli import train_leopard_llava
+    from leopard_tpu_torch.config import TrainConfig, leopard_llava_8b
+    from leopard_tpu_torch.data.dataset import DataState, JsonlSftDataset, TrainDataLoader
+    from leopard_tpu_torch.data.processor import LeopardProcessor
+    from leopard_tpu_torch.data.tokenizer import build_tokenizer
+
+    tok_dir = write_byte_tokenizer(tmp / "tokenizer")
+    args = train_leopard_llava.parse_args(cli_rec["argv"])
+    cfg = leopard_llava_8b()
+    first = {}
+    with contextlib.redirect_stdout(io.StringIO()):  # transformers lists the added tokens
+        file_tok = build_tokenizer(tok_dir)
+    for name, tok in (("file", file_tok), ("smoke", ByteTokenizer())):
+        loader = TrainDataLoader(JsonlSftDataset(args.manifest, args.image_folder),
+                                 LeopardProcessor(cfg, tok), batch_size=2, seq_len=TRAIN_SEQ,
+                                 state=DataState(seed=TrainConfig().seed))
+        first[name] = next(iter(loader)).tokens
+    if not np.array_equal(first["file"], first["smoke"]):
+        raise AssertionError("the tokenizer.json does not give ByteTokenizer's ids")
+    argv = list(cli_rec["argv"])
+    for flag, value in (("--tokenizer", tok_dir), ("--checkpoint-dir", str(tmp / "mesh_run")),
+                        ("--train-steps", "1")):
+        argv[argv.index(flag) + 1] = value
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=1",
+           "--master_addr=localhost", f"--master_port={port}",
+           "-m", "leopard_tpu_torch.cli.train_leopard_llava", *argv, "--mesh", "data=1"]
+    torch.cuda.empty_cache()  # the card's memory to the child, but for this process's tensors
+    held = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+                          capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or "done at step 1" not in proc.stdout:
+        raise AssertionError(f"torchrun train CLI failed ({proc.returncode}): "
+                             f"{proc.stderr[-3000:]}")
+    with open(tmp / "mesh_run" / "metrics.jsonl") as f:
+        (row,) = [json.loads(line) for line in f]
+    ref = cli_rec["losses"][0]
+    rel = abs(row["loss"] - ref) / abs(ref)
+    print(f"train CLI under torchrun, --mesh data=1 (NCCL, world 1) [{card}]: first loss "
+          f"{row['loss']:.6f} vs phase 21's {ref:.6f} (rel {rel:.3g}, tol "
+          f"{TRAIN_CLI_LOSS_RTOL}); step {row['step_time'] * 1e3:.1f} ms; the whole command "
+          f"{wall:.1f} s, this process holding {held:.2f} GiB meanwhile", flush=True)
+    if rel > TRAIN_CLI_LOSS_RTOL:
+        raise AssertionError(f"torchrun train CLI: first loss {row['loss']} vs {ref}")
+    return {"loss": row["loss"], "phase21_loss": ref, "rel": rel, "step_ms": row["step_time"] * 1e3,
+            "wall_s": wall}
+
+
 def main() -> int:
     import torch
 
@@ -5142,6 +5465,12 @@ def main() -> int:
     del engine
     peak["int8"] = phase_memory("serve int8")
 
+    # phase 39: Engine(mesh=) at a world of one, bf16 and int4
+    mesh = world_one_mesh()
+    mesh_rec = {"serve": mesh_serve_phase(model, cfg, prompts, tiles, mesh, card, timings,
+                                          timings_int4)}
+    peak["mesh_serve"] = phase_memory("serve under a mesh")
+
     # phases 10-14: prefixes, multi-turn chat, chunked prefill, int4 + int8
     # KV over a second turn, speculative decode and beam search
     launches = Launches()
@@ -5223,13 +5552,22 @@ def main() -> int:
         peak["train"] = phase_memory("train")
         # phase 30 (eval E): the "attn" and "selective" recompute policies
         evals["remat"] = train_policies_phase(model, tcfg, batch, card)
-        del model, batch
         peak["train_policies"] = phase_memory("train under attn / selective")
+        # phase 37: the sharded train step at a world of one (its model's
+        # parameters become DTensors: the last phase on this model)
+        mesh_rec["train"] = mesh_train_phase(model, tcfg, batch, mesh, card)
+        del model, batch
+        peak["mesh_train"] = phase_memory("train under a mesh")
+        # phase 38: the ring's block arithmetic through K1/K2
+        mesh_rec["ring"] = ring_kernels_phase(device, card)
+        peak["ring"] = phase_memory("ring blocks")
 
         # phase 21: the train CLI from a manifest, --init-from phase 19's
         # checkpoint, through the data pipeline
         features["train_cli"] = train_cli_phase(hf_dir, card, Path(tmp), device)
         peak["train_cli"] = phase_memory("train CLI")
+        # phase 40: the same CLI under torchrun with --mesh data=1
+        mesh_rec["train_cli"] = mesh_train_cli_phase(features["train_cli"], Path(tmp), card)
 
         # phases 28-29 (eval C-D): the run_eval CLI and LeopardLM on phase
         # 19's checkpoint
@@ -5366,6 +5704,20 @@ def main() -> int:
                     for run, r in features["moe"]["train"]["runs"].items()},
                 "launches_moe_generate": features["moe"]["serve"]["launches"].get(name, 0)}
 
+    def mesh_paths(name):
+        """A kernel's launches on phases 37-39's paths: a mesh train step
+        (flash and ring), a ring pass of phase 38 per n, a generate under
+        the mesh (bf16)."""
+        runs = mesh_rec["train"]["runs"]
+        out = {"launches_mesh_train_step": runs["mesh"]["launches"].get(name, 0),
+               "launches_mesh_ring_train_step": runs["mesh_ring"]["launches"].get(name, 0),
+               "launches_mesh_generate": mesh_rec["serve"]["bf16"]["mesh"]["launches"].get(
+                   name, 0)}
+        if name.startswith("flash_attention"):
+            out["launches_ring_pass"] = {n: mesh_rec["ring"][f"n{n}"]["launches"][name]
+                                         for n in RING_SIZES}
+        return out
+
     def bound_by(parts):
         """What bounds a sum of calls: the side holding most of its bound."""
         share = {"operations": 0.0, "bytes": 0.0}
@@ -5396,6 +5748,7 @@ def main() -> int:
         "launches_build_prefix": features["prefix"]["build_prefix_launches"]["flash_attention"],
         "launches_turn2": features["multiturn"]["launches"]["flash_attention"],
         "launches_chunked_prefill": features["chunked"]["launches"]["flash_attention"],
+        **mesh_paths("flash_attention"),
         **new_paths("flash_attention"),
         **eval_paths("flash_attention"),
         **remat_paths("flash_attention"),
@@ -5467,6 +5820,8 @@ def main() -> int:
         **new_paths("int4_matmul"),
         **eval_paths("int4_matmul"),
         "launches_idefics2_int4_generate": idefics2["int4"]["launches"]["int4_matmul"],
+        "launches_mesh_generate_int4": mesh_rec["serve"]["int4"]["mesh"]["launches"][
+            "int4_matmul"],
         "launches_idefics2_int4_head": idefics2["int4"]["head_k4_launches"],
         "idefics2_int4": idefics2["int4"],
         "mistral_head_shape": k4_mistral_head,
@@ -5498,6 +5853,7 @@ def main() -> int:
         "ms_is": f"per train step: {tcfg.text.num_layers} x decoder + "
                  f"{tcfg.vision.num_layers} x tower",
         "launches_train_cli": features["train_cli"]["launches"]["flash_attention_bwd"],
+        **mesh_paths("flash_attention_bwd"),
         **remat_paths("flash_attention_bwd"),
         **idefics2_train_paths("flash_attention_bwd"),
         "idefics2": {
@@ -5523,6 +5879,7 @@ def main() -> int:
         "launches": train_run["launches"][name],
         "launches_per_generate": timings["launches"][name],
         "launches_per_idefics2_generate": idefics2["serve"]["launches"][name],
+        **mesh_paths(name),
         "launches_serving_features": {phase: rec["launches"][name] for phase, rec in
                                       features.items() if "launches" in rec},
         **new_paths(name),
@@ -5543,6 +5900,8 @@ def main() -> int:
     } for name, kind, line, library in (
         ("fused_rms_norm", "rms", 54, "F.rms_norm"),
         ("fused_layer_norm", "ln", 88, "F.layer_norm"))]]}
+    torch.distributed.destroy_process_group()
+    print(json.dumps({"mesh": mesh_rec}), flush=True)
     print(json.dumps({"serving_features": features}), flush=True)
     print(json.dumps({"eval": evals}), flush=True)
     print(smi.splitlines()[0], flush=True)

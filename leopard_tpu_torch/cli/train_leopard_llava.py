@@ -1,11 +1,23 @@
 """Train Leopard-LLaVA (SigLIP-SO400M-364 + Llama-3.1-8B, anyres multi-image)
-from a jsonl manifest on one card (port of examples/train_leopard_llava.py,
-without its device mesh):
+from a jsonl manifest (port of examples/train_leopard_llava.py):
 
   python -m leopard_tpu_torch.cli.train_leopard_llava \
       --manifest data.jsonl --image-folder imgs/ \
       --tokenizer /ckpts/leopard-llava-hf --init-from /ckpts/leopard-llava-hf \
       --set text.num_layers=4 --seq-len 4096 --global-batch-size 2
+
+On N cards, one process each, started by torchrun, over a device mesh:
+
+  python -m torch.distributed.run --nproc_per_node=N \
+      -m leopard_tpu_torch.cli.train_leopard_llava ... --mesh data=2,fsdp=2,model=2
+
+`--mesh` names the axes data, fsdp, seq and model (unnamed ones are 1; their
+product must be the world size; stage and expert are refused until their
+slices); seq > 1 takes `--set text.attn_impl=ring`. Each (data, fsdp)
+coordinate loads its own share of every global batch; the primary alone
+logs and writes checkpoints (with its data position, which a resume gives
+every rank). Without `--mesh` the run is one process on one device, as
+before.
 
 A run resumes from the newest checkpoint in `--checkpoint-dir`, parameters,
 optimizer and data position (`DataState`) together. Batches come from
@@ -41,6 +53,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--freeze-vision-tower", action="store_true")
     p.add_argument("--freeze-llm", action="store_true")
     p.add_argument("--tiny", action="store_true", help="tiny config smoke run")
+    p.add_argument("--mesh", default=None,
+                   help="axis sizes, e.g. data=2,fsdp=2,model=2 (run under torchrun)")
     p.add_argument("--set", action="append", default=[],
                    help="dotted config override, e.g. text.num_layers=4")
     add_device_arg(p)
@@ -63,6 +77,24 @@ def train_main(args: argparse.Namespace, tokenizer=None, cfg=None, **train_overr
     """Build the model, state, loader and checkpoints from the flags and run
     `training.loop.train`. Returns the final TrainState."""
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh is not None:
+        import os
+
+        from leopard_tpu_torch.parallel.launch import initialize_distributed
+        from leopard_tpu_torch.parallel.mesh import build_mesh, parse_mesh
+
+        mesh_cfg = parse_mesh(args.mesh)
+        if mesh_cfg.stage > 1 or mesh_cfg.expert > 1:
+            raise SystemExit("error: --mesh stage and expert > 1 are not in the port yet")
+        world = int(os.environ.get("WORLD_SIZE", 1))
+        if mesh_cfg.num_devices != world:
+            raise SystemExit(f"error: --mesh {args.mesh} wants {mesh_cfg.num_devices} processes, "
+                             f"WORLD_SIZE is {world}")
+        initialize_distributed(device.type)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        mesh = build_mesh(mesh_cfg, device.type)
     from leopard_tpu_torch import config as cfgs
     from leopard_tpu_torch.config import OptimizerConfig, TrainConfig
     from leopard_tpu_torch.convert.hf import load_leopard_llava
@@ -70,6 +102,7 @@ def train_main(args: argparse.Namespace, tokenizer=None, cfg=None, **train_overr
     from leopard_tpu_torch.data.processor import LeopardProcessor
     from leopard_tpu_torch.data.tokenizer import build_tokenizer
     from leopard_tpu_torch.models import vlm
+    from leopard_tpu_torch.parallel.launch import dp_rank_and_world, is_primary
     from leopard_tpu_torch.training.checkpoint import CheckpointManager
     from leopard_tpu_torch.training.loop import train
     from leopard_tpu_torch.training.trainer import create_train_state, make_train_step
@@ -93,12 +126,18 @@ def train_main(args: argparse.Namespace, tokenizer=None, cfg=None, **train_overr
         model = load_leopard_llava(args.init_from, cfg, device)
     else:
         model = vlm.init_params(cfg, torch.Generator(device=device).manual_seed(train_cfg.seed))
-    state = create_train_state(model, train_cfg)
+    state = create_train_state(model, train_cfg, mesh=mesh)
     frozen = tuple(name for name, flag in (("vision", train_cfg.freeze_vision_tower),
                                            ("text", train_cfg.freeze_llm)) if flag)
     # the loaded model is the step's compute copy: the masters are written
-    # into it at every step
-    step_fn = make_train_step(cfg, train_cfg, frozen=frozen, model=model)
+    # into it at every step (under a mesh the step builds its own, of local
+    # shards)
+    step_fn = make_train_step(cfg, train_cfg, frozen=frozen,
+                              model=None if mesh is not None else model, mesh=mesh)
+    dp_rank, dp_world = dp_rank_and_world(mesh)
+    if train_cfg.global_batch_size % dp_world:
+        raise SystemExit(f"error: global batch {train_cfg.global_batch_size} does not split "
+                         f"over {dp_world} data-parallel ranks")
 
     data_state = DataState(seed=train_cfg.seed)
     ckpt = CheckpointManager(train_cfg.checkpoint_dir, async_save=train_cfg.async_checkpoint)
@@ -107,25 +146,31 @@ def train_main(args: argparse.Namespace, tokenizer=None, cfg=None, **train_overr
         state, ds = ckpt.restore(template=state)
         if ds:
             data_state = DataState.from_dict(ds)
-        print(f"resumed from step {latest}", flush=True)
+        if is_primary():
+            print(f"resumed from step {latest}", flush=True)
 
     loader = TrainDataLoader(
         JsonlSftDataset(args.manifest, args.image_folder), LeopardProcessor(cfg, tokenizer),
-        batch_size=train_cfg.global_batch_size, seq_len=train_cfg.seq_len, state=data_state)
+        batch_size=train_cfg.global_batch_size // dp_world, seq_len=train_cfg.seq_len,
+        dp_rank=dp_rank, dp_world=dp_world, state=data_state)
 
     def device_batches():
         for batch in loader:
             yield {k: torch.from_numpy(v).to(device, non_blocking=True)
                    for k, v in batch.as_dict().items()}
 
-    logger = MetricsLogger(train_cfg.checkpoint_dir)
+    logger = MetricsLogger(train_cfg.checkpoint_dir) if is_primary() else None
     try:
         final = train(cfg, train_cfg, state, step_fn, device_batches(),
                       data_state=data_state, ckpt=ckpt, logger=logger)
     finally:
         ckpt.close()
-        logger.close()
-    print(f"done at step {int(final.step)}", flush=True)
+        if logger is not None:
+            logger.close()
+    if is_primary():
+        print(f"done at step {int(final.step)}", flush=True)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     return final
 
 

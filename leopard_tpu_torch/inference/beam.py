@@ -84,7 +84,7 @@ def beam_search(
     token sequence, trimmed at eos."""
     tokens, seg, _, s = engine._pack([np.asarray(prompt, np.int32)])
     cache_len = engine._bucket(s + max_new_tokens, engine.seq_buckets)
-    cache = KVCache.create(engine.cfg.text, 1, cache_len, device=engine.device)
+    cache = KVCache.create(engine.cache_cfg, 1, cache_len, device=engine.device)
     first_logits, cache = _prefill(engine.model, engine._tensor(tokens), engine._tensor(seg),
                                    cache, engine._features(images, patch_mask), fresh=True)
     toks, n = _beam_decode(engine.model, first_logits, cache, int(beam_width),

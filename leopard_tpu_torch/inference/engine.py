@@ -38,9 +38,20 @@ the padded bucket, so capacity-mode drops are those of the JAX engine at the
 same buckets, and dropless dispatch reads its group sizes on the host once a
 layer at every forward.
 
-Not in the port: a device mesh (raises). Where the JAX engine clamps a
-cache write that falls outside a too-small `max_cache`, this engine raises
-before it writes anything.
+`mesh=` serves tensor-parallel over the mesh's "model" axis (JAX
+engine.py:199-223): the model is placed by the rules
+(parallel/sharding.py::tp_local_model: each rank keeps its block of heads,
+of the MLP and of the vocabulary; int8 payloads cut like their weights,
+int4 leaves replicated), the KV cache holds this rank's kv heads, and the
+logits are gathered whole for sampling, so every rank of the model group
+emits the same tokens. Each data-parallel group serves the whole batch it
+is given (the caller splits requests over data ranks). Not under a mesh
+yet (ROADMAP): fsdp or seq > 1, int4 weights at model > 1 (the rules
+replicate them, and cutting their split-half rows per rank is not written),
+and the MoE and Idefics2 models.
+
+Where the JAX engine clamps a cache write that falls outside a too-small
+`max_cache`, this engine raises before it writes anything.
 """
 
 from __future__ import annotations
@@ -182,7 +193,16 @@ class Engine:
         if quantize not in (None, "int8", "int4"):
             raise ValueError(f"unknown quantize mode {quantize}")
         if mesh is not None:
-            raise NotImplementedError("serving over a device mesh is not in the port yet")
+            from leopard_tpu_torch.parallel.mesh import mesh_config
+            from leopard_tpu_torch.training.trainer import check_mesh_supported
+
+            m = mesh_config(mesh)
+            check_mesh_supported(cfg, mesh, what="serving")
+            if m.fsdp > 1 or m.seq > 1:
+                raise NotImplementedError("serving shards over data and model only (ROADMAP)")
+            if quantize == "int4" and m.model > 1:
+                raise NotImplementedError("int4 serving at model > 1: the rules replicate "
+                                          "int4 leaves (ROADMAP)")
         if quantize is not None and cfg.text.num_experts > 0:
             # the JAX quantize_tree would quantize the expert banks, which
             # its moe_layer reads as raw weights: neither package serves it
@@ -196,6 +216,15 @@ class Engine:
             shared.load_state_dict(model.state_dict(), assign=True)
             quantize_tree(shared.text, mode=quantize)
             model = shared
+        self.cache_cfg = cfg.text
+        if mesh is not None:
+            from leopard_tpu_torch.parallel.mesh import MODEL_AXIS, Parallel, axis_size, set_parallel
+            from leopard_tpu_torch.parallel.sharding import tp_local_model
+
+            tp = axis_size(mesh, MODEL_AXIS)
+            model = set_parallel(tp_local_model(model, mesh), Parallel.of(mesh))
+            self.cache_cfg = dataclasses.replace(cfg.text, num_kv_heads=cfg.text.num_kv_heads // tp)
+        self.mesh = mesh
         self.cfg = cfg
         self.model = model.eval()
         self.quantize_kv = quantize_kv
@@ -227,7 +256,7 @@ class Engine:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _new_cache(self, batch: int, length: int) -> KVCache:
-        return KVCache.create(self.cfg.text, batch, length, device=self.device,
+        return KVCache.create(self.cache_cfg, batch, length, device=self.device,
                               quantized=self.quantize_kv)
 
     @torch.inference_mode()

@@ -17,8 +17,20 @@ without a cache, or into a fresh cache, takes the flash tier; shorter ones
 take dense. On a CUDA tensor the flash tier is the Hopper kernel; on a CPU
 tensor it is the kernel's plain version, which stands in for the JAX
 package's CPU chunked tier (the same function). `attn_impl="dense"` and
-`"flash"` force a tier for uncached and fresh-cache calls. Context
-parallelism is not ported.
+`"flash"` force a tier for uncached and fresh-cache calls.
+
+Parallelism (parallel/): the modules hold this rank's shards and read the
+groups of `self.par` (parallel/mesh.py::Parallel, None without a mesh).
+Under tensor parallelism the projections are column- and row-parallel and
+the embedding and head vocab-parallel (parallel/tensor_parallel.py); the
+local head counts come from the weights' shapes. `attn_impl="ring"` (JAX
+decoder.py:348-358, 581-599) is context parallelism over the seq group:
+the forward takes the whole sequence, permutes it once into the ring's
+layout (zig-zag where it applies) and keeps this rank's shard for the whole
+layer stack; every layer's attention is `parallel/context_parallel.py::
+ring_attention`. Hidden states come back as that shard
+(`return_hidden`), logits gathered back into the natural order. A call
+with a cache takes "auto" in place of "ring", as in the JAX package.
 
 MoE (JAX decoder.py:407-431, 543-611): with `num_experts > 0` every layer's
 MLP is a routed expert bank, `ops/moe.py`, whose parameters are `router.w`
@@ -72,6 +84,12 @@ from leopard_tpu_torch.ops.norms import rms_norm
 from leopard_tpu_torch.ops.quant import is_quantized, matmul
 from leopard_tpu_torch.ops.remat import remat_wrap, tag_attn_out
 from leopard_tpu_torch.ops.rotary import apply_rope, compute_inv_freq, rope_cos_sin
+from leopard_tpu_torch.parallel.context_parallel import (
+    gather_sequence, local_positions, pick_layout, ring_attention,
+)
+from leopard_tpu_torch.parallel.tensor_parallel import (
+    copy_to_tp, gather_from_tp, reduce_from_tp, vocab_parallel_embedding,
+)
 
 
 @dataclass
@@ -131,6 +149,8 @@ class DecoderLayer(nn.Module):
     `num_experts > 0`, the expert bank. A dense layer returns x; an MoE
     layer returns (x, its aux values)."""
 
+    par = None  # parallel/mesh.py::Parallel, set by set_parallel
+
     def __init__(self, cfg: TextConfig, *, dtype: torch.dtype, device=None):
         super().__init__()
         h, f, e = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
@@ -164,14 +184,17 @@ class DecoderLayer(nn.Module):
         slots: Optional[torch.Tensor],         # [B, S] cache slots of the new tokens
         fresh_cache: bool,
         positions: Optional[torch.Tensor] = None,  # [B, S] (chunked_cont)
+        ring_layout: Optional[str] = None,     # "ring": the layout of the shard
     ) -> torch.Tensor:
         b, s, _ = x.shape
         a = self.attn
-        hkv = cfg.num_kv_heads
-        y = rms_norm(x, self.input_norm, cfg.rms_norm_eps)
-        q = matmul(y, a.wq).reshape(b, s, cfg.num_heads, cfg.head_dim)
-        k = matmul(y, a.wk).reshape(b, s, hkv, cfg.head_dim)
-        v = matmul(y, a.wv).reshape(b, s, hkv, cfg.head_dim)
+        par = self.par
+        y = copy_to_tp(rms_norm(x, self.input_norm, cfg.rms_norm_eps), par)
+        # this rank's heads (all of them without tensor parallelism)
+        q = matmul(y, a.wq).reshape(b, s, -1, cfg.head_dim)
+        k = matmul(y, a.wk).reshape(b, s, -1, cfg.head_dim)
+        v = matmul(y, a.wv).reshape(b, s, -1, cfg.head_dim)
+        hkv = k.shape[2]
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
@@ -200,6 +223,9 @@ class DecoderLayer(nn.Module):
                 q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
                 sliding_window=cfg.sliding_window, ranges=ranges,
             )
+        elif attn_impl == "ring":
+            o = ring_attention(q, k, v, par, causal=True, segment_ids=segment_ids,
+                               sliding_window=cfg.sliding_window, layout=ring_layout)
         elif attn_impl == "chunked_cont":
             # the layer's cache slice after this call's writes (JAX decoder.py:373-390)
             ck, ck_s, cv, cv_s = quant_kv if quant_kv is not None else (k, None, v, None)
@@ -212,9 +238,9 @@ class DecoderLayer(nn.Module):
             o = attention_quant_kv(q, *quant_kv, mask=mask)
         else:
             o = tag_attn_out(attention(q, k, v, mask=mask))  # saved under "attn"/"selective"
-        x = x + matmul(o.reshape(b, s, -1), a.wo)
+        x = x + reduce_from_tp(matmul(o.reshape(b, s, -1), a.wo), par)
 
-        y = rms_norm(x, self.post_attn_norm, cfg.rms_norm_eps)
+        y = copy_to_tp(rms_norm(x, self.post_attn_norm, cfg.rms_norm_eps), par)
         if self.moe is not None:
             ex = self.experts
             out, aux = moe_layer(self.router.w, {"w_gate": ex.w_gate, "w_up": ex.w_up,
@@ -222,10 +248,12 @@ class DecoderLayer(nn.Module):
             return x + out, aux
         m = self.mlp
         gated = F.silu(matmul(y, m.w_gate)) * matmul(y, m.w_up)
-        return x + matmul(gated, m.w_down)
+        return x + reduce_from_tp(matmul(gated, m.w_down), par)
 
 
 class Decoder(nn.Module):
+    par = None  # parallel/mesh.py::Parallel, set by set_parallel
+
     def __init__(self, cfg: TextConfig, device=None):
         super().__init__()
         self.cfg = cfg
@@ -279,9 +307,14 @@ class Decoder(nn.Module):
         if cache is not None and not fresh_cache:
             return "chunked_cont" if s >= cfg.long_seq_threshold else "dense"
         impl = cfg.attn_impl
+        if impl == "ring" and cache is not None:
+            impl = "auto"  # CP rings don't apply to cached prefill (JAX decoder.py:497)
         if impl == "auto":
             impl = "flash" if s >= cfg.long_seq_threshold else "dense"
-        if impl not in ("flash", "dense"):
+        if impl == "ring" and self.par is None:
+            raise ValueError("attn_impl='ring' needs a seq group: a model under a mesh "
+                             "(make_train_step(mesh=...), parallel/mesh.py::set_parallel)")
+        if impl not in ("flash", "dense", "ring"):
             raise NotImplementedError(f"attn_impl={impl!r} is not in the port yet")
         return impl
 
@@ -311,14 +344,28 @@ class Decoder(nn.Module):
         positions that restart in each packed segment); `remat` applies to
         the uncached layer loop only, as in the JAX package."""
         cfg = self.cfg
-        x = self.embed_tokens[tokens] if input_embeds is None else input_embeds
+        par = self.par
+        if input_embeds is not None:
+            x = input_embeds
+        elif par is not None:
+            x = vocab_parallel_embedding(tokens, self.embed_tokens, par)
+        else:
+            x = self.embed_tokens[tokens]
         b, s, _ = x.shape
         dev = x.device
         if positions is None:
             base = cache.index[:, None] if cache is not None else 0
             positions = (base + torch.arange(s, device=dev)[None, :]).expand(b, s)
-        cos, sin = rope_cos_sin(positions, self._rope_inv_freq(dev))
         attn_impl = self._attn_impl(s, cache, fresh_cache)
+        ring_layout = None
+        if attn_impl == "ring":  # this rank's shard, in the ring's layout, for every layer
+            ring_layout = pick_layout(s, par.cp_size)
+            idx = local_positions(s, par.cp_size, par.cp_rank, ring_layout).to(dev)
+            x, positions = x[:, idx], positions[:, idx]
+            if segment_ids is not None:
+                segment_ids = segment_ids[:, idx]
+            s = x.shape[1]
+        cos, sin = rope_cos_sin(positions, self._rope_inv_freq(dev))
 
         slots = None
         if cache is not None:
@@ -354,6 +401,7 @@ class Decoder(nn.Module):
                 x, cfg, cos, sin, attn_impl=attn_impl, mask=mask,
                 segment_ids=segment_ids, ranges=ranges, cache=cache, layer_idx=i,
                 slots=slots, fresh_cache=fresh_cache, positions=positions,
+                ring_layout=ring_layout,
             )
             if layer.moe is not None:
                 x, layer_aux = x
@@ -375,5 +423,7 @@ class Decoder(nn.Module):
                 x = x.gather(1, logits_indices.long()[:, None, None].expand(b, 1, x.shape[-1]))
             # fp32 logits: an int4 head at M ≤ 64 on the card takes K4, which
             # rounds x to bf16 as the TPU kernel does
-            x = matmul(x.float(), self._head())
+            x = gather_from_tp(matmul(copy_to_tp(x.float(), par), self._head()), par)
+            if ring_layout is not None:
+                x = gather_sequence(x, par, ring_layout)
         return (x, cache, aux) if return_aux else (x, cache)

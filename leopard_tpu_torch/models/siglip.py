@@ -18,6 +18,10 @@ padding patch attends nothing: it comes out 0 from the kernel and a uniform
 average from the dense path (the TPU path lets it attend the real patches).
 Either is finite, and no caller reads it: the perceiver masks those rows.
 
+Under tensor parallelism (`self.par`, parallel/mesh.py::Parallel) each rank
+holds a block of heads and of the MLP's width: q/k/v and fc1 are
+column-parallel, wo and fc2 row-parallel (parallel/tensor_parallel.py).
+
 Not in the port: the CLIP tower's options (class token, pre-LN, bias-free
 patchify, quick-GELU, un-normed sequence output), which the constructor
 rejects.
@@ -37,6 +41,7 @@ from leopard_tpu_torch.ops.attention import attention
 from leopard_tpu_torch.ops.flash_attention import TileRanges, flash_attention, tile_ranges
 from leopard_tpu_torch.ops.norms import layer_norm
 from leopard_tpu_torch.ops.remat import remat_wrap, tag_attn_out
+from leopard_tpu_torch.parallel.tensor_parallel import copy_to_tp, row_linear
 
 
 def navit_position_ids(patch_mask: torch.Tensor, patches_per_side: int) -> torch.Tensor:
@@ -71,6 +76,8 @@ def patchify(pixel_values: torch.Tensor, patch_size: int) -> torch.Tensor:
 
 
 class SiglipLayer(nn.Module):
+    par = None  # parallel/mesh.py::Parallel, set by set_parallel
+
     def __init__(self, cfg: VisionConfig, *, dtype: torch.dtype, device=None):
         super().__init__()
         h, f = cfg.hidden_size, cfg.intermediate_size
@@ -87,8 +94,9 @@ class SiglipLayer(nn.Module):
                 seg: Optional[torch.Tensor], ranges: Optional[TileRanges]) -> torch.Tensor:
         b, s, _ = x.shape
         a = self.attn
-        y = layer_norm(x, self.ln1.scale, self.ln1.bias, cfg.layer_norm_eps)
-        heads = (b, s, cfg.num_heads, cfg.head_dim)
+        par = self.par
+        y = copy_to_tp(layer_norm(x, self.ln1.scale, self.ln1.bias, cfg.layer_norm_eps), par)
+        heads = (b, s, -1, cfg.head_dim)  # this rank's heads
         q = F.linear(y, a.wq, a.bq).reshape(heads)
         k = F.linear(y, a.wk, a.bk).reshape(heads)
         v = F.linear(y, a.wv, a.bv).reshape(heads)
@@ -97,10 +105,10 @@ class SiglipLayer(nn.Module):
                                 kv_segment_ids=seg, ranges=ranges)
         else:  # saved under "attn"/"selective", as K1's output is
             o = tag_attn_out(attention(q, k, v, q_segment_ids=seg, kv_segment_ids=seg))
-        x = x + F.linear(o.reshape(b, s, -1), a.wo, a.bo)
-        y = layer_norm(x, self.ln2.scale, self.ln2.bias, cfg.layer_norm_eps)
+        x = x + row_linear(o.reshape(b, s, -1), a.wo, a.bo, par)
+        y = copy_to_tp(layer_norm(x, self.ln2.scale, self.ln2.bias, cfg.layer_norm_eps), par)
         y = F.gelu(F.linear(y, self.mlp.fc1, self.mlp.b1), approximate="tanh")
-        return x + F.linear(y, self.mlp.fc2, self.mlp.b2)
+        return x + row_linear(y, self.mlp.fc2, self.mlp.b2, par)
 
 
 class SiglipVisionTower(nn.Module):

@@ -7,8 +7,11 @@
 Image features are spliced at the image-token positions.
 
 The splice keeps the JAX package's static-shape cumsum-gather: the i-th image
-token of the flattened batch takes the i-th image feature row. The sharding
-pins of the JAX forward are dropped; without a mesh they do nothing.
+token of the flattened batch takes the i-th image feature row. The JAX
+forward's three layout pins (JAX vlm.py:135,147,153) are
+`parallel/sharding.py::maybe_constrain`, a redistribute of a DTensor and
+nothing otherwise: under a mesh the forward runs on this rank's rows and
+shards, as plain tensors (parallel/tensor_parallel.py).
 """
 
 from __future__ import annotations
@@ -16,7 +19,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from leopard_tpu_torch.config import VLMConfig
@@ -27,6 +29,8 @@ from leopard_tpu_torch.models.projector import Projector
 from leopard_tpu_torch.models.siglip import SiglipVisionTower
 from leopard_tpu_torch.ops.image import normalize_uint8_nhwc
 from leopard_tpu_torch.ops.pixel_shuffle import pixel_shuffle
+from leopard_tpu_torch.parallel.sharding import maybe_constrain
+from leopard_tpu_torch.parallel.tensor_parallel import vocab_parallel_embedding
 
 
 def splice_image_features(
@@ -52,6 +56,8 @@ def splice_image_features(
 
 
 class LeopardVLM(nn.Module):
+    par = None  # parallel/mesh.py::Parallel, set by set_parallel
+
     def __init__(self, cfg: VLMConfig, device=None):
         super().__init__()
         self.cfg = cfg
@@ -113,15 +119,18 @@ class LeopardVLM(nn.Module):
         decoder's MoE aux values. `feature_row_offsets` maps one
         chunk's image tokens to their rows of the whole prompt's features
         (see splice_image_features)."""
-        embeds = F.embedding(tokens.clamp(min=0), self.text.embed_tokens)
+        embeds = vocab_parallel_embedding(tokens.clamp(min=0), self.text.embed_tokens, self.par)
+        embeds = maybe_constrain(embeds, ("data", "fsdp"), "seq", None)
         if image_features is None and images is not None:
             image_features = self.encode_images(
                 images, patch_mask, remat=remat if remat_vision is None else remat_vision)
         if image_features is not None:
+            image_features = maybe_constrain(image_features, None, None, None)
             embeds = splice_image_features(
                 embeds, image_features, tokens == self.cfg.image_token_id,
                 row_offsets=feature_row_offsets,
             )
+            embeds = maybe_constrain(embeds, ("data", "fsdp"), "seq", None)
         return self.text(
             input_embeds=embeds, positions=positions, segment_ids=segment_ids, cache=cache,
             return_hidden=return_hidden, remat=remat, logits_indices=logits_indices,

@@ -103,8 +103,13 @@ def _band_ranges(sq, skv, causal, window, block, device):
         return (torch.zeros((1, n), dtype=torch.int32, device=device),
                 torch.full((1, n), n_other - 1, dtype=torch.int32, device=device))
 
-    return TileRanges(_per_tile(*every(sq, skv), skv, block, causal, window, True),
-                      _per_tile(*every(skv, sq), sq, block, causal, window, False), None, None)
+    # cached for every later call: made as normal tensors even when the first
+    # call runs under inference mode (a generate), since a train step's K1
+    # saves them for K2 and autograd refuses to save inference tensors
+    with torch.inference_mode(False):
+        return TileRanges(_per_tile(*every(sq, skv), skv, block, causal, window, True),
+                          _per_tile(*every(skv, sq), sq, block, causal, window, False),
+                          None, None)
 
 
 def _spans(a_seg, b_seg):

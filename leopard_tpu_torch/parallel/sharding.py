@@ -1,0 +1,388 @@
+"""The sharding rules, read as DTensor placements (port of
+leopard_tpu/parallel/sharding.py).
+
+The JAX package keeps every parameter at its full logical shape and maps
+each path of its parameter tree to a `PartitionSpec` through a table of
+rules; GSPMD inserts the collectives. The port keeps the same table, read
+against its own names, and stores each parameter as a DTensor whose local
+shard is the one that JAX places on the device with the same mesh
+coordinate:
+
+  - the rules are the JAX ones, on the JAX paths: the port's
+    `text.layers.3.attn.wq` is JAX `text/layers/attn/wq`;
+  - a spec is right-aligned to the leaf, then FSDP takes the first dim it
+    leaves replicated that the fsdp size divides (`_normalize`), on the JAX
+    leaf's shape, [in, out] for a weight matrix; the port keeps matrices
+    [out, in] (models/params.py), so the spec is transposed back;
+  - the port's layers are separate tensors, so the rules apply to one
+    layer's leaf as they apply to an unstacked JAX tree. JAX's stacked
+    leaves [L, in, out] put FSDP on the layer axis, which a per-layer tensor
+    does not have; here it lands on the first replicated dim of the layer's
+    own weight;
+  - a dim sharded over two axes lists them major first, as JAX does: the
+    embedding table's vocab is over ("model", "fsdp"), so its shards are
+    model-major, which DTensor says with a `_StridedShard` on the fsdp axis.
+
+Only parameters are DTensors. The forward runs on plain local tensors
+(parallel/tensor_parallel.py): `gather_fsdp` gives the compute copy of one
+parameter (its fsdp shards gathered, its model shard kept), and
+`reduce_to_shard` brings a gradient of that copy back to the parameter's
+own shard, summed over the axes that split the batch.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import torch
+import torch.distributed as dist
+
+from leopard_tpu_torch.parallel.mesh import (
+    AXIS_ORDER, DATA_AXIS, FSDP_AXIS, MODEL_AXIS, SEQ_AXIS, axis_coord, axis_group, axis_size,
+)
+
+Entry = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[Entry, ...]
+
+# Ordered (regex, spec) rules on "/"-joined JAX paths; the first match wins
+# (a copy of the JAX DEFAULT_RULES, spec for spec).
+DEFAULT_RULES: list[tuple[str, Spec]] = [
+    # int8-quantized weights: the payload shards like its parent, the
+    # per-output-channel scales are replicated
+    (r".*/(wq|wk|wv|w_gate|w_up|fc1|lm_head)/q$", (None, MODEL_AXIS)),
+    (r".*/(wo|w_down|fc2)/q$", (MODEL_AXIS, None)),
+    (r".*/(wq|wk|wv|wo|w_gate|w_up|w_down|fc1|fc2|lm_head)/s$", ()),
+    # decoder / encoder attention
+    (r"(.*/)?attn/wq$", (None, MODEL_AXIS)),
+    (r"(.*/)?attn/wk$", (None, MODEL_AXIS)),
+    (r"(.*/)?attn/wv$", (None, MODEL_AXIS)),
+    (r"(.*/)?attn/wo$", (MODEL_AXIS, None)),
+    (r"(.*/)?attn/bq$", (MODEL_AXIS,)),
+    (r"(.*/)?attn/bk$", (MODEL_AXIS,)),
+    (r"(.*/)?attn/bv$", (MODEL_AXIS,)),
+    (r"(.*/)?attn/bo$", (None,)),
+    # MLP
+    (r"(.*/)?mlp/w_gate$", (None, MODEL_AXIS)),
+    (r"(.*/)?mlp/w_up$", (None, MODEL_AXIS)),
+    (r"(.*/)?mlp/w_down$", (MODEL_AXIS, None)),
+    (r"(.*/)?mlp/fc1$", (None, MODEL_AXIS)),
+    (r"(.*/)?mlp/fc2$", (MODEL_AXIS, None)),
+    (r"(.*/)?mlp/b1$", (MODEL_AXIS,)),
+    (r"(.*/)?mlp/b2$", (None,)),
+    # MoE experts: the expert dim over "expert", then column/row over model
+    (r"(.*/)?experts/w_gate$", ("expert", None, MODEL_AXIS)),
+    (r"(.*/)?experts/w_up$", ("expert", None, MODEL_AXIS)),
+    (r"(.*/)?experts/w_down$", ("expert", MODEL_AXIS, None)),
+    (r"(.*/)?router/.*$", ()),
+    # embeddings / output head: vocab-parallel; the table's vocab over
+    # model × fsdp jointly, its hidden dim replicated
+    (r".*embed_tokens$", ((MODEL_AXIS, FSDP_AXIS), None)),
+    (r".*lm_head$", (None, MODEL_AXIS)),
+    # projector
+    (r"(.*/)?projector/fc1$", (None, MODEL_AXIS)),
+    (r"(.*/)?projector/fc2$", (MODEL_AXIS, None)),
+    (r"(.*/)?projector/b1$", (MODEL_AXIS,)),
+    # the vision patchify conv and position table: replicated
+    (r".*patch_embed.*$", ()),
+    (r".*pos_embed.*$", ()),
+    # perceiver latents
+    (r".*latents$", ()),
+    # norms, scalars, everything else
+    (r".*", ()),
+]
+
+# replicated even under FSDP (a few MB at 8B; the JAX package keeps them
+# whole so that no lookup reshards its output)
+_NO_FSDP_RE = re.compile(r".*(patch_embed|pos_embed|embed_tokens).*")
+
+# leaves the port stores [out, in] where the JAX tree has [in, out]
+# (convert/from_jax.py::LINEAR_LEAVES; the router's `w` too)
+_MATRIX_LEAVES = frozenset({"kernel", "wq", "wk", "wv", "wo", "fc1", "fc2",
+                            "w_gate", "w_up", "w_down", "lm_head"})
+
+
+def jax_path(name: str) -> str:
+    """The port's state-dict name → the JAX tree path the rules read:
+    dots to slashes, the layer index dropped (`text.layers.3.attn.wq` →
+    `text/layers/attn/wq`)."""
+    parts = name.split(".")
+    if "layers" in parts:
+        at = parts.index("layers") + 1
+        if at < len(parts) and parts[at].isdigit():
+            del parts[at]
+    return "/".join(parts)
+
+
+def _is_matrix(name: str) -> bool:
+    parts = name.split(".")
+    return parts[-1] in _MATRIX_LEAVES or tuple(parts[-2:]) == ("router", "w")
+
+
+def spec_for_path(path: str, rules=None) -> Spec:
+    for pattern, spec in DEFAULT_RULES if rules is None else rules:
+        if re.fullmatch(pattern, path):
+            return spec
+    return ()
+
+
+def _normalize(spec: Spec, shape: Sequence[int], fsdp_size: int) -> Spec:
+    """Right-align the spec to the leaf's rank, then FSDP-shard the first
+    still-replicated dim whose size the fsdp size divides (fsdp_size > 1)."""
+    ndim = len(shape)
+    parts = [None] * max(0, ndim - len(spec)) + list(spec)
+    parts = parts[:ndim] if ndim else list(spec)
+    if fsdp_size > 1 and ndim:
+        for i, p in enumerate(parts):
+            if p is None and shape[i] % fsdp_size == 0:
+                parts[i] = FSDP_AXIS
+                break
+    return tuple(parts)
+
+
+def param_spec(name: str, shape: Sequence[int], rules=None, fsdp: bool = False,
+               fsdp_size: int = 2) -> Spec:
+    """The spec of one port tensor, in the port's layout: the JAX spec of
+    the same leaf (one layer's), transposed where the port transposes."""
+    shape = tuple(shape)
+    matrix = _is_matrix(name)
+    jshape = shape[:-2] + shape[:-3:-1] if matrix else shape
+    path = jax_path(name)
+    no_fsdp = not fsdp or _NO_FSDP_RE.fullmatch(path)
+    spec = _normalize(spec_for_path(path, rules), jshape, 1 if no_fsdp else fsdp_size)
+    return spec[:-2] + spec[:-3:-1] if matrix and len(spec) >= 2 else spec
+
+
+def param_specs(model: torch.nn.Module, rules=None, fsdp: bool = False,
+                fsdp_size: int = 2) -> Dict[str, Spec]:
+    """{state-dict name: spec} for every parameter and quantized buffer."""
+    return {name: param_spec(name, t.shape, rules, fsdp, fsdp_size)
+            for name, t in model.state_dict(keep_vars=True).items()}
+
+
+def _axes(entry: Entry) -> Tuple[str, ...]:
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def placements(spec: Spec, mesh) -> list:
+    """The DTensor placements (one per mesh axis) of a spec. A dim over two
+    axes whose layout order is not the mesh's takes a `_StridedShard` on
+    the outer mesh axis."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    out = [Replicate()] * len(AXIS_ORDER)
+    for d, entry in enumerate(spec):
+        axes = _axes(entry)
+        idx = [AXIS_ORDER.index(a) for a in axes]
+        if len(axes) == 1 or idx == sorted(idx):
+            for i in idx:
+                out[i] = Shard(d)
+        elif len(axes) == 2:  # layout-major axis inner in the mesh
+            out[idx[0]] = Shard(d)
+            out[idx[1]] = _StridedShard(d, split_factor=axis_size(mesh, axes[0]))
+        else:
+            raise NotImplementedError(f"dim {d} over {axes}: at most two axes out of mesh order")
+    return out
+
+
+def local_shard(t: torch.Tensor, spec: Spec, mesh, axes: Optional[Sequence[str]] = None
+                ) -> torch.Tensor:
+    """This rank's block of the full tensor `t` under `spec` (a view),
+    cut only over `axes` when given (e.g. the model axis alone)."""
+    for d, entry in enumerate(spec):
+        idx, n = 0, 1
+        for a in _axes(entry):
+            if axes is not None and a not in axes:
+                continue
+            idx = idx * axis_size(mesh, a) + axis_coord(mesh, a)
+            n *= axis_size(mesh, a)
+        if n > 1:
+            if t.shape[d] % n:
+                raise ValueError(f"dim {d} of {tuple(t.shape)} does not split over {entry}")
+            size = t.shape[d] // n
+            t = t.narrow(d, idx * size, size)
+    return t
+
+
+def distribute(t: torch.Tensor, mesh, spec: Spec):
+    """A DTensor of the full tensor `t` (present on every rank) under
+    `spec`, cut locally: no communication."""
+    from torch.distributed.tensor import DTensor
+
+    local = local_shard(t, spec, mesh).contiguous()
+    return DTensor.from_local(local, mesh, placements(spec, mesh), run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def like(dt, local: torch.Tensor):
+    """A DTensor with `dt`'s mesh, placements and global shape over
+    `local` (a tensor of dt's local shape)."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, dt.device_mesh, dt.placements, run_check=False,
+                              shape=dt.shape, stride=dt.stride())
+
+
+def _set(module: torch.nn.Module, name: str, value) -> None:
+    *path, leaf = name.split(".")
+    mod = module.get_submodule(".".join(path))
+    if leaf in mod._parameters:
+        mod._parameters[leaf] = value
+    else:
+        mod._buffers[leaf] = value
+
+
+def shard_params(model: torch.nn.Module, mesh, rules=None, fsdp: bool = False) -> Dict[str, Spec]:
+    """Make every parameter of `model` (loaded, full, on every rank) a
+    DTensor under the rules, in place. Returns the specs."""
+    specs = param_specs(model, rules, fsdp, axis_size(mesh, FSDP_AXIS))
+    for name, p in list(model.named_parameters()):
+        dt = distribute(p.detach(), mesh, specs[name])
+        _set(model, name, torch.nn.Parameter(dt, requires_grad=p.requires_grad))
+    return specs
+
+
+def _fsdp_dim(dt) -> Optional[int]:
+    """The tensor dim that the fsdp axis shards, or None."""
+    from torch.distributed.tensor import Replicate
+
+    p = dt.placements[AXIS_ORDER.index(FSDP_AXIS)]
+    return None if isinstance(p, Replicate) else p.dim
+
+
+@torch.no_grad()
+def gather_fsdp(dt) -> torch.Tensor:
+    """The compute copy of a DTensor parameter: its fsdp shards gathered
+    (data-major blocks in layout order, so a model-major joint shard comes
+    back as this rank's model block), its model shard kept."""
+    local = dt.to_local()
+    d = _fsdp_dim(dt)
+    mesh = dt.device_mesh
+    if d is None or axis_size(mesh, FSDP_AXIS) == 1:
+        return local
+    parts = [torch.empty_like(local) for _ in range(axis_size(mesh, FSDP_AXIS))]
+    dist.all_gather(parts, local.contiguous(), group=axis_group(mesh, FSDP_AXIS))
+    return torch.cat(parts, dim=d)
+
+
+BATCH_AXES = (DATA_AXIS, FSDP_AXIS, SEQ_AXIS)
+
+
+def all_reduce_batch(t: torch.Tensor, mesh, axes: Sequence[str] = BATCH_AXES) -> torch.Tensor:
+    """Sum `t` in place over the axes that split the batch rows and the
+    sequence."""
+    for a in axes:
+        if axis_size(mesh, a) > 1:
+            dist.all_reduce(t, group=axis_group(mesh, a))
+    return t
+
+
+@torch.no_grad()
+def reduce_to_shard(g: torch.Tensor, dt) -> torch.Tensor:
+    """The gradient of a compute copy (see gather_fsdp) → the gradient of
+    the parameter's own local shard: summed over data, fsdp and seq, then
+    cut to this rank's fsdp block. `g` is consumed."""
+    mesh = dt.device_mesh
+    all_reduce_batch(g, mesh)
+    d = _fsdp_dim(dt)
+    f = axis_size(mesh, FSDP_AXIS)
+    if d is None or f == 1:
+        return g
+    return g.chunk(f, dim=d)[axis_coord(mesh, FSDP_AXIS)].contiguous()
+
+
+def replication(dt) -> int:
+    """How many ranks hold each element of a DTensor: the world over the
+    product of the sizes of the axes that shard it."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = dt.device_mesh
+    sharded = 1
+    for i, p in enumerate(dt.placements):
+        if not isinstance(p, Replicate):
+            sharded *= mesh.size(i)
+    return mesh.size() // sharded
+
+
+def maybe_constrain(x, *spec_parts, mesh=None):
+    """The JAX package's layout pin (`with_sharding_constraint` at the
+    embedding gather and the image splice, JAX vlm.py:135-153): a
+    `redistribute` to the spec's placements when `x` is a DTensor, nothing
+    otherwise. The port's forward runs on local tensors, so on its own
+    paths this returns `x`."""
+    if type(x) is torch.Tensor:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(mesh or x.device_mesh, placements(tuple(spec_parts), x.device_mesh))
+
+
+def logical_batch_spec(seq_sharded: bool = False) -> Spec:
+    """Activation spec for [batch, seq, ...]: batch over data(+fsdp), seq
+    over "seq" when the sequence is sharded."""
+    if seq_sharded:
+        return ((DATA_AXIS, FSDP_AXIS), SEQ_AXIS, None)
+    return ((DATA_AXIS, FSDP_AXIS), None, None)
+
+
+def local_rows(batch: Mapping[str, Any], mesh, tokens_per_tile: int,
+               image_token_id: int) -> Dict[str, Any]:
+    """The rows of a global batch that this rank's (data, fsdp) coordinate
+    holds under `logical_batch_spec` (contiguous blocks, data major), with
+    the image tiles those rows' image tokens take: the batch's tiles are in
+    order of appearance, `tokens_per_tile` image tokens each. Ranks that
+    differ only in other axes get the same rows."""
+    from leopard_tpu_torch.parallel.launch import dp_rank_and_world
+
+    r, n = dp_rank_and_world(mesh)
+    b = batch["tokens"].shape[0]
+    if b % n:
+        raise ValueError(f"batch of {b} rows does not split over {n} data-parallel ranks")
+    lo, hi = r * b // n, (r + 1) * b // n
+    out = {k: v[lo:hi] for k, v in batch.items() if k not in ("images", "patch_mask")}
+    if batch.get("images") is not None:
+        per_row = (batch["tokens"] == image_token_id).sum(dim=1).tolist()
+        if any(c % tokens_per_tile for c in per_row):
+            raise ValueError("a row's image tokens are not whole tiles")
+        first = sum(per_row[:lo]) // tokens_per_tile
+        count = sum(per_row[lo:hi]) // tokens_per_tile
+        out["images"] = batch["images"][first:first + count]
+        if batch.get("patch_mask") is not None:
+            out["patch_mask"] = batch["patch_mask"][first:first + count]
+    return out
+
+
+def tp_local_model(model: torch.nn.Module, mesh, rules=None) -> torch.nn.Module:
+    """A new module of `model`'s class and config, on "meta" then given this
+    rank's model-axis shard of each of `model`'s tensors (views, no copy;
+    the full tensors on every rank): what serving under a mesh runs (JAX
+    engine.py:199-223 places the same tree by the rules). Quantized leaves
+    follow their rules: an int8 payload is cut like its weight, and its
+    replicated per-column scales are cut with a column-parallel payload's
+    columns. Int4 leaves are replicated by the rules and are not cut."""
+    from leopard_tpu_torch.models.params import QuantizedWeight
+    from leopard_tpu_torch.ops.quant import quantize_tree
+
+    local = type(model)(model.cfg, device="meta")
+    quantized = [m for m in model.modules() if isinstance(m, QuantizedWeight)]
+    if quantized:  # the structure only, on "meta"
+        quantize_tree(local.text, mode="int4" if quantized[0].int4 else "int8")
+    model_only = (MODEL_AXIS,)
+    specs = param_specs(model, rules)
+    for name, t in model.state_dict(keep_vars=True).items():
+        spec = specs[name]
+        if name.endswith(".s"):  # a scale: cut with its payload's columns
+            q = name[:-2] + ".q"
+            if q in specs and specs[q][-1] == MODEL_AXIS:
+                spec = (None,) * (t.dim() - 1) + (MODEL_AXIS,)
+        piece = local_shard(t.detach(), spec, mesh, model_only)
+        if isinstance(t, torch.nn.Parameter):
+            piece = torch.nn.Parameter(piece, requires_grad=False)
+        _set(local, name, piece)
+    for m in local.modules():
+        if isinstance(m, QuantizedWeight) and not m.int4:
+            m.n = m.s.shape[-1]
+    return local

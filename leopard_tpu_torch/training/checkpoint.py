@@ -14,6 +14,14 @@ goes on while the file is written. Layout:
 
 A step directory counts once its state.pt is complete (written under a
 temporary name and renamed). Only the newest `max_to_keep` are kept.
+
+Under a device mesh the state's tensors are DTensors (training/trainer.py):
+`save` gathers each one whole (`full_tensor()`, a collective, so every rank
+calls it), the primary alone writes, synchronously, and every rank waits at
+a barrier until the files are there. `restore` with a DTensor template
+places each full tensor by the template's placements on the template's
+mesh, so a checkpoint written at one mesh restores at another, as the JAX
+package's does.
 """
 
 from __future__ import annotations
@@ -32,8 +40,13 @@ LATEST_FILE = "latest_checkpointed_iteration.txt"
 STATE_FILE = "state.pt"
 
 
+def _is_dtensor(t) -> bool:
+    return type(t).__name__ == "DTensor"
+
+
 def _host(tensors):
-    return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
+    return {k: (v.full_tensor() if _is_dtensor(v) else v).detach().to("cpu", copy=True)
+            for k, v in tensors.items()}
 
 
 class CheckpointManager:
@@ -51,7 +64,11 @@ class CheckpointManager:
         """Finish the previous save, snapshot `state` to host memory, and
         write it (on the worker thread when saving asynchronously). `state`
         is a TrainState, or parameters alone as {name: tensor}."""
+        from leopard_tpu_torch.parallel.launch import barrier, is_primary
+
         self.wait_until_finished()
+        params = state.params if isinstance(state, TrainState) else state
+        sharded = any(_is_dtensor(v) for v in params.values())
         if isinstance(state, TrainState):
             opt = state.opt_state
             payload = {
@@ -61,6 +78,11 @@ class CheckpointManager:
             }
         else:
             payload = {"step": int(step), "params": _host(state)}
+        if sharded:
+            if is_primary():
+                self._write(step, payload, data_state, config)
+            barrier()
+            return
         if self._pool is None:
             self._write(step, payload, data_state, config)
         else:
@@ -110,7 +132,7 @@ class CheckpointManager:
         def place(tensors, like):
             if like is None:
                 return tensors
-            return {k: v.to(like[k].device) for k, v in tensors.items()}
+            return {k: _place(v, like[k]) for k, v in tensors.items()}
 
         if "opt_state" not in payload:
             state = place(payload["params"], template)
@@ -143,3 +165,14 @@ class CheckpointManager:
         self.wait_until_finished()
         if self._pool is not None:
             self._pool.shutdown()
+
+
+def _place(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A restored full tensor placed as `like` is: on its device, and for a
+    DTensor cut by its placements on its mesh (each rank its own shard)."""
+    if not _is_dtensor(like):
+        return full.to(like.device)
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(full.to(like.device, like.dtype), like.device_mesh,
+                             like.placements, src_data_rank=None)

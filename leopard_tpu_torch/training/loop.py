@@ -7,6 +7,10 @@ a batch-size ramp, and a profiler window. The JAX package traces with
 `jax.profiler`; here `torch.profiler` records the window (CPU and, on a card,
 CUDA activity) and writes a chrome trace into `profile_dir`. `data_state` is
 any object with `to_dict()` (the data pipeline is not in the port yet).
+
+Under a device mesh every rank runs the loop; the caller gives the logger
+to the primary alone, and `CheckpointManager.save` gathers on every rank and
+writes on the primary.
 """
 
 from __future__ import annotations
@@ -80,7 +84,10 @@ def param_hash(params) -> str:
     sparingly)."""
     h = hashlib.sha256()
     for name in sorted(params):
-        t = params[name].detach().to("cpu").contiguous()
+        t = params[name]
+        if type(t).__name__ == "DTensor":  # whole, gathered on every rank
+            t = t.full_tensor()
+        t = t.detach().to("cpu").contiguous()
         h.update(t.view(torch.uint8).numpy().tobytes())
     return h.hexdigest()
 
@@ -174,8 +181,9 @@ def train(
             logger.log(step, row)
 
         if train_cfg.check_param_hash_interval and step % train_cfg.check_param_hash_interval == 0:
+            digest = param_hash(state.params)  # a collective under a mesh
             if logger:
-                logger.log(step, {"param_hash": param_hash(state.params)})
+                logger.log(step, {"param_hash": digest})
 
         if eval_fn and train_cfg.eval_interval and step % train_cfg.eval_interval == 0:
             eval_metrics = eval_fn(state)

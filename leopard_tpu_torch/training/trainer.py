@@ -23,6 +23,25 @@ One difference, for memory: the JAX state is immutable and every update
 makes a new one; here `apply_gradients` updates the state's tensors in place
 (at 8B width a functional update would need another ~28 GB) and consumes the
 gradients it is given.
+
+Under a device mesh (`create_train_state(..., mesh=)`, `make_train_step(...,
+mesh=)`; JAX trainer.py:193-277 jitted with the rules' shardings) the fp32
+masters and both moments are DTensors placed by the rules
+(parallel/sharding.py), and each rank runs one process:
+  - the step takes this rank's rows of the batch (its (data, fsdp)
+    coordinate's, `parallel/sharding.py::local_rows`; ranks that differ in
+    seq or model read the same rows);
+  - the compute model holds each master's fsdp shards gathered and its model
+    shard kept, and runs the tensor-parallel forward; with
+    `attn_impl="ring"` the decoder keeps this rank's shard of the sequence
+    and attends through the ring over the seq axis, and the loss reads the
+    same shard of the targets;
+  - the loss is this rank's weighted NLL over the whole batch's weight, the
+    vocab-parallel chunked cross-entropy; each gradient is summed over data,
+    fsdp and seq and cut to the master's own shard, so it keeps the
+    parameter's placements;
+  - the clip's global norm sums every shard once, and AdamW runs on the
+    local shards in place.
 """
 
 from __future__ import annotations
@@ -156,9 +175,24 @@ def make_optimizer(cfg: OptimizerConfig) -> AdamW:
     return AdamW(cfg)
 
 
-def create_train_state(params, cfg: TrainConfig) -> TrainState:
+def create_train_state(params, cfg: TrainConfig, mesh=None) -> TrainState:
     """`params`: a module or a {name: tensor} mapping; they are copied as
-    fp32 master params, on their own device."""
+    fp32 master params, on their own device. With `mesh`, a module's
+    parameters are first made DTensors by the rules (FSDP when the mesh's
+    fsdp axis is > 1), and the masters and moments are DTensors of the same
+    placements."""
+    if mesh is not None:
+        from leopard_tpu_torch.parallel.mesh import FSDP_AXIS, axis_size
+        from leopard_tpu_torch.parallel.sharding import like, shard_params
+
+        if not isinstance(params, torch.nn.Module):
+            raise TypeError("create_train_state(mesh=...) takes the model")
+        shard_params(params, mesh, fsdp=axis_size(mesh, FSDP_AXIS) > 1)
+        fp32 = {k: like(p, p.to_local().detach().to(torch.float32, copy=True))
+                for k, p in params.named_parameters()}
+        zeros = lambda: {k: like(p, torch.zeros_like(p.to_local()))  # noqa: E731
+                         for k, p in fp32.items()}
+        return TrainState(step=0, params=fp32, opt_state=AdamWState(0, zeros(), zeros()))
     if isinstance(params, torch.nn.Module):
         params = dict(params.named_parameters())
     fp32 = {k: p.detach().to(torch.float32, copy=True) for k, p in params.items()}
@@ -275,7 +309,8 @@ def _to_device(batch: Mapping[str, Any], device) -> Dict[str, Any]:
 
 
 def make_train_step(cfg: VLMConfig, train_cfg: TrainConfig, frozen=(),
-                    grad_accum_steps: int = 1, model: Optional[LeopardVLM] = None):
+                    grad_accum_steps: int = 1, model: Optional[LeopardVLM] = None,
+                    mesh=None):
     """Returns train_step(state, batch) → (state, metrics). `frozen` names
     top-level param groups to freeze: "vision", "text" and "projector" of
     Leopard-LLaVA, "vision", "perceiver" and "text" of Leopard-Idefics2.
@@ -288,7 +323,15 @@ def make_train_step(cfg: VLMConfig, train_cfg: TrainConfig, frozen=(),
     dtype is built on the masters' device at the first step.
     `train_step.loss_and_grads(state, batch)` gives (loss, metrics, fp32
     grads) without the update, and `train_step.eval_loss(params, batch)`
-    (loss, metrics) without gradients, the `loss_fn` of `evaluate_loss`."""
+    (loss, metrics) without gradients, the `loss_fn` of `evaluate_loss`.
+
+    `mesh`: the sharded step (module docstring) over a state from
+    `create_train_state(..., mesh=)`, on this rank's rows of the batch; its
+    grads are the masters' local shards. Attention takes the ring over the
+    mesh's "seq" axis only when `cfg.text.attn_impl == "ring"` (JAX
+    trainer.py:270-271, whose `cp_mesh`/`cp_axis` the mesh replaces)."""
+    if mesh is not None:
+        return _sharded_train_step(cfg, train_cfg, frozen, grad_accum_steps, mesh)
     opt = make_optimizer(train_cfg.optimizer)
     remat = False if train_cfg.remat == "none" else train_cfg.remat
     compute_dtype = torch_dtype(cfg.text.dtype)
@@ -375,6 +418,148 @@ def make_train_step(cfg: VLMConfig, train_cfg: TrainConfig, frozen=(),
     def train_step(state: TrainState, batch):
         loss, metrics, grads = loss_and_grads(state, batch)
         return apply_gradients(opt, state, grads, loss, metrics, frozen=frozen)
+
+    train_step.loss_and_grads = loss_and_grads
+    train_step.eval_loss = eval_loss
+    return train_step
+
+
+def check_mesh_supported(cfg: VLMConfig, mesh, what: str = "training") -> None:
+    """Refuse what the port does not run under a mesh yet (ROADMAP §1)."""
+    from leopard_tpu_torch.parallel.mesh import mesh_config
+
+    m = mesh_config(mesh)
+    if m.stage > 1 or m.expert > 1:
+        raise NotImplementedError("stage > 1 (the 1F1B pipeline) and expert > 1 (the "
+                                  "expert-parallel dispatch) are not in the port yet (ROADMAP)")
+    if cfg.text.num_experts > 0 or cfg.architecture != "leopard_llava":
+        raise NotImplementedError(f"{what} of an MoE or Idefics2 model under a mesh is not in "
+                                  "the port yet (ROADMAP)")
+    if m.seq > 1 and cfg.text.attn_impl != "ring":
+        raise NotImplementedError("the port shards the sequence only through the ring: "
+                                  "seq > 1 takes text.attn_impl='ring'")
+    if m.model > 1 and (cfg.text.num_kv_heads % m.model or cfg.vision.num_heads % m.model):
+        raise ValueError(f"model={m.model} does not divide the kv heads "
+                         f"({cfg.text.num_kv_heads}) and the vision heads ({cfg.vision.num_heads})")
+
+
+def _chunk_nll_tp(hx, unembed, tx, wx, par):
+    from leopard_tpu_torch.parallel.tensor_parallel import copy_to_tp, vocab_parallel_logz
+
+    logits = F.linear(copy_to_tp(hx, par).float(), unembed)
+    logz, true = vocab_parallel_logz(logits, tx, par)
+    return (torch.where(wx > 0, logz - true, 0.0) * wx).sum()
+
+
+def _sharded_train_step(cfg, train_cfg, frozen, grad_accum_steps, mesh):
+    """make_train_step under a mesh (module docstring)."""
+    from leopard_tpu_torch.parallel.context_parallel import local_positions, pick_layout
+    from leopard_tpu_torch.parallel.mesh import Parallel, set_parallel
+    from leopard_tpu_torch.parallel.sharding import (
+        _set, all_reduce_batch, gather_fsdp, reduce_to_shard, replication,
+    )
+
+    check_mesh_supported(cfg, mesh)
+    if grad_accum_steps > 1:
+        raise NotImplementedError("grad accumulation under a mesh is not in the port yet")
+    opt = make_optimizer(train_cfg.optimizer)
+    remat = False if train_cfg.remat == "none" else train_cfg.remat
+    compute_dtype = torch_dtype(cfg.text.dtype)
+    par = Parallel.of(mesh)
+    ring = cfg.text.attn_impl == "ring"
+    holder = {}
+
+    def compute_model(state: TrainState) -> LeopardVLM:
+        m = holder.get("model")
+        with torch.no_grad():
+            if m is None:
+                m = LeopardVLM(cfg, device="meta")
+                for name, master in state.params.items():
+                    _set(m, name, torch.nn.Parameter(gather_fsdp(master).to(compute_dtype)))
+                holder["model"] = set_parallel(m, par)
+            else:
+                for name, p in m.named_parameters():
+                    p.copy_(gather_fsdp(state.params[name]))
+        for name, p in m.named_parameters():
+            p.requires_grad_(name.split(".", 1)[0] not in frozen)
+            p.grad = None
+        return m
+
+    def loss_parts(m, batch):
+        """(this rank's NLL over the batch's whole weight, metrics)."""
+        tokens = batch["tokens"]
+        seg = batch.get("segment_ids")
+        hidden, _ = m(tokens, images=batch.get("images"), positions=batch.get("positions"),
+                      segment_ids=seg, return_hidden=True, remat=remat,
+                      remat_vision=train_cfg.remat_vision)
+        # targets at every position (the last one weight 0), so that a
+        # shard of the sequence takes its targets by the same positions
+        targets = F.pad(tokens[:, 1:], (0, 1))
+        weights = batch["loss_weights"][:, 1:].float() * (tokens[:, 1:] != cfg.image_token_id)
+        if seg is not None:
+            weights = weights * (seg[:, 1:] != 0)
+        weights = F.pad(weights, (0, 1))
+        if ring:
+            s = tokens.shape[1]
+            idx = local_positions(s, par.cp_size, par.cp_rank,
+                                  pick_layout(s, par.cp_size)).to(tokens.device)
+            targets, weights = targets[:, idx], weights[:, idx]
+        b, s_local, _ = hidden.shape
+        chunk = min(train_cfg.loss_chunk, s_local)
+        pad = (-s_local) % chunk
+        if pad:
+            hidden = F.pad(hidden, (0, 0, 0, pad))
+            targets, weights = F.pad(targets, (0, pad)), F.pad(weights, (0, pad))
+        unembed = m.text.unembedding.float()
+        nll = hidden.new_zeros((), dtype=torch.float32)
+        for i in range(0, s_local + pad, chunk):
+            nll = nll + torch.utils.checkpoint.checkpoint(
+                _chunk_nll_tp, hidden[:, i:i + chunk], unembed, targets[:, i:i + chunk],
+                weights[:, i:i + chunk], par, use_reentrant=False)
+        total_w = torch.clamp(all_reduce_batch(weights.sum().detach(), mesh), min=1e-8)
+        loss = all_reduce_batch(nll.detach().clone(), mesh) / total_w
+        return nll / total_w, {"loss": loss, "tokens_in_loss": total_w}
+
+    def loss_and_grads(state: TrainState, batch):
+        m = compute_model(state)
+        batch = _to_device(batch, next(m.parameters()).device)
+        local_loss, metrics = loss_parts(m, batch)
+        local_loss.backward()
+        grads = {}
+        for name, p in m.named_parameters():
+            g = p.grad.float() if p.grad is not None else torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device)
+            p.grad = None
+            grads[name] = reduce_to_shard(g, state.params[name])
+        return metrics["loss"], metrics, grads
+
+    @torch.no_grad()
+    def eval_loss(params: Tensors, batch):
+        m = compute_model(TrainState(step=0, params=params, opt_state=None))
+        _, metrics = loss_parts(m, _to_device(batch, next(m.parameters()).device))
+        return metrics["loss"], metrics
+
+    def train_step(state: TrainState, batch):
+        loss, metrics, grads = loss_and_grads(state, batch)
+        if frozen:
+            for k in grads:
+                if k.split(".", 1)[0] in frozen:
+                    grads[k].zero_()
+        sq = torch.stack([g.float().square().sum() / replication(state.params[k])
+                          for k, g in grads.items()]).sum()
+        torch.distributed.all_reduce(sq)
+        gnorm = sq.sqrt()
+        metrics = dict(metrics, grad_norm=gnorm)
+        loss_ok = bool(torch.isfinite(loss))
+        metrics["nan_step"] = not loss_ok
+        if loss_ok and bool(torch.isfinite(gnorm)):
+            st = state.opt_state
+            local = AdamWState(st.count, {k: t.to_local() for k, t in st.mu.items()},
+                               {k: t.to_local() for k, t in st.nu.items()})
+            opt.update_(grads, local, {k: p.to_local() for k, p in state.params.items()},
+                        gnorm)
+            st.count = local.count
+        return state.replace(step=state.step + 1), metrics
 
     train_step.loss_and_grads = loss_and_grads
     train_step.eval_loss = eval_loss

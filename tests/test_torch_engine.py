@@ -125,8 +125,23 @@ def test_sampled_generate_is_seeded(engines):
         assert np.all((x >= 0) & (x < teng.cfg.text.vocab_size))
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object())], ids=["mesh"])
+class _MeshShape:
+    """What the engine reads of a mesh before it touches a process group:
+    its axis sizes."""
+
+    def __init__(self, **sizes):
+        from leopard_tpu_torch.parallel.mesh import AXIS_ORDER
+
+        self.sizes = [sizes.get(a, 1) for a in AXIS_ORDER]
+
+    def size(self, dim=None):
+        return self.sizes[dim]
+
+
+@pytest.mark.parametrize("kw", [dict(mesh=_MeshShape(fsdp=2))], ids=["mesh"])
 def test_engine_rejects_what_the_port_lacks(engines, kw):
+    """Serving under a mesh is ported over "model" (and "data"); a mesh
+    that shards parameters over fsdp is refused."""
     _, teng = engines
     with pytest.raises(NotImplementedError):
         Engine(teng.cfg, teng.model, **kw)

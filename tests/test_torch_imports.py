@@ -40,7 +40,9 @@ REQUIRED = ("ops.flash_attention", "ops.int4_matmul", "ops.fused_norms",
             "cli.train_leopard_llava", "cli.convert_checkpoint", "data.idefics2_processor",
             "models.perceiver", "evaluation.metrics", "evaluation.vqa_metrics",
             "evaluation.loaders", "evaluation.harness", "evaluation.adapter",
-            "evaluation.lm_eval_adapter", "cli.run_eval", "ops.remat", "ops.moe")
+            "evaluation.lm_eval_adapter", "cli.run_eval", "ops.remat", "ops.moe",
+            "parallel.launch", "parallel.mesh", "parallel.sharding", "parallel.context_parallel",
+            "parallel.tensor_parallel")
 
 
 def _run(args, cwd):

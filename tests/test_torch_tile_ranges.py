@@ -118,6 +118,18 @@ def test_ranges_without_segments_are_the_band_and_cached():
     assert a.q_of_kv[0].tolist() == [[0, 227], [128, 300], [256, 300]]
 
 
+def test_cached_band_ranges_made_under_inference_mode_can_be_saved():
+    """A generate (inference mode) that first makes a shape's band ranges
+    must not cache inference tensors: a later train step's K1 saves them
+    for K2, which autograd refuses for inference tensors."""
+    tflash._band_ranges.cache_clear()
+    with torch.inference_mode():
+        rng = tflash.tile_ranges(None, None, sq=300, skv=300, causal=False)
+    assert not any(t.is_inference() for t in rng if t is not None)
+    x = torch.ones(2, requires_grad=True)
+    (x * rng.kv_of_q.float().sum()).sum().backward()  # saved by autograd
+
+
 def test_uniform_ids_mark_mixed_padding_and_ragged_blocks():
     seg = torch.tensor([[3] * 64 + [3] * 10 + [4] * 54 + [5] * 64 + [0] * 64 + [6] * 20]).int()
     assert tflash.uniform_ids(seg, 64).tolist() == [[3, -1, 5, -1, -1]]
