@@ -40,7 +40,9 @@ script exits non-zero without printing a result:
      for phases 34-36: K1 and K2 at the MoE model's head dim 64 ([4, 4,096]
      causal, 32/16 heads, and K1 at phase 35's [2, 4,096] prefill), held by
      cosine >= KERNEL_COSINE_MIN too, K3a at (16,384, 2,048), and K4 at
-     Mistral's head padded to 32,128 columns (M = 1, K = 4,096);
+     Mistral's head padded to 32,128 columns (M = 1, K = 4,096); for phase
+     41: K1/K2 at one microbatch's row, K2 at one tower chunk, K3a at
+     (4096, 4096) and K3b at (8·676, 1152);
   4. serving at 8B: Engine.generate on Leopard-LLaVA-8B with seeded random
      weights, 2 requests of 16 uint8 364×364 tiles each, 16 greedy tokens;
      K1's and K3's launch counts, no K1 input copied (TMA reads every
@@ -252,6 +254,17 @@ script exits non-zero without printing a result:
      one K1 and one K2 call over the whole sequence (cosine >= 0.9999), K1
      and K2 launched n(2n + 1) times a pass each (one a block), ms per
      ring pass beside the one call's;
+ 41. (after phase 38) phase 20's 8B-width, depth-4 step through the 1F1B
+     pipeline (training/pp.py's make_pp_train_step, MemoryStages(2): both
+     stages in this process at a world of one, the gloo tests' code with
+     the transport swapped), M = 2 microbatches of one row, the tower in
+     chunks of 8 tiles, at v = 1 and v = 2 (one layer a chunk), against the
+     plain make_train_step from the same seeded weights: loss (rel 1e-5),
+     gradient cosine per group (>= 0.9999) and the clip norm (rel 4e-4);
+     K1, K2, K3a and K3b launches a step as `pp_launches`, 3 steps each,
+     step ms and peak memory beside the plain step's; then a planted fault
+     (each stage handed the activation before the latest) that each of
+     the three gates must fail;
  40. (after phase 21) `python -m torch.distributed.run --nproc_per_node=1
      -m leopard_tpu_torch.cli.train_leopard_llava --mesh data=1` on phase
      21's checkpoint and manifest, with a tokenizer.json that gives the
@@ -321,6 +334,11 @@ TRAIN_SEQ = 4096
 TRAIN_ROWS = ((2100, 1900), (1700, 2300))  # sample lengths; the rest is padding
 TRAIN_TILES_PER_SAMPLE = 4
 TRAIN_STEPS = 3
+# phase 41: that step through the 1F1B pipeline, MemoryStages(2) at a world of
+# one, M microbatches of one row each, at v = 1 and v = 2 (one layer a chunk)
+PP_STAGES = 2
+PP_MICROBATCHES = 2
+PP_CHUNKS = (1, 2)
 # phase 3's K1 shapes: the vision tower at 8 (phase 19's two PNGs, 7 crops),
 # 16 and 32 tiles, the decoder
 # prefill of two right-padded rows, the decoder prefills that phase 16's
@@ -339,17 +357,26 @@ K1_SHAPES = {
                             rows=((1238,), (1520,))),
     "decoder_b4_2048": dict(b=4, s=2048, hq=32, hkv=8, d=128, causal=True,
                             rows=((612,), (1043,), (294,), (1660,))),
+    # phase 41's microbatches: one packed train row each
+    **{f"train_pp_row{i}": dict(b=1, s=TRAIN_SEQ, hq=32, hkv=8, d=128, causal=True, rows=(row,))
+       for i, row in enumerate(TRAIN_ROWS)},
 }
 
 
 def k2_shapes(text, vis):
     """Phase 3's K2 shapes from the model's text and vision configs: the
-    train phase's packed decoder rows and its tower tiles."""
+    train phase's packed decoder rows and its tower tiles; phase 41's
+    microbatches (one row each) and tower chunks (tiles / M)."""
     n_tiles = sum(len(row) for row in TRAIN_ROWS) * TRAIN_TILES_PER_SAMPLE
-    return {"decoder": dict(b=len(TRAIN_ROWS), s=TRAIN_SEQ, hq=text.num_heads,
-                            hkv=text.num_kv_heads, d=text.head_dim, causal=True, rows=TRAIN_ROWS),
-            "tower": dict(b=n_tiles, s=vis.tokens_per_tile, hq=vis.num_heads, hkv=vis.num_heads,
-                          d=vis.head_dim, causal=False, rows=None)}
+    dec = dict(s=TRAIN_SEQ, hq=text.num_heads, hkv=text.num_kv_heads, d=text.head_dim,
+               causal=True)
+    tower = dict(s=vis.tokens_per_tile, hq=vis.num_heads, hkv=vis.num_heads, d=vis.head_dim,
+                 causal=False, rows=None)
+    return {"decoder": dict(b=len(TRAIN_ROWS), rows=TRAIN_ROWS, **dec),
+            "tower": dict(b=n_tiles, **tower),
+            **{f"decoder_pp_row{i}": dict(b=1, rows=(row,), **dec)
+               for i, row in enumerate(TRAIN_ROWS)},
+            "tower_pp": dict(b=n_tiles // PP_MICROBATCHES, **tower)}
 
 
 def cuda_ms(fn, flush=None, reps=10, warm=True) -> float:
@@ -2571,10 +2598,11 @@ def param_group(name):
 
 
 def group_cosines(a_grads, b_grads):
-    """Cosine of two gradient sets per parameter group, in float64."""
+    """Cosine of two gradient sets per parameter group, in float64 on the
+    device of `a_grads` (each of `b_grads` moved there in turn)."""
     sums = {}
     for n, a in a_grads.items():
-        a, b = a.double(), b_grads[n].double()
+        a, b = a.double(), b_grads[n].to(a.device).double()
         acc = sums.setdefault(param_group(n), [0.0, 0.0, 0.0])
         acc[0] += float((a * b).sum())
         acc[1] += float(a.square().sum())
@@ -5052,16 +5080,6 @@ def mesh_train_phase(model, cfg, batch, mesh, card):
             ms.append(t)
         return state, ms
 
-    def cosines(grads, ref):
-        sums = {}
-        for n, g in grads.items():
-            a, b = g.double(), ref[n].to(g.device).double()
-            acc = sums.setdefault(param_group(n), [0.0, 0.0, 0.0])
-            acc[0] += float((a * b).sum())
-            acc[1] += float(a.square().sum())
-            acc[2] += float(b.square().sum())
-        return {grp: dot / max((na * nb) ** 0.5, 1e-30) for grp, (dot, na, nb) in sums.items()}
-
     rec = {}
     torch.cuda.reset_peak_memory_stats()
     state = trainer.create_train_state(model, tc)
@@ -5085,7 +5103,7 @@ def mesh_train_phase(model, cfg, batch, mesh, card):
         step = trainer.make_train_step(c, tc, mesh=mesh)
         (loss, _, grads), ms, launches = counted(lambda: step.loss_and_grads(state, batch))
         rel = abs(float(loss) - plain_loss) / abs(plain_loss)
-        cos = cosines(grads, plain_grads)
+        cos = group_cosines(grads, plain_grads)
         del grads
         print(f"{name} step vs plain (one step's loss and gradients) [{card}]: loss "
               f"{float(loss):.6f} vs {plain_loss:.6f} (rel {rel:.3g}, tol {MESH_LOSS_RTOL}), "
@@ -5181,6 +5199,227 @@ def ring_kernels_phase(device, card):
             raise AssertionError(f"ring n={n}: cosines {cos}, launches {launches}")
         rec[f"n{n}"] = {"cosines": cos, "launches": launches, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
         del ring, outs, dqs, whole
+    return rec
+
+
+# phase 41: the 1F1B pipeline (parallel/pipeline.py, training/pp.py) at a world
+# of one: MemoryStages runs the n stages in this process, through the same
+# make_pp_train_step as P2PStages over gloo in the CPU tests
+# (each limit between the sound run's reading and the planted fault's on the
+# card: loss rel 7.78e-8 / 1.58e-4, clip norm rel 1.61e-4 / 9.97e-4, least
+# cosine 0.9999281 / 0.9487; PERF.md)
+PP_LOSS_RTOL = 1e-5
+PP_COSINE_MIN = 0.9999
+PP_NORM_RTOL = 4e-4
+
+
+def pp_launches(cfg, m_total, tower_chunks):
+    """K1, K2, K3a and K3b launches of one pipeline step under "full"
+    recompute, whatever n and v: each text layer runs each microbatch's
+    forward at its forward tick (K1, two K3a) and again at its backward
+    tick, where the layer's checkpoint recomputes it once more before K2;
+    the head's final norm runs once a microbatch. The tower runs outside
+    the pipeline in `tower_chunks` calls, each under a checkpoint: its
+    forward, the checkpoint's recompute and each layer's own recompute (K1,
+    two K3b a layer; the post-LN in the first two), and K2 once."""
+    lt, lv, m, k = cfg.text.num_layers, cfg.vision.num_layers, m_total, tower_chunks
+    return {"flash_attention": 3 * lt * m + 3 * lv * k, "flash_attention_bwd": lt * m + lv * k,
+            "fused_rms_norm": 3 * 2 * lt * m + m, "fused_layer_norm": k * (3 * 2 * lv + 2)}
+
+
+def stale_activations(n):
+    """Phase 41's planted fault, a transport that hands each stage the
+    activation its predecessor sent one hand-off before the latest (a
+    receive buffer reused too early): every later microbatch's upper stages
+    run on the previous microbatch's hidden states. Not a path of the port:
+    it exists to show that the gates below fail such a run."""
+    from leopard_tpu_torch.parallel.pipeline import MemoryStages
+
+    class StaleActivations(MemoryStages):
+        def __init__(self):
+            super().__init__(n)
+            self.previous = {}
+
+        def exchange(self, up, down, want_act, want_grad, like):
+            acts, grads = super().exchange(up, down, want_act, want_grad, like)
+            for d, act in acts.items():
+                if act is not None:
+                    acts[d], self.previous[d] = self.previous.get(d, act), act
+            return acts, grads
+
+    return StaleActivations()
+
+
+def traced(fn):
+    """fn() once under torch.profiler, device activity alone (a host trace
+    of a train step takes longer to process than the step): (its result,
+    {host ms, device busy ms (the union of kernel and copy intervals), idle
+    share, device ms by tools/profile_torch_train.py's kernel families})."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tools.profile_torch_train import family
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and e.name != "Command Buffer Full"]
+    if not kernels:
+        raise AssertionError("the trace recorded no device activity")
+    busy_us, end_us = 0.0, float("-inf")
+    by_family = collections.defaultdict(float)
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        start, stop = max(e.time_range.start, end_us), e.time_range.end
+        busy_us += max(stop - start, 0)
+        end_us = max(end_us, stop)
+        by_family[family(e.name)] += e.time_range.elapsed_us() / 1e3
+    return out, {"wall_ms": wall_ms, "busy_ms": busy_us / 1e3,
+                 "idle_share": 1 - busy_us / 1e3 / wall_ms, "activities": len(kernels),
+                 "by_family_ms": dict(by_family)}
+
+
+def pp_train_phase(cfg, batch, mesh, card, device):
+    """Phase 41: phase 20's step through make_pp_train_step with
+    MemoryStages(PP_STAGES) at a world of one, at v in PP_CHUNKS, against
+    the plain make_train_step from the same seeded weights: loss, gradient
+    cosine per group and the clip norm; launches a step against
+    `pp_launches`; step ms and peak memory beside the plain step's; and a
+    planted fault that the gates must catch."""
+    import torch
+
+    from leopard_tpu_torch.config import OptimizerConfig, TrainConfig
+    from leopard_tpu_torch.models import vlm
+    from leopard_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from leopard_tpu_torch.ops.fused_norms import fused_layer_norm, fused_rms_norm
+    from leopard_tpu_torch.parallel.pipeline import MemoryStages
+    from leopard_tpu_torch.training import pp, trainer
+
+    t_phase = time.perf_counter()
+    counters = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+                "fused_rms_norm": fused_rms_norm, "fused_layer_norm": fused_layer_norm}
+    tiles = batch["images"].shape[0]
+    chunk = -(-tiles // PP_MICROBATCHES)   # vision_chunk 0: tiles / M a call
+    want = pp_launches(cfg, PP_MICROBATCHES, -(-tiles // chunk))
+    tc = TrainConfig(
+        seq_len=TRAIN_SEQ, global_batch_size=len(TRAIN_ROWS), remat="full", loss_chunk=1024,
+        optimizer=OptimizerConfig(lr=1e-5, warmup_steps=1, decay_steps=1000, grad_clip=1.0))
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, {k: c.launches for k, c in counters.items()}
+
+    def timed_steps(label, step, state, launches_want):
+        """TRAIN_STEPS steps: the state, each step's ms and clip norm."""
+        ms, norms = [], []
+        for i in range(TRAIN_STEPS):
+            (state, metrics), t, launches = counted(lambda: step(state, batch))
+            if launches != launches_want or not np.isfinite(float(metrics["loss"])):
+                raise AssertionError(f"{label} step {i + 1}: launches {launches} (expected "
+                                     f"{launches_want}), loss {float(metrics['loss'])}")
+            ms.append(t)
+            norms.append(float(metrics["grad_norm"]))
+        return state, ms, norms
+
+    model = vlm.init_params(cfg, torch.Generator(device=device).manual_seed(SEED))
+    lt, lv = cfg.text.num_layers, cfg.vision.num_layers
+    plain_want = {"flash_attention": 2 * (lt + lv), "flash_attention_bwd": lt + lv,
+                  "fused_rms_norm": 2 * 2 * lt + 1, "fused_layer_norm": 2 * 2 * lv + 1}
+    rec = {"launches_per_step": want, "plain_launches_per_step": plain_want,
+           "stages": PP_STAGES, "microbatches": PP_MICROBATCHES, "tower_chunk": chunk}
+    state = trainer.create_train_state(model, tc)
+    step = trainer.make_train_step(cfg, tc)
+    (loss, _, grads), _, _ = counted(lambda: step.loss_and_grads(state, batch))
+    plain = {"loss": float(loss), "norm": float(trainer.global_norm(grads))}
+    plain_grads = {k: g.cpu() for k, g in grads.items()}
+    del grads
+    torch.cuda.reset_peak_memory_stats()   # both peaks: over the timed steps
+    state, rec["plain_step_ms"], plain_norms = timed_steps("plain", step, state, plain_want)
+    rec["plain_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    (state, _), rec["plain_trace"] = traced(lambda: step(state, batch))
+    rec["plain"] = plain
+    del state, step
+    torch.cuda.empty_cache()
+
+    def gate(label, stages, v):
+        """One step's loss and gradients from the initial weights against
+        the plain step's: the readings, and which gates they pass."""
+        step = pp.make_pp_train_step(cfg, tc, mesh, num_microbatches=PP_MICROBATCHES,
+                                     virtual_chunks=v, stages=stages)
+        (loss, _, grads), ms, launches = counted(lambda: step.loss_and_grads(state, batch))
+        cos = group_cosines(grads, plain_grads)
+        norm = float(trainer.global_norm(grads))
+        del grads, step
+        torch.cuda.empty_cache()
+        got = {"loss": float(loss), "loss_rel": abs(float(loss) - plain["loss"]) / plain["loss"],
+               "norm": norm, "norm_rel": abs(norm - plain["norm"]) / plain["norm"],
+               "cosines": cos, "launches": launches, "ms": ms}
+        got["passed"] = {"loss": got["loss_rel"] <= PP_LOSS_RTOL,
+                         "cosine": min(cos.values()) >= PP_COSINE_MIN,
+                         "norm": got["norm_rel"] <= PP_NORM_RTOL}
+        print(f"{label} vs the plain step (one step's loss and gradients) [{card}]: loss "
+              f"{got['loss']:.6f} vs {plain['loss']:.6f} (rel {got['loss_rel']:.3g}, tol "
+              f"{PP_LOSS_RTOL}), clip norm {norm:.6f} vs {plain['norm']:.6f} (rel "
+              f"{got['norm_rel']:.3g}, tol {PP_NORM_RTOL}), cosine per group "
+              + ", ".join(f"{g}: {c:.7f}" for g, c in cos.items())
+              + f" (min {PP_COSINE_MIN}); passed {got['passed']}; launches {launches}",
+              flush=True)
+        return got
+
+    state = pp.create_pp_train_state(model, tc, mesh, stages=MemoryStages(PP_STAGES))
+    del model
+    for v in PP_CHUNKS:
+        rec[f"v{v}"] = gate(f"pipeline n={PP_STAGES}, v={v}, M={PP_MICROBATCHES}",
+                            MemoryStages(PP_STAGES), v)
+        if not all(rec[f"v{v}"]["passed"].values()) or rec[f"v{v}"]["launches"] != want:
+            raise AssertionError(f"pipeline v={v}: {rec[f'v{v}']} (launches expected {want})")
+    rec["fault"] = gate("planted fault (stale activations), v=1", stale_activations(PP_STAGES), 1)
+    if any(rec["fault"]["passed"].values()):   # each gate must catch it on its own
+        raise AssertionError(f"the planted fault passed a gate: {rec['fault']}")
+    torch.cuda.reset_peak_memory_stats()
+    for v in PP_CHUNKS:
+        step = pp.make_pp_train_step(cfg, tc, mesh, num_microbatches=PP_MICROBATCHES,
+                                     virtual_chunks=v, stages=MemoryStages(PP_STAGES))
+        state, rec[f"v{v}"]["step_ms"], norms = timed_steps(f"pipeline v={v}", step, state,
+                                                            want)
+        if v == PP_CHUNKS[0]:   # the clip norm of the first step, from the initial weights
+            rel = abs(norms[0] - plain_norms[0]) / plain_norms[0]
+            rec["step1_clip_norm"] = {"pipeline": norms[0], "plain": plain_norms[0], "rel": rel}
+            print(f"pipeline v={v}, step 1's clip norm {norms[0]:.6f} vs the plain step's "
+                  f"{plain_norms[0]:.6f} (rel {rel:.3g}, tol {PP_NORM_RTOL}) [{card}]", flush=True)
+            if rel > PP_NORM_RTOL:
+                raise AssertionError(f"pipeline clip norm: {rec['step1_clip_norm']}")
+            (state, _), rec["pipeline_trace"] = traced(lambda: step(state, batch))
+        del step
+        torch.cuda.empty_cache()
+    rec["pp_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del state
+    torch.cuda.empty_cache()
+    mean = lambda ms: statistics.mean(ms[1:])  # noqa: E731
+    print(f"train step, plain vs pipeline (MemoryStages({PP_STAGES}), M={PP_MICROBATCHES}, "
+          f"tower chunks of {chunk} tiles) [{card}]: plain {mean(rec['plain_step_ms']):.1f} ms, "
+          + ", ".join(f"v={v} {mean(rec[f'v{v}']['step_ms']):.1f} ms" for v in PP_CHUNKS)
+          + f" (mean of steps 2-{TRAIN_STEPS}); launches a step {want} against the plain "
+          f"{plain_want}; peak device memory {rec['plain_peak_gib']:.2f} (plain) / "
+          f"{rec['pp_peak_gib']:.2f} GiB (pipeline)", flush=True)
+    for label, t in (("plain", rec["plain_trace"]),
+                     (f"pipeline v={PP_CHUNKS[0]}", rec["pipeline_trace"])):
+        print(f"traced {label} step [{card}]: host {t['wall_ms']:.1f} ms, device busy "
+              f"{t['busy_ms']:.1f} ms (idle share {t['idle_share']:.3f}), {t['activities']} "
+              "device activities; by family " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in sorted(t["by_family_ms"].items(),
+                                                     key=lambda kv: -kv[1])) + " ms", flush=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 41 took {rec['phase_s']:.1f} s", flush=True)
     return rec
 
 
@@ -5384,6 +5623,12 @@ def main() -> int:
                                        flush, eps=icfg.vision.layer_norm_eps)}
     # K3a at the MoE train batch's rows, width 2,048 (phase 34)
     k3_moe = norm_vs_plain("rms", MOE_BATCH * MOE_SEQ, MOE_SHAPE["hidden"], device, card, flush)
+    # K3 at the pipeline's rows (phase 41): K3a on one microbatch's row,
+    # K3b on one tower chunk of tiles / M
+    k3_pp = {"rms": norm_vs_plain("rms", len(TRAIN_ROWS) // PP_MICROBATCHES * TRAIN_SEQ,
+                                  text.hidden_size, device, card, flush),
+             "ln": norm_vs_plain("ln", n_tiles // PP_MICROBATCHES * vis.tokens_per_tile,
+                                 vis.hidden_size, device, card, flush)}
     # K4 at the int4 Idefics2 head (phase 36): Mistral's 32,003 columns held
     # padded to whole 128-column tiles, K = 4,096, one request's decode
     k4_mistral_head = int4_vs_plain("mistral_head_m1", 1, icfg.text.hidden_size,
@@ -5556,11 +5801,16 @@ def main() -> int:
         # phase 37: the sharded train step at a world of one (its model's
         # parameters become DTensors: the last phase on this model)
         mesh_rec["train"] = mesh_train_phase(model, tcfg, batch, mesh, card)
-        del model, batch
+        del model
         peak["mesh_train"] = phase_memory("train under a mesh")
         # phase 38: the ring's block arithmetic through K1/K2
         mesh_rec["ring"] = ring_kernels_phase(device, card)
         peak["ring"] = phase_memory("ring blocks")
+        # phase 41: phase 20's step through the 1F1B pipeline (a new model
+        # from the same seed)
+        mesh_rec["pp"] = pp_train_phase(tcfg, batch, mesh, card, device)
+        del batch
+        peak["pp_train"] = phase_memory("train through the pipeline")
 
         # phase 21: the train CLI from a manifest, --init-from phase 19's
         # checkpoint, through the data pipeline
@@ -5705,14 +5955,16 @@ def main() -> int:
                 "launches_moe_generate": features["moe"]["serve"]["launches"].get(name, 0)}
 
     def mesh_paths(name):
-        """A kernel's launches on phases 37-39's paths: a mesh train step
-        (flash and ring), a ring pass of phase 38 per n, a generate under
-        the mesh (bf16)."""
+        """A kernel's launches on phases 37-39's and 41's paths: a mesh train
+        step (flash and ring), a ring pass of phase 38 per n, a generate
+        under the mesh (bf16), a pipeline train step per v."""
         runs = mesh_rec["train"]["runs"]
         out = {"launches_mesh_train_step": runs["mesh"]["launches"].get(name, 0),
                "launches_mesh_ring_train_step": runs["mesh_ring"]["launches"].get(name, 0),
                "launches_mesh_generate": mesh_rec["serve"]["bf16"]["mesh"]["launches"].get(
-                   name, 0)}
+                   name, 0),
+               "launches_pp_train_step": {f"v{v}": mesh_rec["pp"][f"v{v}"]["launches"][name]
+                                          for v in PP_CHUNKS}}
         if name.startswith("flash_attention"):
             out["launches_ring_pass"] = {n: mesh_rec["ring"][f"n{n}"]["launches"][name]
                                          for n in RING_SIZES}
@@ -5896,6 +6148,7 @@ def main() -> int:
         "ms_is": f"per call at {k3[kind]['shape']}",
         "idefics2_shape": k3_idefics2[kind],
         "moe_shape": k3_moe if kind == "rms" else None,
+        "pp_shape": k3_pp[kind],
         "card": card,
     } for name, kind, line, library in (
         ("fused_rms_norm", "rms", 54, "F.rms_norm"),

@@ -12,8 +12,10 @@ On N cards, one process each, started by torchrun, over a device mesh:
       -m leopard_tpu_torch.cli.train_leopard_llava ... --mesh data=2,fsdp=2,model=2
 
 `--mesh` names the axes data, fsdp, seq and model (unnamed ones are 1; their
-product must be the world size; stage and expert are refused until their
-slices); seq > 1 takes `--set text.attn_impl=ring`. Each (data, fsdp)
+product must be the world size); seq > 1 takes `--set text.attn_impl=ring`.
+`stage` is refused: the JAX CLI drives no pipeline either, which trains
+through `training.pp.make_pp_train_step` called directly; `expert` is
+refused until the expert-parallel dispatch is ported. Each (data, fsdp)
 coordinate loads its own share of every global batch; the primary alone
 logs and writes checkpoints (with its data position, which a resume gives
 every rank). Without `--mesh` the run is one process on one device, as
@@ -86,7 +88,9 @@ def train_main(args: argparse.Namespace, tokenizer=None, cfg=None, **train_overr
 
         mesh_cfg = parse_mesh(args.mesh)
         if mesh_cfg.stage > 1 or mesh_cfg.expert > 1:
-            raise SystemExit("error: --mesh stage and expert > 1 are not in the port yet")
+            raise SystemExit("error: --mesh stage > 1 is not a CLI option (the pipeline trains "
+                             "through training.pp.make_pp_train_step, as in the JAX package), "
+                             "and expert > 1 is not in the port yet")
         world = int(os.environ.get("WORLD_SIZE", 1))
         if mesh_cfg.num_devices != world:
             raise SystemExit(f"error: --mesh {args.mesh} wants {mesh_cfg.num_devices} processes, "

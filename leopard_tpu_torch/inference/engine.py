@@ -198,7 +198,7 @@ class Engine:
 
             m = mesh_config(mesh)
             check_mesh_supported(cfg, mesh, what="serving")
-            if m.fsdp > 1 or m.seq > 1:
+            if m.fsdp > 1 or m.seq > 1 or m.stage > 1:
                 raise NotImplementedError("serving shards over data and model only (ROADMAP)")
             if quantize == "int4" and m.model > 1:
                 raise NotImplementedError("int4 serving at model > 1: the rules replicate "

@@ -37,8 +37,11 @@ memory, so that one process can run n virtual ranks and hold the block
 arithmetic against one kernel call over the whole sequence. That is a
 check, never a production path.
 
-Not ported yet: `ring_attention_local` (the pipeline's PP × CP composition,
-in the pipeline slice).
+The JAX package's `ring_attention_local` (the pipeline's PP × CP
+composition: a contiguous ring on local shards inside the pipeline's
+shard_map) is `ring_attention(..., layout="contiguous")` here, which is
+process-local already: training/pp.py runs it in every stage's layers over
+the stage rank's seq group.
 """
 
 from __future__ import annotations

@@ -70,15 +70,25 @@ def auto_mesh(model: int = 1, seq: int = 1, fsdp: int = 1, expert: int = 1, stag
 
 
 def mesh_config(mesh) -> MeshConfig:
-    return MeshConfig(**{a: mesh.size(i) for i, a in enumerate(AXIS_ORDER)})
+    return MeshConfig(**{a: axis_size(mesh, a) for a in AXIS_ORDER})
 
 
 def axis_size(mesh, axis: str) -> int:
-    return mesh.size(AXIS_ORDER.index(axis))
+    """The size of `axis`; 1 on a mesh without it (`drop_axis`)."""
+    names = mesh.mesh_dim_names
+    return mesh.size(names.index(axis)) if axis in names else 1
 
 
 def axis_coord(mesh, axis: str) -> int:
-    return mesh.get_coordinate()[AXIS_ORDER.index(axis)]
+    names = mesh.mesh_dim_names
+    return mesh.get_coordinate()[names.index(axis)] if axis in names else 0
+
+
+def drop_axis(mesh, axis: str):
+    """The mesh of this rank's coordinate on `axis` with that axis taken
+    out (the same process groups): where a tensor that lives on one
+    coordinate of `axis` is placed, as a pipeline stage's layers are."""
+    return mesh[tuple(a for a in mesh.mesh_dim_names if a != axis)]
 
 
 def axis_group(mesh, axis: str):

@@ -33,13 +33,13 @@ own shard, summed over the axes that split the batch.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 from leopard_tpu_torch.parallel.mesh import (
-    AXIS_ORDER, DATA_AXIS, FSDP_AXIS, MODEL_AXIS, SEQ_AXIS, axis_coord, axis_group, axis_size,
+    DATA_AXIS, FSDP_AXIS, MODEL_AXIS, SEQ_AXIS, axis_coord, axis_group, axis_size,
 )
 
 Entry = Union[None, str, Tuple[str, ...]]
@@ -171,10 +171,11 @@ def placements(spec: Spec, mesh) -> list:
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.placement_types import _StridedShard
 
-    out = [Replicate()] * len(AXIS_ORDER)
+    names = mesh.mesh_dim_names
+    out = [Replicate()] * len(names)
     for d, entry in enumerate(spec):
         axes = _axes(entry)
-        idx = [AXIS_ORDER.index(a) for a in axes]
+        idx = [names.index(a) for a in axes]
         if len(axes) == 1 or idx == sorted(idx):
             for i in idx:
                 out[i] = Shard(d)
@@ -233,13 +234,21 @@ def _set(module: torch.nn.Module, name: str, value) -> None:
         mod._buffers[leaf] = value
 
 
-def shard_params(model: torch.nn.Module, mesh, rules=None, fsdp: bool = False) -> Dict[str, Spec]:
+def shard_params(model: torch.nn.Module, mesh, rules=None, fsdp: bool = False,
+                 mesh_of: Optional[Callable[[str], Any]] = None) -> Dict[str, Spec]:
     """Make every parameter of `model` (loaded, full, on every rank) a
-    DTensor under the rules, in place. Returns the specs."""
+    DTensor under the rules, in place. Returns the specs. `mesh_of(name)`,
+    when given, is the mesh of each parameter (a sub-mesh of `mesh`), or
+    None for one this rank does not hold: it is put on "meta", uncut and
+    unread (it may be on "meta" already)."""
     specs = param_specs(model, rules, fsdp, axis_size(mesh, FSDP_AXIS))
     for name, p in list(model.named_parameters()):
-        dt = distribute(p.detach(), mesh, specs[name])
-        _set(model, name, torch.nn.Parameter(dt, requires_grad=p.requires_grad))
+        on = mesh if mesh_of is None else mesh_of(name)
+        if on is None:
+            value = torch.empty(p.shape, dtype=p.dtype, device="meta")
+        else:
+            value = distribute(p.detach(), on, specs[name])
+        _set(model, name, torch.nn.Parameter(value, requires_grad=p.requires_grad))
     return specs
 
 
@@ -247,7 +256,10 @@ def _fsdp_dim(dt) -> Optional[int]:
     """The tensor dim that the fsdp axis shards, or None."""
     from torch.distributed.tensor import Replicate
 
-    p = dt.placements[AXIS_ORDER.index(FSDP_AXIS)]
+    names = dt.device_mesh.mesh_dim_names
+    if FSDP_AXIS not in names:
+        return None
+    p = dt.placements[names.index(FSDP_AXIS)]
     return None if isinstance(p, Replicate) else p.dim
 
 

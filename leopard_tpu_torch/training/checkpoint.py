@@ -21,7 +21,12 @@ calls it), the primary alone writes, synchronously, and every rank waits at
 a barrier until the files are there. `restore` with a DTensor template
 places each full tensor by the template's placements on the template's
 mesh, so a checkpoint written at one mesh restores at another, as the JAX
-package's does.
+package's does. A pipeline state (training/pp.py) holds only its stage's
+layers: `save` gathers every stage's tensors to the primary over the
+"stage" group, so a state saved at one stage count restores at another or
+onto the plain step. `restore` holds the file to the template: the same
+names and shapes, but for a stage's template, which takes its own layers
+from the file and leaves the other stages'.
 """
 
 from __future__ import annotations
@@ -79,6 +84,7 @@ class CheckpointManager:
         else:
             payload = {"step": int(step), "params": _host(state)}
         if sharded:
+            payload = _gather_stages(payload, params)
             if is_primary():
                 self._write(step, payload, data_state, config)
             barrier()
@@ -132,7 +138,8 @@ class CheckpointManager:
         def place(tensors, like):
             if like is None:
                 return tensors
-            return {k: _place(v, like[k]) for k, v in tensors.items()}
+            _check_names(tensors, like)
+            return {k: _place(k, tensors[k], v) for k, v in like.items()}
 
         if "opt_state" not in payload:
             state = place(payload["params"], template)
@@ -167,9 +174,68 @@ class CheckpointManager:
             self._pool.shutdown()
 
 
-def _place(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+def _pipeline_state(tensors) -> bool:
+    """Whether `tensors` are a pipeline stage's (training/pp.py): its
+    layers are DTensors on a mesh without the "stage" axis."""
+    from leopard_tpu_torch.parallel.mesh import STAGE_AXIS
+
+    return any(_is_dtensor(v) and STAGE_AXIS not in v.device_mesh.mesh_dim_names
+               for v in tensors.values())
+
+
+def _gather_stages(payload: dict, params) -> dict:
+    """The payload with every stage's tensors, on the ranks of the primary's
+    stage group (gathered there to the primary); as it was elsewhere and
+    without stages."""
+    import torch.distributed as dist
+
+    from leopard_tpu_torch.parallel.mesh import STAGE_AXIS, axis_group, axis_size
+
+    mesh = next((v.device_mesh for v in params.values()
+                 if _is_dtensor(v) and STAGE_AXIS in v.device_mesh.mesh_dim_names), None)
+    if mesh is None or axis_size(mesh, STAGE_AXIS) == 1:
+        return payload
+    group = axis_group(mesh, STAGE_AXIS)
+    if 0 not in dist.get_process_group_ranks(group):
+        return payload
+    parts = [None] * dist.get_world_size(group) if dist.get_rank() == 0 else None
+    dist.gather_object(payload, parts, dst=0, group=group)
+    if parts is None:
+        return payload
+    merged = {**payload, "params": {}}
+    if "opt_state" in payload:
+        merged["opt_state"] = {**payload["opt_state"], "mu": {}, "nu": {}}
+    for part in parts:
+        merged["params"].update(part["params"])
+        if "opt_state" in part:
+            merged["opt_state"]["mu"].update(part["opt_state"]["mu"])
+            merged["opt_state"]["nu"].update(part["opt_state"]["nu"])
+    return merged
+
+
+def _check_names(tensors, like) -> None:
+    """Raise unless the file's tensors and the template's have the same
+    names; a pipeline stage's template (`_pipeline_state`) may lack the
+    layers of the other stages, and only those."""
+    from leopard_tpu_torch.training.pp import layer_of
+
+    missing = sorted(like.keys() - tensors.keys())
+    extra = tensors.keys() - like.keys()
+    if extra and _pipeline_state(like):
+        held = {layer_of(k) for k in like}
+        extra = {k for k in extra if layer_of(k) is None or layer_of(k) in held}
+    if missing or extra:
+        raise KeyError(f"the checkpoint does not fit the template: template tensors not in "
+                       f"the file {missing[:4]}, file tensors not in the template "
+                       f"{sorted(extra)[:4]}")
+
+
+def _place(name: str, full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """A restored full tensor placed as `like` is: on its device, and for a
     DTensor cut by its placements on its mesh (each rank its own shard)."""
+    if full.shape != like.shape:
+        raise ValueError(f"{name}: the checkpoint's {tuple(full.shape)} does not fit the "
+                         f"template's {tuple(like.shape)}")
     if not _is_dtensor(like):
         return full.to(like.device)
     from torch.distributed.tensor import distribute_tensor

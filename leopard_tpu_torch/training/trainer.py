@@ -182,21 +182,30 @@ def create_train_state(params, cfg: TrainConfig, mesh=None) -> TrainState:
     fsdp axis is > 1), and the masters and moments are DTensors of the same
     placements."""
     if mesh is not None:
-        from leopard_tpu_torch.parallel.mesh import FSDP_AXIS, axis_size
-        from leopard_tpu_torch.parallel.sharding import like, shard_params
-
         if not isinstance(params, torch.nn.Module):
             raise TypeError("create_train_state(mesh=...) takes the model")
-        shard_params(params, mesh, fsdp=axis_size(mesh, FSDP_AXIS) > 1)
-        fp32 = {k: like(p, p.to_local().detach().to(torch.float32, copy=True))
-                for k, p in params.named_parameters()}
-        zeros = lambda: {k: like(p, torch.zeros_like(p.to_local()))  # noqa: E731
-                         for k, p in fp32.items()}
-        return TrainState(step=0, params=fp32, opt_state=AdamWState(0, zeros(), zeros()))
+        return sharded_state(params, mesh)
     if isinstance(params, torch.nn.Module):
         params = dict(params.named_parameters())
     fp32 = {k: p.detach().to(torch.float32, copy=True) for k, p in params.items()}
     return TrainState(step=0, params=fp32, opt_state=make_optimizer(cfg.optimizer).init(fp32))
+
+
+def sharded_state(model: torch.nn.Module, mesh, mesh_of: Optional[Callable] = None
+                  ) -> TrainState:
+    """The train state of `model` under `mesh`: its parameters made
+    DTensors by the rules, in place, then fp32 masters and zero moments of
+    the same placements. `mesh_of` as in parallel/sharding.py::shard_params:
+    the parameters it gives no mesh go to "meta" and take no master."""
+    from leopard_tpu_torch.parallel.mesh import FSDP_AXIS, axis_size
+    from leopard_tpu_torch.parallel.sharding import like, shard_params
+
+    shard_params(model, mesh, fsdp=axis_size(mesh, FSDP_AXIS) > 1, mesh_of=mesh_of)
+    fp32 = {k: like(p, p.to_local().detach().to(torch.float32, copy=True))
+            for k, p in model.named_parameters() if not p.is_meta}
+    zeros = lambda: {k: like(p, torch.zeros_like(p.to_local()))  # noqa: E731
+                     for k, p in fp32.items()}
+    return TrainState(step=0, params=fp32, opt_state=AdamWState(0, zeros(), zeros()))
 
 
 @torch.no_grad()
@@ -429,9 +438,9 @@ def check_mesh_supported(cfg: VLMConfig, mesh, what: str = "training") -> None:
     from leopard_tpu_torch.parallel.mesh import mesh_config
 
     m = mesh_config(mesh)
-    if m.stage > 1 or m.expert > 1:
-        raise NotImplementedError("stage > 1 (the 1F1B pipeline) and expert > 1 (the "
-                                  "expert-parallel dispatch) are not in the port yet (ROADMAP)")
+    if m.expert > 1:
+        raise NotImplementedError("expert > 1 (the expert-parallel dispatch) is not in the "
+                                  "port yet (ROADMAP)")
     if cfg.text.num_experts > 0 or cfg.architecture != "leopard_llava":
         raise NotImplementedError(f"{what} of an MoE or Idefics2 model under a mesh is not in "
                                   "the port yet (ROADMAP)")
@@ -451,22 +460,35 @@ def _chunk_nll_tp(hx, unembed, tx, wx, par):
     return (torch.where(wx > 0, logz - true, 0.0) * wx).sum()
 
 
-def _sharded_train_step(cfg, train_cfg, frozen, grad_accum_steps, mesh):
-    """make_train_step under a mesh (module docstring)."""
-    from leopard_tpu_torch.parallel.context_parallel import local_positions, pick_layout
-    from leopard_tpu_torch.parallel.mesh import Parallel, set_parallel
-    from leopard_tpu_torch.parallel.sharding import (
-        _set, all_reduce_batch, gather_fsdp, reduce_to_shard, replication,
-    )
+def nll_sum(hidden, unembed, targets, weights, chunk: int, par) -> torch.Tensor:
+    """The weighted NLL summed over [B, S] positions, without [B, S, V]
+    logits: each sequence chunk's fp32 logits (this rank's vocab columns
+    under tensor parallelism) are computed, reduced and dropped, and
+    recomputed in the backward. S is padded to a chunk multiple with
+    weight 0."""
+    s = hidden.shape[1]
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        targets, weights = F.pad(targets, (0, pad)), F.pad(weights, (0, pad))
+    unembed = unembed.float()
+    nll = hidden.new_zeros((), dtype=torch.float32)
+    for i in range(0, s + pad, chunk):
+        nll = nll + torch.utils.checkpoint.checkpoint(
+            _chunk_nll_tp, hidden[:, i:i + chunk], unembed, targets[:, i:i + chunk],
+            weights[:, i:i + chunk], par, use_reentrant=False)
+    return nll
 
-    check_mesh_supported(cfg, mesh)
-    if grad_accum_steps > 1:
-        raise NotImplementedError("grad accumulation under a mesh is not in the port yet")
-    opt = make_optimizer(train_cfg.optimizer)
-    remat = False if train_cfg.remat == "none" else train_cfg.remat
-    compute_dtype = torch_dtype(cfg.text.dtype)
-    par = Parallel.of(mesh)
-    ring = cfg.text.attn_impl == "ring"
+
+def sharded_compute_model(cfg: VLMConfig, frozen, compute_dtype, par) -> Callable:
+    """compute_model(state): the compute copy of a sharded state's masters
+    (parallel/sharding.py::gather_fsdp, in the compute dtype), built on
+    "meta" at the first call and refreshed in place after; parameters that
+    the state does not hold stay on "meta". Frozen groups take no grad."""
+    from leopard_tpu_torch.parallel.mesh import set_parallel
+    from leopard_tpu_torch.parallel.sharding import _set, gather_fsdp
+
     holder = {}
 
     def compute_model(state: TrainState) -> LeopardVLM:
@@ -478,12 +500,34 @@ def _sharded_train_step(cfg, train_cfg, frozen, grad_accum_steps, mesh):
                     _set(m, name, torch.nn.Parameter(gather_fsdp(master).to(compute_dtype)))
                 holder["model"] = set_parallel(m, par)
             else:
-                for name, p in m.named_parameters():
-                    p.copy_(gather_fsdp(state.params[name]))
-        for name, p in m.named_parameters():
+                for name, master in state.params.items():
+                    m.get_parameter(name).copy_(gather_fsdp(master))
+        for name in state.params:
+            p = m.get_parameter(name)
             p.requires_grad_(name.split(".", 1)[0] not in frozen)
             p.grad = None
         return m
+
+    return compute_model
+
+
+def _sharded_train_step(cfg, train_cfg, frozen, grad_accum_steps, mesh):
+    """make_train_step under a mesh (module docstring)."""
+    from leopard_tpu_torch.parallel.context_parallel import local_positions, pick_layout
+    from leopard_tpu_torch.parallel.mesh import Parallel, mesh_config
+    from leopard_tpu_torch.parallel.sharding import all_reduce_batch, reduce_to_shard
+
+    check_mesh_supported(cfg, mesh)
+    if mesh_config(mesh).stage > 1:
+        raise NotImplementedError("stage > 1 is the 1F1B pipeline: train with "
+                                  "training.pp.make_pp_train_step")
+    if grad_accum_steps > 1:
+        raise NotImplementedError("grad accumulation under a mesh is not in the port yet")
+    opt = make_optimizer(train_cfg.optimizer)
+    remat = False if train_cfg.remat == "none" else train_cfg.remat
+    par = Parallel.of(mesh)
+    ring = cfg.text.attn_impl == "ring"
+    compute_model = sharded_compute_model(cfg, frozen, torch_dtype(cfg.text.dtype), par)
 
     def loss_parts(m, batch):
         """(this rank's NLL over the batch's whole weight, metrics)."""
@@ -504,18 +548,7 @@ def _sharded_train_step(cfg, train_cfg, frozen, grad_accum_steps, mesh):
             idx = local_positions(s, par.cp_size, par.cp_rank,
                                   pick_layout(s, par.cp_size)).to(tokens.device)
             targets, weights = targets[:, idx], weights[:, idx]
-        b, s_local, _ = hidden.shape
-        chunk = min(train_cfg.loss_chunk, s_local)
-        pad = (-s_local) % chunk
-        if pad:
-            hidden = F.pad(hidden, (0, 0, 0, pad))
-            targets, weights = F.pad(targets, (0, pad)), F.pad(weights, (0, pad))
-        unembed = m.text.unembedding.float()
-        nll = hidden.new_zeros((), dtype=torch.float32)
-        for i in range(0, s_local + pad, chunk):
-            nll = nll + torch.utils.checkpoint.checkpoint(
-                _chunk_nll_tp, hidden[:, i:i + chunk], unembed, targets[:, i:i + chunk],
-                weights[:, i:i + chunk], par, use_reentrant=False)
+        nll = nll_sum(hidden, m.text.unembedding, targets, weights, train_cfg.loss_chunk, par)
         total_w = torch.clamp(all_reduce_batch(weights.sum().detach(), mesh), min=1e-8)
         loss = all_reduce_batch(nll.detach().clone(), mesh) / total_w
         return nll / total_w, {"loss": loss, "tokens_in_loss": total_w}
@@ -541,29 +574,39 @@ def _sharded_train_step(cfg, train_cfg, frozen, grad_accum_steps, mesh):
 
     def train_step(state: TrainState, batch):
         loss, metrics, grads = loss_and_grads(state, batch)
-        if frozen:
-            for k in grads:
-                if k.split(".", 1)[0] in frozen:
-                    grads[k].zero_()
-        sq = torch.stack([g.float().square().sum() / replication(state.params[k])
-                          for k, g in grads.items()]).sum()
-        torch.distributed.all_reduce(sq)
-        gnorm = sq.sqrt()
-        metrics = dict(metrics, grad_norm=gnorm)
-        loss_ok = bool(torch.isfinite(loss))
-        metrics["nan_step"] = not loss_ok
-        if loss_ok and bool(torch.isfinite(gnorm)):
-            st = state.opt_state
-            local = AdamWState(st.count, {k: t.to_local() for k, t in st.mu.items()},
-                               {k: t.to_local() for k, t in st.nu.items()})
-            opt.update_(grads, local, {k: p.to_local() for k, p in state.params.items()},
-                        gnorm)
-            st.count = local.count
-        return state.replace(step=state.step + 1), metrics
+        return apply_sharded_gradients(opt, state, grads, loss, metrics, frozen=frozen)
 
     train_step.loss_and_grads = loss_and_grads
     train_step.eval_loss = eval_loss
     return train_step
+
+
+def apply_sharded_gradients(opt: AdamW, state: TrainState, grads: Tensors, loss, metrics,
+                            frozen=()) -> Tuple[TrainState, dict]:
+    """apply_gradients for a sharded state whose grads are the masters'
+    local shards: the clip's global norm sums every rank's squares, each
+    divided by its DTensor's replication (the ranks that hold each
+    element), and AdamW runs on the local shards in place."""
+    from leopard_tpu_torch.parallel.sharding import replication
+
+    if frozen:
+        for k in grads:
+            if k.split(".", 1)[0] in frozen:
+                grads[k].zero_()
+    sq = torch.stack([g.float().square().sum() / replication(state.params[k])
+                      for k, g in grads.items()]).sum()
+    torch.distributed.all_reduce(sq)
+    gnorm = sq.sqrt()
+    metrics = dict(metrics, grad_norm=gnorm)
+    loss_ok = bool(torch.isfinite(loss))
+    metrics["nan_step"] = not loss_ok
+    if loss_ok and bool(torch.isfinite(gnorm)):
+        st = state.opt_state
+        local = AdamWState(st.count, {k: t.to_local() for k, t in st.mu.items()},
+                           {k: t.to_local() for k, t in st.nu.items()})
+        opt.update_(grads, local, {k: p.to_local() for k, p in state.params.items()}, gnorm)
+        st.count = local.count
+    return state.replace(step=state.step + 1), metrics
 
 
 def apply_gradients(opt: AdamW, state: TrainState, grads: Tensors, loss, metrics,

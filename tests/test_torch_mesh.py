@@ -133,6 +133,8 @@ class _Coord:
     """A mesh's axis sizes and this rank's coordinate, for the helpers that
     read no process group."""
 
+    mesh_dim_names = AXIS_ORDER
+
     def __init__(self, coord, **sizes):
         self.sizes = [sizes.get(a, 1) for a in AXIS_ORDER]
         self.coord = [coord.get(a, 0) for a in AXIS_ORDER]
