@@ -270,6 +270,38 @@ script exits non-zero without printing a result:
      21's checkpoint and manifest, with a tokenizer.json that gives the
      smoke's ByteTokenizer ids (checked on the loader's first batch): the
      first loss equals phase 21's (rel 1e-4);
+ 44. (after phase 32, and after phase 33 for the CLI) phase 32's Idefics2
+     step ("full", the perceiver frozen) through make_train_step(mesh=) at a
+     world of one against the plain step from the same weights: loss (rel
+     1e-5), gradient cosine per group (>= 0.9999; the frozen perceiver left
+     out), clip norm (rel 1e-5), K1 62, K2 31, K3a 27, K3b 109 launches as
+     the plain step's; the same with grad_accum_steps=2 (a row a
+     microbatch, images and masks pre-stacked) against the plain
+     accumulation; a planted fault (the patch mask dropped) that the cosine
+     gate must fail; 3 mesh steps, step ms and peak memory beside phase
+     32's; then `train_leopard_idefics2 --mesh data=1` under torchrun on
+     phase 33's flags with a tokenizer.json that gives the smoke's
+     Idefics2ByteTokenizer ids: the first loss equals phase 33's (rel 1e-4);
+ 42. (after phase 35) the expert-parallel dispatch (ops/moe.py::dispatch_ep)
+     at the MoE model's widths on layer 0's weights, 4 x 4,096 seeded bf16
+     tokens, forward and backward against the single-device dropless
+     dispatch: over the world-1 NCCL group (CollectiveEP: NCCL's
+     all_to_all_single on the card), dense worst case and ragged, bit for
+     bit; for 2 and 4 virtual ranks in this process (MemoryEP), dense worst
+     case, dense at capacity factor 1.0 (its dropped count equal to the
+     host's working from the routing, the reference's gates zeroed there)
+     and ragged, cosine >= 0.9999 over the output and the gradients of x,
+     the router and the three banks; ms a layer forward + backward beside
+     the single device's and the bytes each transport puts on the wire a
+     shard; two planted faults (the reverse permutation skipped; the
+     capacity from the whole batch) that the cosine and the dropped-count
+     gates must fail;
+ 43. phase 34's MoE step ("full", dropless and capacity) through
+     make_train_step(mesh=) at a world of one against the plain step from
+     the same weights: loss, aux and z loss (rel 1e-5), moe_fraction_dropped
+     (equal), gradient cosine per group (>= 0.9999), clip norm (rel 1e-5),
+     K1 8, K2 4, K3a 17 launches a step as the plain step's, 3 steps of
+     each, step ms and peak memory;
  31. no JAX was imported (checked last).
 Each engine is freed after its phase, with the phase's peak device memory
 printed. Then the card's name and power limit as nvidia-smi prints them, one
@@ -5423,13 +5455,16 @@ def pp_train_phase(cfg, batch, mesh, card, device):
     return rec
 
 
-def write_byte_tokenizer(directory):
+def write_byte_tokenizer(directory, specials=None, bos="<|begin_of_text|>", eos="<|eot_id|>"):
     """A tokenizer.json whose ids are ByteTokenizer's on ASCII text: a
-    character is its code point, the Llama-3 specials and reserved tokens
-    their ids."""
-    specials = {"<|begin_of_text|>": 128000, "<|end_of_text|>": 128001,
-                "<|start_header_id|>": 128006, "<|end_header_id|>": 128007, "<|eot_id|>": 128009}
-    specials.update({f"<|reserved_special_token_{k}|>": 128010 + k - 5 for k in range(5, 251)})
+    character is its code point, the specials (by default the Llama-3
+    specials and reserved tokens) their ids."""
+    if specials is None:
+        specials = {"<|begin_of_text|>": 128000, "<|end_of_text|>": 128001,
+                    "<|start_header_id|>": 128006, "<|end_header_id|>": 128007,
+                    "<|eot_id|>": 128009}
+        specials.update({f"<|reserved_special_token_{k}|>": 128010 + k - 5
+                         for k in range(5, 251)})
     vocab = {chr(i): i for i in range(32, 127)}
     vocab.update({"\n": 10, **specials})
     doc = {"version": "1.0", "truncation": None, "padding": None, "normalizer": None,
@@ -5443,8 +5478,7 @@ def write_byte_tokenizer(directory):
     directory.mkdir()
     (directory / "tokenizer.json").write_text(json.dumps(doc))
     (directory / "tokenizer_config.json").write_text(json.dumps({
-        "tokenizer_class": "PreTrainedTokenizerFast", "bos_token": "<|begin_of_text|>",
-        "eos_token": "<|eot_id|>"}))
+        "tokenizer_class": "PreTrainedTokenizerFast", "bos_token": bos, "eos_token": eos}))
     return str(directory)
 
 
@@ -5505,6 +5539,528 @@ def mesh_train_cli_phase(cli_rec, tmp, card):
         raise AssertionError(f"torchrun train CLI: first loss {row['loss']} vs {ref}")
     return {"loss": row["loss"], "phase21_loss": ref, "rel": rel, "step_ms": row["step_time"] * 1e3,
             "wall_s": wall}
+
+
+
+# phases 42-44: expert parallelism and the rest of the sharded train step,
+# at a world of one (one H100: no collective crosses two cards here)
+EP_SIZES = (2, 4)                 # virtual expert ranks of phase 42 (b)
+EP_CAP_FACTOR = 1.0               # the dense transport's drops at this factor
+# the EP body against the single-device dispatch: the same rows through the
+# same per-expert products in the same order, so bf16 agrees to its last
+# bits; a planted fault (the reverse permutation skipped) reads far lower
+EP_COSINE_MIN = 0.9999
+EP_REPS = 3
+MESH_MOE_RUNS = ("dropless", "capacity")
+
+
+def ep_routing(moe, router_w, x, k):
+    """moe_layer's router: (top_p [T, k] renormalized, top_i [T, k])."""
+    logits = x.float() @ router_w.float().t()
+    top_p, top_i = moe.router_top_k(logits, k)
+    return top_p / top_p.sum(dim=-1, keepdim=True).clamp(min=1e-9), top_i
+
+
+def host_drops(top_i, ep, cap, e):
+    """The dense transport's kept assignments [T, k] and dropped count,
+    worked out on the host from the routing: each virtual rank's slice
+    sorted by expert (stable), the rows past `cap` for a destination
+    dropped."""
+    ids_all = top_i.cpu().numpy()
+    t, k = ids_all.shape
+    n, el = t // ep, e // ep
+    keep = np.ones(t * k, bool)
+    for r in range(ep):
+        ids = ids_all[r * n:(r + 1) * n].reshape(-1)
+        order = np.argsort(ids, kind="stable")
+        dst = ids[order] // el
+        for d in range(ep):
+            keep[r * n * k + order[dst == d][cap:]] = False
+    return keep.reshape(t, k), int((~keep).sum())
+
+
+def ep_layer(moe, leaves, x, e, k, ep, cap, transport=None):
+    """One MoE layer through the expert-parallel body over `ep` ranks
+    (MemoryEP's virtual ranks, or a process group's transport): every rank's
+    slice of x's rows, its block of the experts. Returns (out [T, H], the
+    group's dropped rows)."""
+    import torch
+
+    top_p, top_i = ep_routing(moe, leaves["router"], x, k)
+    transport = transport or moe.MemoryEP(ep)
+    n, el = x.shape[0] // ep, e // ep
+    banks = {r: {w: leaves[w][r * el:(r + 1) * el] for w in ("w_gate", "w_up", "w_down")}
+             for r in transport.local}
+    part = {r: slice(r * n, (r + 1) * n) for r in transport.local}
+    out, dropped = moe.dispatch_ep(transport, banks, {r: x[s] for r, s in part.items()},
+                                   {r: top_p[s] for r, s in part.items()},
+                                   {r: top_i[s] for r, s in part.items()}, e, cap)
+    return torch.cat([out[r] for r in transport.local]), dropped
+
+
+def ep_dispatch_phase(model, card, device):
+    """Phase 42: the expert-parallel dispatch on the card at the MoE model's
+    widths, layer 0's weights, a seeded bf16 input of MOE_BATCH x MOE_SEQ
+    tokens, against the single-device dropless dispatch (forward and
+    backward: the input's, the router's and the three banks' gradients):
+    (a) the body over the world-1 NCCL group (dispatch_ep with
+    CollectiveEP: NCCL's all_to_all_single on the card), dense worst case and
+    ragged, bit for bit; (b) the body for EP_SIZES virtual ranks in this
+    process (MemoryEP), dense worst case, dense at EP_CAP_FACTOR (the
+    reference's gates zeroed where the host's working drops a row; the
+    dropped count equal to the host's) and ragged, by cosine >=
+    EP_COSINE_MIN; ms a layer forward + backward beside the single device,
+    and the bytes each transport puts on the wire per shard. Two planted
+    faults: the receiving rank's reverse permutation skipped (the cosine
+    gates must fail it) and the capacity taken from the whole batch's T·k
+    in place of a shard's (the dropped-count gate must fail it)."""
+    import torch
+    import torch.distributed as dist
+
+    from leopard_tpu_torch.ops import moe
+
+    t_cfg = moe_config("dropless").text
+    e, k, h = t_cfg.num_experts, t_cfg.moe_top_k, t_cfg.hidden_size
+    layer = model.text.layers[0]
+    base = {"router": layer.router.w, **dict(layer.experts.named_parameters())}
+    g = torch.Generator(device=device).manual_seed(SEED + 42)
+    t = MOE_BATCH * MOE_SEQ
+    x0 = torch.randn((t, h), generator=g, device=device).to(layer.experts.w_gate.dtype)
+    cot = torch.randn((t, h), generator=g, device=device)
+
+    def run(fn):
+        """fn(leaves, x) → (out, dropped); (out, grads, dropped, ms a layer
+        forward + backward)."""
+        def once():
+            leaves = {n: v.detach().clone().requires_grad_() for n, v in base.items()}
+            x = x0.clone().requires_grad_()
+            out, dropped = fn(leaves, x)
+            (out.float() * cot).sum().backward()
+            return out.detach(), {"x": x.grad, **{n: v.grad for n, v in leaves.items()}}, dropped
+
+        out, grads, dropped = once()
+        ms = wall_s(once, reps=EP_REPS) * 1e3
+        return out, grads, dropped, ms
+
+    def single(keep=None):
+        def fn(leaves, x):
+            top_p, top_i = ep_routing(moe, leaves["router"], x, k)
+            if keep is not None:
+                top_p = top_p * keep
+            banks = {w: leaves[w] for w in ("w_gate", "w_up", "w_down")}
+            return moe._dropless_dispatch(banks, x, top_p, top_i), 0
+        return fn
+
+    def cosines(a, b):
+        pairs = {"out": (a[0], b[0]), **{n: (a[1][n], b[1][n]) for n in a[1]}}
+        return {n: cosine(p.reshape(-1).double(), q.reshape(-1).double(), dim=0).item()
+                for n, (p, q) in pairs.items()}
+
+    ref = run(single())
+    rec = {"single_ms": ref[3], "card": card}
+    # (a) the world-1 process group: NCCL's all-to-all on the card
+    world = moe.CollectiveEP(dist.group.WORLD, 1, 0)
+    for name, cap in (("dense", t * k), ("ragged", None)):
+        got = run(lambda lv, x: ep_layer(moe, lv, x, e, k, 1, cap, world))
+        equal = torch.equal(got[0], ref[0]) and all(torch.equal(got[1][n], ref[1][n])
+                                                    for n in ref[1])
+        cos = cosines(got, ref)
+        rec[f"world1_{name}"] = {"bit_equal": equal, "cosines": cos, "ms": got[3]}
+        print(f"EP dispatch over the world-1 NCCL group, {name}: out and gradients "
+              f"{'bit-equal' if equal else 'not bit-equal'} to the single-device dispatch "
+              f"(least cosine {min(cos.values()):.7f}); {got[3]:.2f} ms a layer forward + "
+              f"backward vs {ref[3]:.2f} [{card}]", flush=True)
+        if not equal and min(cos.values()) < EP_COSINE_MIN:
+            raise AssertionError(f"EP world-1 {name}: cosines {cos}")
+        del got
+    # (b) virtual ranks in this process
+    for ep in EP_SIZES:
+        tk_local = t // ep * k
+        for name in ("dense", f"dense_cf{EP_CAP_FACTOR:g}", "ragged"):
+            ragged = name == "ragged"
+            cap = None if ragged else moe.ep_capacity(
+                tk_local, ep, EP_CAP_FACTOR if name != "dense" else 0.0)
+            want_drop, keep = 0, None
+            if cap is not None and cap < tk_local:
+                with torch.no_grad():
+                    _, top_i = ep_routing(moe, base["router"], x0, k)
+                kept, want_drop = host_drops(top_i, ep, cap, e)
+                keep = torch.from_numpy(kept).to(device)
+            want = ref if keep is None else run(single(keep))
+            got = run(lambda lv, x: ep_layer(moe, lv, x, e, k, ep, cap))
+            cos = cosines(got, want)
+            wire = (ep * cap if cap is not None else tk_local) * h * 2
+            r = {"cosines": cos, "dropped": got[2], "dropped_host": want_drop,
+                 "fraction_dropped": got[2] / (t * k), "ms": got[3], "capacity": cap,
+                 "wire_bytes_per_shard": wire, "routed_bytes_per_shard": tk_local * h * 2}
+            rec[f"ep{ep}_{name}"] = r
+            print(f"EP body, {ep} virtual ranks, {name} (C {cap}): least cosine "
+                  f"{min(cos.values()):.7f} (min {EP_COSINE_MIN}) over out and the gradients of "
+                  f"x, router and the three banks; dropped {got[2]} (host {want_drop}); "
+                  f"{got[3]:.2f} ms a layer forward + backward vs the single device's "
+                  f"{ref[3]:.2f}; on the wire per shard {wire / 1e6:.1f} MB, routed "
+                  f"{tk_local * h * 2 / 1e6:.1f} MB [{card}]", flush=True)
+            if min(cos.values()) < EP_COSINE_MIN or got[2] != want_drop:
+                raise AssertionError(f"EP body ep={ep} {name}: {r}")
+            if name == "dense" and got[2]:
+                raise AssertionError(f"EP body ep={ep}: the worst case dropped {got[2]}")
+            del got, want
+    # the planted faults: the permutation at 2 ranks (at 4 each rank holds
+    # one expert, whose rows arrive in order), the capacity at 4
+    real_experts, real_capacity = moe.ep_experts, moe.ep_capacity
+
+    def unsorted(plan, dst, x_recv, id_recv, experts, par=None):
+        sizes = plan.received(dst)
+        y = moe._grouped(x_recv[torch.sort(id_recv, stable=True).indices[:sum(sizes)]],
+                         experts, sizes)
+        return torch.cat([y, y.new_zeros((x_recv.shape[0] - y.shape[0], y.shape[1]))])
+
+    faults = {}
+    try:
+        moe.ep_experts = unsorted
+        got = run(lambda lv, x: ep_layer(moe, lv, x, e, k, EP_SIZES[0], None))
+        faults["reverse_permutation_skipped"] = min(cosines(got, ref).values())
+        del got
+    finally:
+        moe.ep_experts = real_experts
+    ep = EP_SIZES[-1]
+    cap = moe.ep_capacity(t // ep * k, ep, EP_CAP_FACTOR)
+    with torch.no_grad():
+        _, top_i = ep_routing(moe, base["router"], x0, k)
+    _, want_drop = host_drops(top_i, ep, cap, e)
+    with torch.no_grad():
+        _, fault_drop = ep_layer(moe, base, x0, e, k, ep,
+                                 real_capacity(t * k, ep, EP_CAP_FACTOR))
+    faults["capacity_from_whole_batch_dropped"] = (fault_drop, want_drop)
+    print(f"EP planted faults: the reverse permutation skipped ({EP_SIZES[0]} virtual ranks, "
+          f"ragged), least cosine {faults['reverse_permutation_skipped']:.5f} (must fall below "
+          f"{EP_COSINE_MIN}); the capacity from the whole batch's T·k ({ep} ranks), dropped "
+          f"{fault_drop} vs the host's {want_drop} (must differ) [{card}]", flush=True)
+    if faults["reverse_permutation_skipped"] >= EP_COSINE_MIN or fault_drop == want_drop:
+        raise AssertionError(f"EP planted faults passed a gate: {faults}")
+    rec["faults"] = faults
+    del ref, x0, cot
+    torch.cuda.empty_cache()
+    return rec
+
+
+def live_cosines(a_grads, b_grads):
+    """group_cosines over the groups whose gradient is not all zero in
+    `b_grads` (a text-only batch leaves the tower's, a frozen group leaves
+    its own at zero), and the names of the groups left out."""
+    live = {n for n, g in b_grads.items() if bool(g.abs().max() > 0)}
+    groups = {param_group(n) for n in live}
+    cos = group_cosines({n: a_grads[n] for n in a_grads if param_group(n) in groups},
+                        {n: b_grads[n] for n in b_grads if param_group(n) in groups})
+    return cos, sorted({param_group(n) for n in b_grads} - groups)
+
+
+def norm64(grads):
+    """The gradients' global norm in float64: the clip norm without the fp32
+    summation's error (`torch._foreach_norm` over a 4 M-element fp32 tensor
+    is off in the fifth digit)."""
+    import torch
+
+    return float(torch.stack([g.double().square().sum() for g in grads.values()]).sum().sqrt())
+
+
+def launch_counter(names):
+    """(counters, counted(fn) → (fn(), ms, launches))."""
+    import torch
+
+    from leopard_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from leopard_tpu_torch.ops.fused_norms import fused_layer_norm, fused_rms_norm
+
+    every = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+             "fused_rms_norm": fused_rms_norm, "fused_layer_norm": fused_layer_norm}
+    counters = {k: every[k] for k in names}
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, {k: c.launches for k, c in counters.items()}
+
+    return counters, counted
+
+
+def mesh_gates(label, loss, ref_loss, cos, norm, ref_norm, launches, want, card, extra=""):
+    """The sharded step's gates against the plain step's: loss rel, gradient
+    cosine per group, clip norm rel, launches; returns the readings."""
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    norm_rel = abs(norm - ref_norm) / abs(ref_norm)
+    print(f"{label} vs plain [{card}]: loss {loss:.6f} vs {ref_loss:.6f} (rel {rel:.3g}, tol "
+          f"{MESH_LOSS_RTOL}), clip norm {norm:.6f} vs {ref_norm:.6f} (rel {norm_rel:.3g}, tol "
+          f"{MESH_LOSS_RTOL}), cosine per group " + ", ".join(f"{g}: {v:.7f}"
+                                                               for g, v in cos.items())
+          + f" (min {MESH_COSINE_MIN}); launches {launches} (plain {want}){extra}", flush=True)
+    if (rel > MESH_LOSS_RTOL or norm_rel > MESH_LOSS_RTOL or min(cos.values()) < MESH_COSINE_MIN
+            or launches != want):
+        raise AssertionError(f"{label}: loss rel {rel}, norm rel {norm_rel}, cosines {cos}, "
+                             f"launches {launches} vs {want}")
+    return {"loss": loss, "loss_rel": rel, "grad_norm": norm, "norm_rel": norm_rel,
+            "cosines": cos, "launches": launches}
+
+
+def moe_mesh_train_phase(model, batch, mesh, card):
+    """Phase 43: phase 34's MoE step ("full"; dropless, then capacity at
+    MOE_CAPACITY_FACTOR) through make_train_step(mesh=) on a world-1 mesh
+    against the plain step from the same weights: loss (rel), aux and z
+    loss (rel) and moe_fraction_dropped (equal), per-group gradient cosines,
+    the mesh step's clip norm against the plain gradients' norm in float64
+    (rel), K1/K2/K3a launches a step equal to the plain step's; 3 steps each, step ms and peak memory beside. Each path trains
+    a twin of `model` (its tensors, not its Parameter objects), so `model`
+    itself stays as it was."""
+    import torch
+
+    from leopard_tpu_torch.parallel.sharding import local_rows
+    from leopard_tpu_torch.training import trainer
+
+    lt = moe_config("dropless").text.num_layers
+    want = {"flash_attention": 2 * lt, "flash_attention_bwd": lt, "fused_rms_norm": 2 * 2 * lt + 1}
+    _, counted = launch_counter(want)
+    rec = {}
+    for mode in MESH_MOE_RUNS:
+        cfg = moe_config(mode)
+        tcfg = moe_train_config("full")
+        runs = {}
+        for path in ("plain", "mesh"):
+            m = idefics2_twin(model, cfg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if path == "plain":  # its own compute copy: `model`'s tensors are not written
+                state = trainer.create_train_state(m, tcfg)
+                step = trainer.make_train_step(cfg, tcfg)
+                mine = batch
+            else:
+                state = trainer.create_train_state(m, tcfg, mesh=mesh)
+                step = trainer.make_train_step(cfg, tcfg, mesh=mesh)
+                mine = local_rows(batch, mesh, cfg.anyres.tokens_per_tile, cfg.image_token_id)
+            (loss, metrics, grads), _, launches = counted(lambda: step.loss_and_grads(state, mine))
+            r = {"loss": float(loss), "launches": launches,
+                 **{k: float(metrics[k]) for k in ("moe_aux_loss", "moe_z_loss",
+                                                   "moe_fraction_dropped")}}
+            r["grads"], r["grad_norm64"] = grads, norm64(grads)
+            del grads
+            steps = []
+            for i in range(MOE_STEPS):
+                (state, metrics), ms, n = counted(lambda: step(state, mine))
+                if n != want or not np.isfinite(float(metrics["loss"])):
+                    raise AssertionError(f"MoE {mode} {path} step {i + 1}: launches {n}, loss "
+                                         f"{float(metrics['loss'])}")
+                steps.append({"ms": ms, "grad_norm": float(metrics["grad_norm"])})
+            r.update(step_ms=[s["ms"] for s in steps], grad_norm=steps[0]["grad_norm"],
+                     peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            runs[path] = r
+            del state, step, m
+            torch.cuda.empty_cache()
+        plain, mesh_run = runs["plain"], runs["mesh"]
+        cos, left_out = live_cosines(mesh_run.pop("grads"), plain.pop("grads"))
+        aux_rel = {k: abs(mesh_run[k] - plain[k]) / max(abs(plain[k]), 1e-30)
+                   for k in ("moe_aux_loss", "moe_z_loss")}
+        mean = lambda ms: statistics.mean(ms[1:])  # noqa: E731
+        gates = mesh_gates(
+            f"MoE {mode} step through make_train_step(mesh=)", mesh_run["loss"], plain["loss"],
+            cos, mesh_run["grad_norm"], plain["grad_norm64"], mesh_run["launches"],
+            plain["launches"], card,
+            extra=f"; aux/z rel {aux_rel}, dropped {mesh_run['moe_fraction_dropped']} vs "
+                  f"{plain['moe_fraction_dropped']}; groups without gradient {left_out}; step "
+                  f"{mean(mesh_run['step_ms']):.1f} vs {mean(plain['step_ms']):.1f} ms (mean of "
+                  f"steps 2-{MOE_STEPS}), peak {mesh_run['peak_gib']:.2f} vs "
+                  f"{plain['peak_gib']:.2f} GiB")
+        if (max(aux_rel.values()) > MESH_LOSS_RTOL
+                or mesh_run["moe_fraction_dropped"] != plain["moe_fraction_dropped"]
+                or plain["launches"] != want):
+            raise AssertionError(f"MoE {mode} under the mesh: aux/z rel {aux_rel}, dropped "
+                                 f"{mesh_run['moe_fraction_dropped']} vs "
+                                 f"{plain['moe_fraction_dropped']}, launches {plain['launches']}")
+        rec[mode] = {**gates, "aux_rel": aux_rel, "plain": plain, "mesh": mesh_run,
+                     "launches_per_step": want, "step_ms": mean(mesh_run["step_ms"]),
+                     "plain_step_ms": mean(plain["step_ms"])}
+    return rec
+
+
+def idefics2_mesh_phase(model, cfg, batches, mesh, card, plain_rec):
+    """Phase 44: phase 32's Idefics2 step ("full", the perceiver frozen, no
+    weight decay) through make_train_step(mesh=) at a world of one against
+    the plain step from the same weights: loss, per-group gradient cosines
+    (the frozen perceiver's are 0 on both sides and left out), the
+    gradients' norm in float64 and the mesh step's own clip norm against
+    the plain gradients',
+    K1/K2/K3a/K3b launches equal to the plain step's (62/31/27/109); the
+    same with grad_accum_steps=2 (one row a microbatch, images and masks
+    pre-stacked) against the plain accumulation; a planted fault, the
+    patch mask dropped from the mesh path's rows, which the cosine gate
+    must fail; 3 steps of the mesh step, step ms and peak memory beside
+    phase 32's plain "full" steps (`plain_rec`). The plain step's gradients
+    wait on the host while the mesh state exists."""
+    import torch
+
+    from leopard_tpu_torch.config import OptimizerConfig, TrainConfig
+    from leopard_tpu_torch.parallel.sharding import local_rows
+    from leopard_tpu_torch.training import trainer
+
+    lt, lv, lp = cfg.text.num_layers, cfg.vision.num_layers, cfg.perceiver.num_layers
+    want = {"flash_attention": 2 * (lt + lv), "flash_attention_bwd": lt + lv,
+            "fused_rms_norm": 2 * 2 * lt + 1 + 3 * lp + 1, "fused_layer_norm": 2 * 2 * lv + 1}
+    _, counted = launch_counter(want)
+    device = model.text.lm_head.device
+    dev = [to_device(b, device) for b in batches]
+    first = dev[0]
+    # the accumulation's batch: the first batch's two rows as two
+    # microbatches, each row's images and masks stacked [2, tiles, ...]
+    n_img = first["images"].shape[0] // 2
+    acc = {**first, "images": first["images"].reshape(2, n_img, *first["images"].shape[1:]),
+           "patch_mask": first["patch_mask"].reshape(2, n_img, *first["patch_mask"].shape[1:])}
+    lat = cfg.perceiver.num_latents
+    per_row = (first["tokens"] == cfg.image_token_id).sum(dim=1).tolist()
+    if per_row != [n_img * lat] * 2:
+        raise AssertionError(f"Idefics2 mesh: rows of {per_row} image tokens, not {n_img} "
+                             "images each")
+    tcfg = TrainConfig(seq_len=IDEFICS2_TRAIN_SEQ, global_batch_size=2, remat="full",
+                       loss_chunk=1024, optimizer=OptimizerConfig(
+                           lr=1e-5, warmup_steps=1, decay_steps=1000, grad_clip=1.0,
+                           weight_decay=0.0))
+    frozen = ("perceiver",)
+    plain = {}
+    state = trainer.create_train_state(model, tcfg)
+    for name, accum, b in (("step", 1, first), ("accum", 2, acc)):
+        step = trainer.make_train_step(cfg, tcfg, frozen=frozen, grad_accum_steps=accum,
+                                       model=model)
+        (loss, _, grads), ms, launches = counted(lambda: step.loss_and_grads(state, b))
+        plain[name] = {"loss": float(loss), "grad_norm": norm64(grads), "launches": launches,
+                       "ms": ms,
+                       "grads": {k: g.cpu() for k, g in grads.items()}}
+        del grads, step
+    del state
+    torch.cuda.empty_cache()
+    if plain["step"]["launches"] != want:
+        raise AssertionError(f"Idefics2 plain step: launches {plain['step']['launches']}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    twin = idefics2_twin(model, cfg)
+    state = trainer.create_train_state(twin, tcfg, mesh=mesh)
+    rows = lambda b, a=1: local_rows(b, mesh, lat, cfg.image_token_id, accum=a)  # noqa: E731
+    rec = {}
+    for name, accum, b in (("step", 1, rows(first)), ("accum", 2, rows(acc, 2)),
+                           ("fault_no_patch_mask", 1,
+                            {k: v for k, v in rows(first).items() if k != "patch_mask"})):
+        step = trainer.make_train_step(cfg, tcfg, frozen=frozen, grad_accum_steps=accum,
+                                       mesh=mesh)
+        (loss, _, grads), ms, launches = counted(lambda: step.loss_and_grads(state, b))
+        ref = plain["accum" if name == "accum" else "step"]
+        cos, left_out = live_cosines(grads, ref["grads"])
+        norm = norm64(grads)
+        del grads
+        if name == "fault_no_patch_mask":
+            least = min(cos.values())
+            rel = abs(float(loss) - ref["loss"]) / abs(ref["loss"])
+            print(f"Idefics2 mesh planted fault (the patch mask dropped from the rows) "
+                  f"[{card}]: least cosine {least:.5f} (must fall below {MESH_COSINE_MIN}), "
+                  f"loss rel {rel:.3g}", flush=True)
+            if least >= MESH_COSINE_MIN:
+                raise AssertionError(f"Idefics2 mesh: the dropped patch mask passed the "
+                                     f"cosine gate: {cos}")
+            rec[name] = {"cosines": cos, "loss_rel": rel}
+            continue
+        rec[name] = mesh_gates(
+            f"Idefics2 {name} through make_train_step(mesh=)", float(loss), ref["loss"], cos,
+            norm, ref["grad_norm"], launches, ref["launches"], card,
+            extra=f"; groups without gradient {left_out}; {ms:.1f} vs {ref['ms']:.1f} ms")
+        if name == "step" and launches != want:
+            raise AssertionError(f"Idefics2 mesh step: launches {launches} vs {want}")
+        del step
+    step = trainer.make_train_step(cfg, tcfg, frozen=frozen, mesh=mesh)
+    times = []
+    for i, b in enumerate(dev):
+        (state, metrics), ms, launches = counted(lambda: step(state, rows(b)))
+        if launches != want or not np.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"Idefics2 mesh step {i + 1}: launches {launches}, loss "
+                                 f"{float(metrics['loss'])}")
+        if i == 0:  # the step's own clip norm, at the weights the gradients were taken at
+            norm = float(metrics["grad_norm"])
+            rel = abs(norm - plain["step"]["grad_norm"]) / plain["step"]["grad_norm"]
+            print(f"Idefics2 mesh step 1's clip norm {norm:.6f} vs the plain gradients' "
+                  f"{plain['step']['grad_norm']:.6f} (rel {rel:.3g}, tol {MESH_LOSS_RTOL}) "
+                  f"[{card}]", flush=True)
+            if rel > MESH_LOSS_RTOL:
+                raise AssertionError(f"Idefics2 mesh step 1: clip norm rel {rel}")
+            rec["step"]["step_clip_norm_rel"] = rel
+        times.append(ms)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state, step, twin
+    torch.cuda.empty_cache()
+    step_ms = statistics.mean(times[1:])
+    rec.update(step_ms=times, step_ms_mean=step_ms, peak_gib=peak, launches_per_step=want,
+               plain_step_ms_mean=plain_rec["step_ms"], plain_peak_gib=plain_rec["peak_memory_gib"])
+    print(f"Idefics2 train step, plain (phase 32, full) vs mesh of one (world 1, NCCL) [{card}]: "
+          f"{plain_rec['step_ms']:.1f} vs {step_ms:.1f} ms (mean of steps 2-{len(dev)}); launches "
+          f"a step {want}; peak device memory {plain_rec['peak_memory_gib']:.2f} (plain) / "
+          f"{peak:.2f} GiB (mesh)", flush=True)
+    return rec
+
+
+def idefics2_mesh_cli_phase(cli_rec, hf_dir, manifest, rows, cfg, tmp, card, device):
+    """Phase 44, last: `python -m torch.distributed.run --nproc_per_node=1 -m
+    leopard_tpu_torch.cli.train_leopard_idefics2 --mesh data=1` with phase
+    33's flags (--init-from phase 25's checkpoint, --freeze-perceiver) and a
+    tokenizer.json that gives Idefics2ByteTokenizer's ids (checked on the
+    builder's first batch): the first loss equals phase 33's (rel
+    TRAIN_CLI_LOSS_RTOL)."""
+    import socket
+
+    import torch
+
+    from leopard_tpu_torch.data.tokenizer import build_tokenizer
+
+    tok_dir = write_byte_tokenizer(
+        tmp / "idefics2_tokenizer", specials={"<s>": 1, "</s>": 2, "<end_of_utterance>": 32002},
+        bos="<s>", eos="</s>")
+    with contextlib.redirect_stdout(io.StringIO()):
+        file_tok = build_tokenizer(tok_dir, tokenizer_type="mistral", image_token="<image>")
+    from leopard_tpu_torch.data.idefics2_batches import idefics2_batch
+
+    first = {name: idefics2_batch(rows[:2], tok, cfg, IDEFICS2_TRAIN_SEQ,
+                                  str(manifest.parent))["tokens"]
+             for name, tok in (("file", file_tok), ("smoke", Idefics2ByteTokenizer()))}
+    if not np.array_equal(first["file"], first["smoke"]):
+        raise AssertionError("the tokenizer.json does not give Idefics2ByteTokenizer's ids")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=1",
+           "--master_addr=localhost", f"--master_port={port}",
+           "-m", "leopard_tpu_torch.cli.train_leopard_idefics2", "--manifest", str(manifest),
+           "--image-folder", str(manifest.parent), "--tokenizer", tok_dir, "--init-from",
+           str(hf_dir), "--checkpoint-dir", str(tmp / "idefics2_mesh_run"), "--seq-len",
+           str(IDEFICS2_TRAIN_SEQ), "--global-batch-size", "2", "--train-steps", "1", "--set",
+           f"text.num_layers={cfg.text.num_layers}", "--freeze-perceiver", "--device",
+           device.type, "--mesh", "data=1"]
+    torch.cuda.empty_cache()
+    held_gib = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+                          capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or "done at step 1" not in proc.stdout:
+        raise AssertionError(f"torchrun Idefics2 train CLI failed ({proc.returncode}): "
+                             f"{proc.stderr[-3000:]}")
+    with open(tmp / "idefics2_mesh_run" / "metrics.jsonl") as f:
+        (row,) = [json.loads(line) for line in f]
+    ref = cli_rec["losses"][0]
+    rel = abs(row["loss"] - ref) / abs(ref)
+    print(f"train_leopard_idefics2 under torchrun, --mesh data=1 (NCCL, world 1) [{card}]: "
+          f"first loss {row['loss']:.6f} vs phase 33's {ref:.6f} (rel {rel:.3g}, tol "
+          f"{TRAIN_CLI_LOSS_RTOL}); step {row['step_time'] * 1e3:.1f} ms; the whole command "
+          f"{wall:.1f} s, this process holding {held_gib:.2f} GiB meanwhile", flush=True)
+    if rel > TRAIN_CLI_LOSS_RTOL:
+        raise AssertionError(f"torchrun Idefics2 train CLI: first loss {row['loss']} vs {ref}")
+    return {"loss": row["loss"], "phase33_loss": ref, "rel": rel,
+            "step_ms": row["step_time"] * 1e3, "wall_s": wall}
 
 
 def main() -> int:
@@ -5864,14 +6420,27 @@ def main() -> int:
         peak["idefics2_train_grads"] = phase_memory("Idefics2 train, K1 + K2 vs dense")
         i2_train["remat"] = idefics2_train_phase(model, dcfg, i2_batches, card, k1_checked,
                                                  k2_checked)
-        del model
         peak["idefics2_train"] = phase_memory("Idefics2 train")
+        # phase 44: the same step through make_train_step(mesh=), at a world
+        # of one (a twin of the model becomes DTensors: `model` stays)
+        t0 = time.perf_counter()
+        mesh_rec["idefics2"] = idefics2_mesh_phase(model, dcfg, i2_batches, mesh, card,
+                                                   i2_train["remat"]["full"])
+        phase44_s = time.perf_counter() - t0
+        del model
+        peak["idefics2_mesh_train"] = phase_memory("Idefics2 train under a mesh")
 
         # phase 33: the train_leopard_idefics2 CLI on phase 25's checkpoint
         i2_train["cli"] = idefics2_train_cli_phase(
             Path(tmp) / "idefics2_hf", i2_manifest, i2_rows, dcfg, card, Path(tmp), device,
             k1_checked, k2_checked)
         peak["idefics2_train_cli"] = phase_memory("Idefics2 train CLI")
+        # phase 44, last: that CLI under torchrun with --mesh data=1
+        t0 = time.perf_counter()
+        mesh_rec["idefics2_cli"] = idefics2_mesh_cli_phase(
+            i2_train["cli"], Path(tmp) / "idefics2_hf", i2_manifest, i2_rows, dcfg, Path(tmp),
+            card, device)
+        mesh_rec["idefics2"]["phase_s"] = phase44_s + time.perf_counter() - t0
     train_tmp.cleanup()
     idefics2["train"] = i2_train
     features["idefics2"] = idefics2
@@ -5887,11 +6456,24 @@ def main() -> int:
     del batch
     peak["moe_train"] = phase_memory("MoE train")
     moe_rec["serve"] = moe_serve_phase(model, card, device)
-    del model
     peak["moe_serve"] = phase_memory("MoE serve")
     moe_rec["phases_s"] = time.perf_counter() - t0
     print(f"MoE phases 34-35 took {moe_rec['phases_s']:.1f} s", flush=True)
     features["moe"] = moe_rec
+
+    # phases 42-43: the expert-parallel dispatch on layer 0's weights, then
+    # the MoE step through make_train_step(mesh=) (the last use of the model)
+    t0 = time.perf_counter()
+    mesh_rec["ep"] = ep_dispatch_phase(model, card, device)
+    peak["ep_dispatch"] = phase_memory("EP dispatch")
+    batch = moe_batch(device)
+    mesh_rec["moe_train"] = moe_mesh_train_phase(model, batch, mesh, card)
+    del batch, model
+    peak["moe_mesh_train"] = phase_memory("MoE train under a mesh")
+    mesh_rec["ep"]["phases_42_43_s"] = time.perf_counter() - t0
+    print(f"phases 42-43 took {mesh_rec['ep']['phases_42_43_s']:.1f} s; phase 44 "
+          f"{mesh_rec['idefics2']['phase_s']:.1f} s with its torchrun run "
+          f"{mesh_rec['idefics2_cli']['wall_s']:.1f} s", flush=True)
 
     # phase 31: no JAX
     if "jax" in sys.modules or any(m.split(".")[0] == "leopard_tpu" for m in sys.modules):
@@ -5955,16 +6537,25 @@ def main() -> int:
                 "launches_moe_generate": features["moe"]["serve"]["launches"].get(name, 0)}
 
     def mesh_paths(name):
-        """A kernel's launches on phases 37-39's and 41's paths: a mesh train
-        step (flash and ring), a ring pass of phase 38 per n, a generate
-        under the mesh (bf16), a pipeline train step per v."""
+        """A kernel's launches on phases 37-39's, 41's and 43-44's paths: a
+        mesh train step (flash and ring), a ring pass of phase 38 per n, a
+        generate under the mesh (bf16), a pipeline train step per v, the MoE
+        step under the mesh per dispatch, the Idefics2 step under the mesh
+        (one step, and two microbatches)."""
         runs = mesh_rec["train"]["runs"]
         out = {"launches_mesh_train_step": runs["mesh"]["launches"].get(name, 0),
                "launches_mesh_ring_train_step": runs["mesh_ring"]["launches"].get(name, 0),
                "launches_mesh_generate": mesh_rec["serve"]["bf16"]["mesh"]["launches"].get(
                    name, 0),
                "launches_pp_train_step": {f"v{v}": mesh_rec["pp"][f"v{v}"]["launches"][name]
-                                          for v in PP_CHUNKS}}
+                                          for v in PP_CHUNKS},
+               "launches_moe_mesh_train_step": {
+                   mode: mesh_rec["moe_train"][mode]["launches"].get(name, 0)
+                   for mode in MESH_MOE_RUNS},
+               "launches_idefics2_mesh_train_step": mesh_rec["idefics2"]["step"]["launches"].get(
+                   name, 0),
+               "launches_idefics2_mesh_accum_step": mesh_rec["idefics2"]["accum"]["launches"].get(
+                   name, 0)}
         if name.startswith("flash_attention"):
             out["launches_ring_pass"] = {n: mesh_rec["ring"][f"n{n}"]["launches"][name]
                                          for n in RING_SIZES}

@@ -1,11 +1,23 @@
 """Train Leopard-Idefics2 (NaViT tower + perceiver + Mistral-7B with its
-4,096-token window) from a jsonl manifest on one card (port of
-examples/train_leopard_idefics2.py, without its device mesh):
+4,096-token window) from a jsonl manifest (port of
+examples/train_leopard_idefics2.py):
 
   python -m leopard_tpu_torch.cli.train_leopard_idefics2 \\
       --manifest data.jsonl --image-folder imgs/ \\
       --tokenizer /ckpts/leopard-idefics2-hf --init-from /ckpts/leopard-idefics2-hf \\
       --set text.num_layers=4 --seq-len 8192 --global-batch-size 2 --freeze-perceiver
+
+On N cards, one process each, started by torchrun, over a device mesh:
+
+  python -m torch.distributed.run --nproc_per_node=N \\
+      -m leopard_tpu_torch.cli.train_leopard_idefics2 ... --mesh data=2,model=2
+
+`--mesh` names the axes data, fsdp, seq and model, as in
+`train_leopard_llava`; seq > 1 takes `--set text.attn_impl=ring`, and on
+the card the ring does not take Mistral's window yet (ROADMAP). Every rank
+builds each global batch and keeps its (data, fsdp) coordinate's rows with
+their whole images (`parallel/sharding.py::local_rows`); the primary alone
+logs and writes checkpoints.
 
 Manifest rows are `{"text": a chat-rendered string with <image>
 placeholders, "images": [paths]}`; `data/idefics2_batches.py` turns them
@@ -26,7 +38,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from leopard_tpu_torch.cli import add_device_arg, resolve_device
+from leopard_tpu_torch.cli import add_device_arg, resolve_device, start_mesh
 from leopard_tpu_torch.cli.train_leopard_llava import parse_overrides
 
 
@@ -45,6 +57,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--lr", type=float, default=1e-5)
     p.add_argument("--freeze-vision-tower", action="store_true")
     p.add_argument("--freeze-perceiver", action="store_true")
+    p.add_argument("--mesh", default=None,
+                   help="axis sizes, e.g. data=2,model=2 (run under torchrun)")
     p.add_argument("--tiny", action="store_true", help="tiny config smoke run")
     p.add_argument("--set", action="append", default=[],
                    help="dotted config override, e.g. text.num_layers=4")
@@ -56,12 +70,17 @@ def train_main(args: argparse.Namespace, tokenizer=None, cfg=None, **train_overr
     """Build the model, state, batches and checkpoints from the flags and
     run `training.loop.train`. Returns the final TrainState."""
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh is not None:
+        mesh, device = start_mesh(args.mesh, device)
     from leopard_tpu_torch import config as cfgs
     from leopard_tpu_torch.config import OptimizerConfig, TrainConfig
     from leopard_tpu_torch.convert.hf import load_leopard_idefics2
     from leopard_tpu_torch.data.idefics2_batches import idefics2_batches
     from leopard_tpu_torch.data.tokenizer import build_tokenizer
     from leopard_tpu_torch.models import vlm
+    from leopard_tpu_torch.parallel.launch import is_primary
+    from leopard_tpu_torch.parallel.sharding import local_rows
     from leopard_tpu_torch.training.checkpoint import CheckpointManager
     from leopard_tpu_torch.training.loop import train
     from leopard_tpu_torch.training.trainer import create_train_state, make_train_step
@@ -86,18 +105,21 @@ def train_main(args: argparse.Namespace, tokenizer=None, cfg=None, **train_overr
         model = load_leopard_idefics2(args.init_from, cfg, device)
     else:
         model = vlm.init_params(cfg, torch.Generator(device=device).manual_seed(train_cfg.seed))
-    state = create_train_state(model, train_cfg)
+    state = create_train_state(model, train_cfg, mesh=mesh)
     frozen = tuple(name for name, flag in (("vision", train_cfg.freeze_vision_tower),
                                            ("perceiver", train_cfg.freeze_perceiver)) if flag)
     # the loaded model is the step's compute copy: the masters are written
-    # into it at every step
-    step_fn = make_train_step(cfg, train_cfg, frozen=frozen, model=model)
+    # into it at every step (under a mesh the step builds its own, of local
+    # shards)
+    step_fn = make_train_step(cfg, train_cfg, frozen=frozen,
+                              model=None if mesh is not None else model, mesh=mesh)
 
     ckpt = CheckpointManager(train_cfg.checkpoint_dir, async_save=train_cfg.async_checkpoint)
     latest = ckpt.latest_step()
     if latest is not None:
         state, _ = ckpt.restore(template=state)
-        print(f"resumed from step {latest}", flush=True)
+        if is_primary():
+            print(f"resumed from step {latest}", flush=True)
 
     with open(args.manifest) as f:
         rows = [json.loads(line) for line in f if line.strip()]
@@ -107,17 +129,23 @@ def train_main(args: argparse.Namespace, tokenizer=None, cfg=None, **train_overr
 
     def device_batches():
         for batch in batches:
-            yield {k: None if v is None else torch.from_numpy(v).to(device, non_blocking=True)
-                   for k, v in batch.items()}
+            batch = {k: torch.from_numpy(v) for k, v in batch.items() if v is not None}
+            if mesh is not None:
+                batch = local_rows(batch, mesh, cfg.perceiver.num_latents, cfg.image_token_id)
+            yield {k: v.to(device, non_blocking=True) for k, v in batch.items()}
 
-    logger = MetricsLogger(train_cfg.checkpoint_dir)
+    logger = MetricsLogger(train_cfg.checkpoint_dir) if is_primary() else None
     try:
         final = train(cfg, train_cfg, state, step_fn, device_batches(), ckpt=ckpt,
                       logger=logger)
     finally:
         ckpt.close()
-        logger.close()
-    print(f"done at step {int(final.step)}", flush=True)
+        if logger is not None:
+            logger.close()
+    if is_primary():
+        print(f"done at step {int(final.step)}", flush=True)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     return final
 
 

@@ -14,8 +14,8 @@ On N cards, one process each, started by torchrun, over a device mesh:
 `--mesh` names the axes data, fsdp, seq and model (unnamed ones are 1; their
 product must be the world size); seq > 1 takes `--set text.attn_impl=ring`.
 `stage` is refused: the JAX CLI drives no pipeline either, which trains
-through `training.pp.make_pp_train_step` called directly; `expert` is
-refused until the expert-parallel dispatch is ported. Each (data, fsdp)
+through `training.pp.make_pp_train_step` called directly; so is `expert`:
+the model has no experts. Each (data, fsdp)
 coordinate loads its own share of every global batch; the primary alone
 logs and writes checkpoints (with its data position, which a resume gives
 every rank). Without `--mesh` the run is one process on one device, as
@@ -38,7 +38,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from leopard_tpu_torch.cli import add_device_arg, resolve_device
+from leopard_tpu_torch.cli import add_device_arg, resolve_device, start_mesh
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -81,24 +81,7 @@ def train_main(args: argparse.Namespace, tokenizer=None, cfg=None, **train_overr
     device = resolve_device(args.device)
     mesh = None
     if args.mesh is not None:
-        import os
-
-        from leopard_tpu_torch.parallel.launch import initialize_distributed
-        from leopard_tpu_torch.parallel.mesh import build_mesh, parse_mesh
-
-        mesh_cfg = parse_mesh(args.mesh)
-        if mesh_cfg.stage > 1 or mesh_cfg.expert > 1:
-            raise SystemExit("error: --mesh stage > 1 is not a CLI option (the pipeline trains "
-                             "through training.pp.make_pp_train_step, as in the JAX package), "
-                             "and expert > 1 is not in the port yet")
-        world = int(os.environ.get("WORLD_SIZE", 1))
-        if mesh_cfg.num_devices != world:
-            raise SystemExit(f"error: --mesh {args.mesh} wants {mesh_cfg.num_devices} processes, "
-                             f"WORLD_SIZE is {world}")
-        initialize_distributed(device.type)
-        if device.type == "cuda":
-            device = torch.device("cuda", torch.cuda.current_device())
-        mesh = build_mesh(mesh_cfg, device.type)
+        mesh, device = start_mesh(args.mesh, device)
     from leopard_tpu_torch import config as cfgs
     from leopard_tpu_torch.config import OptimizerConfig, TrainConfig
     from leopard_tpu_torch.convert.hf import load_leopard_llava

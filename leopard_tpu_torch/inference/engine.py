@@ -45,10 +45,13 @@ of the MLP and of the vocabulary; int8 payloads cut like their weights,
 int4 leaves replicated), the KV cache holds this rank's kv heads, and the
 logits are gathered whole for sampling, so every rank of the model group
 emits the same tokens. Each data-parallel group serves the whole batch it
-is given (the caller splits requests over data ranks). Not under a mesh
-yet (ROADMAP): fsdp or seq > 1, int4 weights at model > 1 (the rules
-replicate them, and cutting their split-half rows per rank is not written),
-and the MoE and Idefics2 models.
+is given (the caller splits requests over data ranks), and an MoE layer
+routes that batch alone, as the plain engine does. The MoE decoder and
+Leopard-Idefics2 serve so too, through the forward that training under a
+mesh runs (the experts' F and the perceiver's heads cut over "model").
+Not under a mesh yet (ROADMAP): fsdp, seq, expert or stage > 1, and int4
+weights at model > 1 (the rules replicate them, and cutting their
+split-half rows per rank is not written).
 
 Where the JAX engine clamps a cache write that falls outside a too-small
 `max_cache`, this engine raises before it writes anything.
@@ -197,8 +200,8 @@ class Engine:
             from leopard_tpu_torch.training.trainer import check_mesh_supported
 
             m = mesh_config(mesh)
-            check_mesh_supported(cfg, mesh, what="serving")
-            if m.fsdp > 1 or m.seq > 1 or m.stage > 1:
+            check_mesh_supported(cfg, mesh)
+            if m.fsdp > 1 or m.seq > 1 or m.stage > 1 or m.expert > 1:
                 raise NotImplementedError("serving shards over data and model only (ROADMAP)")
             if quantize == "int4" and m.model > 1:
                 raise NotImplementedError("int4 serving at model > 1: the rules replicate "
@@ -222,7 +225,10 @@ class Engine:
             from leopard_tpu_torch.parallel.sharding import tp_local_model
 
             tp = axis_size(mesh, MODEL_AXIS)
-            model = set_parallel(tp_local_model(model, mesh), Parallel.of(mesh))
+            # each data-parallel group serves its own batch: an MoE layer
+            # routes it alone, with no statistics summed over data ranks
+            par = dataclasses.replace(Parallel.of(mesh), dp_group=None, dp_size=1, dp_rank=0)
+            model = set_parallel(tp_local_model(model, mesh), par)
             self.cache_cfg = dataclasses.replace(cfg.text, num_kv_heads=cfg.text.num_kv_heads // tp)
         self.mesh = mesh
         self.cfg = cfg

@@ -39,7 +39,10 @@ MLP is a routed expert bank, `ops/moe.py`, whose parameters are `router.w`
 `forward(..., return_aux=True)` also returns {aux_loss, z_loss,
 fraction_dropped}: the losses summed over layers, the dropped share the
 worst layer's. Calls with a cache run the same layers and drop their aux
-values, as the JAX package does.
+values, as the JAX package does. Under a mesh the layer holds this rank's
+expert shards (the expert axis, then the model axis of F) and routes
+through the expert-parallel dispatch; its aux and z losses are then this
+rank's terms of the global ones (ops/moe.py).
 
 Tied embeddings (`tie_word_embeddings`): there is no `lm_head`; logits are
 the fp32 hidden states times the fp32 `embed_tokens` transposed (JAX
@@ -141,7 +144,9 @@ def _q8(x: torch.Tensor):
 def moe_config(cfg: TextConfig) -> MoEConfig:
     return MoEConfig(num_experts=cfg.num_experts, top_k=cfg.moe_top_k,
                      capacity_factor=cfg.moe_capacity_factor, dropless=cfg.moe_dropless,
-                     aux_loss_coef=cfg.moe_aux_loss_coef, z_loss_coef=cfg.moe_z_loss_coef)
+                     aux_loss_coef=cfg.moe_aux_loss_coef, z_loss_coef=cfg.moe_z_loss_coef,
+                     ep_capacity_factor=cfg.moe_ep_capacity_factor,
+                     ep_ragged_a2a=cfg.moe_ep_ragged_a2a)
 
 
 class DecoderLayer(nn.Module):
@@ -240,12 +245,15 @@ class DecoderLayer(nn.Module):
             o = tag_attn_out(attention(q, k, v, mask=mask))  # saved under "attn"/"selective"
         x = x + reduce_from_tp(matmul(o.reshape(b, s, -1), a.wo), par)
 
-        y = copy_to_tp(rms_norm(x, self.post_attn_norm, cfg.rms_norm_eps), par)
+        y = rms_norm(x, self.post_attn_norm, cfg.rms_norm_eps)
         if self.moe is not None:
+            # this rank's expert shards; the layer sums over the model and
+            # expert groups itself (ops/moe.py)
             ex = self.experts
             out, aux = moe_layer(self.router.w, {"w_gate": ex.w_gate, "w_up": ex.w_up,
-                                                 "w_down": ex.w_down}, self.moe, y)
+                                                 "w_down": ex.w_down}, self.moe, y, par=par)
             return x + out, aux
+        y = copy_to_tp(y, par)
         m = self.mlp
         gated = F.silu(matmul(y, m.w_gate)) * matmul(y, m.w_up)
         return x + reduce_from_tp(matmul(gated, m.w_down), par)
@@ -348,7 +356,7 @@ class Decoder(nn.Module):
         if input_embeds is not None:
             x = input_embeds
         elif par is not None:
-            x = vocab_parallel_embedding(tokens, self.embed_tokens, par)
+            x = vocab_parallel_embedding(tokens, self.embed_tokens, par, cfg.vocab_size)
         else:
             x = self.embed_tokens[tokens]
         b, s, _ = x.shape
@@ -423,7 +431,8 @@ class Decoder(nn.Module):
                 x = x.gather(1, logits_indices.long()[:, None, None].expand(b, 1, x.shape[-1]))
             # fp32 logits: an int4 head at M ≤ 64 on the card takes K4, which
             # rounds x to bf16 as the TPU kernel does
-            x = gather_from_tp(matmul(copy_to_tp(x.float(), par), self._head()), par)
+            x = gather_from_tp(matmul(copy_to_tp(x.float(), par), self._head()), par,
+                               cfg.vocab_size)
             if ring_layout is not None:
                 x = gather_sequence(x, par, ring_layout)
         return (x, cache, aux) if return_aux else (x, cache)

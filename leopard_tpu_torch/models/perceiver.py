@@ -16,6 +16,12 @@ JAX package (no Pallas kernel there; head dim 96 is not one of K1's). A
 masked context row still enters the product with weight exactly 0, so it
 must be finite: 0·NaN is NaN. The norms go through `ops/norms.rms_norm`
 (K3a on the card).
+
+Under tensor parallelism (`self.par`, parallel/mesh.py::Parallel) the rules
+give each rank its block of the resampler's heads (wq, wk, wv by columns,
+wo by rows) and of its MLP's width (w_gate, w_up by columns, w_down by
+rows), as models/siglip.py's layers; the modality projection and the
+latents stay whole. The local head counts come from the weights' shapes.
 """
 
 from __future__ import annotations
@@ -30,13 +36,17 @@ from leopard_tpu_torch.config import PerceiverConfig
 from leopard_tpu_torch.models.params import Params, new_param, torch_dtype
 from leopard_tpu_torch.ops.attention import attention
 from leopard_tpu_torch.ops.norms import rms_norm
+from leopard_tpu_torch.parallel.tensor_parallel import copy_to_tp, row_linear
 
 
-def _swiglu(x: torch.Tensor, p: Params) -> torch.Tensor:
-    return F.linear(F.silu(F.linear(x, p.w_gate)) * F.linear(x, p.w_up), p.w_down)
+def _swiglu(x: torch.Tensor, p: Params, par=None) -> torch.Tensor:
+    x = copy_to_tp(x, par)
+    return row_linear(F.silu(F.linear(x, p.w_gate)) * F.linear(x, p.w_up), p.w_down, None, par)
 
 
 class PerceiverLayer(nn.Module):
+    par = None  # parallel/mesh.py::Parallel, set by set_parallel
+
     def __init__(self, cfg: PerceiverConfig, *, dtype: torch.dtype, device=None):
         super().__init__()
         h = cfg.hidden_size
@@ -56,13 +66,15 @@ class PerceiverLayer(nn.Module):
         lat_n = rms_norm(lat, self.latents_norm, cfg.rms_norm_eps)
         ctx_n = rms_norm(context, self.context_norm, cfg.rms_norm_eps)
         kv_in = torch.cat([ctx_n, lat_n], dim=1)  # [B, S + n, H]
-        q = F.linear(lat_n, a.wq).reshape(b, n, cfg.num_heads, cfg.head_dim)
-        k = F.linear(kv_in, a.wk).reshape(b, s + n, cfg.num_kv_heads, cfg.head_dim)
-        v = F.linear(kv_in, a.wv).reshape(b, s + n, cfg.num_kv_heads, cfg.head_dim)
+        par = self.par
+        q = F.linear(copy_to_tp(lat_n, par), a.wq).reshape(b, n, -1, cfg.head_dim)
+        kv_in = copy_to_tp(kv_in, par)
+        k = F.linear(kv_in, a.wk).reshape(b, s + n, -1, cfg.head_dim)
+        v = F.linear(kv_in, a.wv).reshape(b, s + n, -1, cfg.head_dim)
         o = attention(q, k, v, mask=mask)
-        lat = lat + F.linear(o.reshape(b, n, -1), a.wo)
+        lat = lat + row_linear(o.reshape(b, n, -1), a.wo, None, par)
         y = rms_norm(lat, self.post_attn_norm, cfg.rms_norm_eps)
-        return lat + _swiglu(y, self.mlp)
+        return lat + _swiglu(y, self.mlp, par)
 
 
 class Perceiver(nn.Module):

@@ -119,7 +119,8 @@ class LeopardVLM(nn.Module):
         decoder's MoE aux values. `feature_row_offsets` maps one
         chunk's image tokens to their rows of the whole prompt's features
         (see splice_image_features)."""
-        embeds = vocab_parallel_embedding(tokens.clamp(min=0), self.text.embed_tokens, self.par)
+        embeds = vocab_parallel_embedding(tokens.clamp(min=0), self.text.embed_tokens, self.par,
+                                          self.cfg.text.vocab_size)
         embeds = maybe_constrain(embeds, ("data", "fsdp"), "seq", None)
         if image_features is None and images is not None:
             image_features = self.encode_images(

@@ -173,11 +173,13 @@ def _plain_bwd(q, k, v, mask, out, lse, dout):
     return dq, dk, dv
 
 
+WINDOWED_RING = ("a windowed ring block off the diagonal needs the band shifted by its q - kv "
+                 "offset, which K1/K2 do not take (ROADMAP: the windowed ring on the card)")
+
+
 def _kernel_args(kind, window, offset):
     if window is not None and offset != 0:
-        raise NotImplementedError(
-            "a windowed ring block off the diagonal needs the band shifted by its q - kv "
-            "offset, which K1/K2 do not take (ROADMAP: the windowed ring on the card)")
+        raise NotImplementedError(WINDOWED_RING)
     return kind == "diag"
 
 

@@ -7,11 +7,13 @@ innermost: data, stage, fsdp, expert, seq, model. Size-1 axes stay in the
 mesh, so a placement can always name them.
 
 `Parallel` is what a model's forward reads: the process groups and
-coordinates of the two axes whose collectives run inside the forward,
-"model" (tensor parallelism, parallel/tensor_parallel.py) and "seq" (ring
-context parallelism, parallel/context_parallel.py). Every other axis shards
-parameters or batch rows, and its collectives run outside the forward
-(training/trainer.py).
+coordinates of the axes whose collectives run inside the forward, "model"
+(tensor parallelism, parallel/tensor_parallel.py), "seq" (ring context
+parallelism, parallel/context_parallel.py) and "expert" (the MoE layer's
+all-to-all dispatch, ops/moe.py), and the groups of the token axes, data,
+fsdp and seq, over which an MoE layer sums its routing statistics. The
+other axes shard parameters or batch rows, and their collectives run
+outside the forward (training/trainer.py).
 """
 
 from __future__ import annotations
@@ -119,16 +121,50 @@ class Parallel:
     cp_size: int = 1
     cp_rank: int = 0
     cp_ranks: Sequence[int] = (0,)   # global ranks of the seq group, by seq coordinate
+    ep_group: Optional[object] = None
+    ep_size: int = 1
+    ep_rank: int = 0
+    dp_group: Optional[object] = None
+    dp_size: int = 1
+    dp_rank: int = 0
+    fsdp_group: Optional[object] = None
+    fsdp_size: int = 1
+    fsdp_rank: int = 0
 
     @staticmethod
     def of(mesh) -> "Parallel":
-        cp_group = axis_group(mesh, SEQ_AXIS)
+        def ranks(group, axis):
+            return tuple(dist.get_global_rank(group, i) for i in range(axis_size(mesh, axis)))
+
+        cp_group, ep_group = axis_group(mesh, SEQ_AXIS), axis_group(mesh, EXPERT_AXIS)
         return Parallel(
             tp_group=axis_group(mesh, MODEL_AXIS), tp_size=axis_size(mesh, MODEL_AXIS),
             tp_rank=axis_coord(mesh, MODEL_AXIS), cp_group=cp_group,
             cp_size=axis_size(mesh, SEQ_AXIS), cp_rank=axis_coord(mesh, SEQ_AXIS),
-            cp_ranks=tuple(dist.get_global_rank(cp_group, i)
-                           for i in range(axis_size(mesh, SEQ_AXIS))))
+            cp_ranks=ranks(cp_group, SEQ_AXIS), ep_group=ep_group,
+            ep_size=axis_size(mesh, EXPERT_AXIS), ep_rank=axis_coord(mesh, EXPERT_AXIS),
+            dp_group=axis_group(mesh, DATA_AXIS),
+            dp_size=axis_size(mesh, DATA_AXIS), dp_rank=axis_coord(mesh, DATA_AXIS),
+            fsdp_group=axis_group(mesh, FSDP_AXIS), fsdp_size=axis_size(mesh, FSDP_AXIS),
+            fsdp_rank=axis_coord(mesh, FSDP_AXIS))
+
+    @property
+    def token_shards(self) -> int:
+        """How many shards the tokens of a batch are cut into before any
+        expert split: data × fsdp × seq."""
+        return self.dp_size * self.fsdp_size * self.cp_size
+
+    def token_groups(self):
+        """(group, size) of seq, fsdp and data, inner to outer."""
+        return ((self.cp_group, self.cp_size), (self.fsdp_group, self.fsdp_size),
+                (self.dp_group, self.dp_size))
+
+    def sum_over_tokens(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum `t` in place over data, fsdp and seq (the token axes)."""
+        for group, size in self.token_groups():
+            if size > 1:
+                dist.all_reduce(t, group=group)
+        return t
 
 
 def set_parallel(module: torch.nn.Module, par: Optional[Parallel]) -> torch.nn.Module:

@@ -187,22 +187,28 @@ def placements(spec: Spec, mesh) -> list:
     return out
 
 
+def _chunk(n: int, k: int, i: int) -> Tuple[int, int]:
+    """(start, length) of block i of a dim of n cut in k, as `torch.chunk`
+    and DTensor's `Shard` cut it (and GSPMD pads it): blocks of ceil(n / k),
+    the last shorter, any after it empty."""
+    c = -(-n // k)
+    start = min(i * c, n)
+    return start, min(c, n - start)
+
+
 def local_shard(t: torch.Tensor, spec: Spec, mesh, axes: Optional[Sequence[str]] = None
                 ) -> torch.Tensor:
     """This rank's block of the full tensor `t` under `spec` (a view),
-    cut only over `axes` when given (e.g. the model axis alone)."""
+    cut only over `axes` when given (e.g. the model axis alone). A dim over
+    two axes is cut by the major one, then that block by the minor one; a
+    dim that an axis does not divide is cut as `_chunk` says (Mistral's
+    vocabulary of 32,003 rows)."""
     for d, entry in enumerate(spec):
-        idx, n = 0, 1
         for a in _axes(entry):
-            if axes is not None and a not in axes:
+            if (axes is not None and a not in axes) or axis_size(mesh, a) == 1:
                 continue
-            idx = idx * axis_size(mesh, a) + axis_coord(mesh, a)
-            n *= axis_size(mesh, a)
-        if n > 1:
-            if t.shape[d] % n:
-                raise ValueError(f"dim {d} of {tuple(t.shape)} does not split over {entry}")
-            size = t.shape[d] // n
-            t = t.narrow(d, idx * size, size)
+            start, length = _chunk(t.shape[d], axis_size(mesh, a), axis_coord(mesh, a))
+            t = t.narrow(d, start, length)
     return t
 
 
@@ -263,19 +269,40 @@ def _fsdp_dim(dt) -> Optional[int]:
     return None if isinstance(p, Replicate) else p.dim
 
 
+def _compute_len(dt, d: int) -> int:
+    """The length along dim d of a DTensor's compute copy: its full length
+    cut by the axis other than fsdp that shards d, if any (the rules share a
+    dim between fsdp and one other axis at most: the table's vocab over
+    (model, fsdp))."""
+    mesh = dt.device_mesh
+    n = dt.shape[d]
+    for name, p in zip(mesh.mesh_dim_names, dt.placements):
+        if name != FSDP_AXIS and getattr(p, "dim", None) == d:
+            n = _chunk(n, axis_size(mesh, name), axis_coord(mesh, name))[1]
+    return n
+
+
 @torch.no_grad()
 def gather_fsdp(dt) -> torch.Tensor:
     """The compute copy of a DTensor parameter: its fsdp shards gathered
     (data-major blocks in layout order, so a model-major joint shard comes
-    back as this rank's model block), its model shard kept."""
+    back as this rank's model block), its model shard kept. Uneven shards
+    are padded for the gather and the padding cut off."""
     local = dt.to_local()
     d = _fsdp_dim(dt)
     mesh = dt.device_mesh
-    if d is None or axis_size(mesh, FSDP_AXIS) == 1:
+    f = axis_size(mesh, FSDP_AXIS)
+    if d is None or f == 1:
         return local
-    parts = [torch.empty_like(local) for _ in range(axis_size(mesh, FSDP_AXIS))]
+    n = _compute_len(dt, d)
+    c = -(-n // f)
+    if local.shape[d] < c:
+        pad = list(local.shape)
+        pad[d] = c - local.shape[d]
+        local = torch.cat([local, local.new_zeros(pad)], dim=d)
+    parts = [torch.empty_like(local) for _ in range(f)]
     dist.all_gather(parts, local.contiguous(), group=axis_group(mesh, FSDP_AXIS))
-    return torch.cat(parts, dim=d)
+    return torch.cat(parts, dim=d).narrow(d, 0, n)
 
 
 BATCH_AXES = (DATA_AXIS, FSDP_AXIS, SEQ_AXIS)
@@ -301,7 +328,8 @@ def reduce_to_shard(g: torch.Tensor, dt) -> torch.Tensor:
     f = axis_size(mesh, FSDP_AXIS)
     if d is None or f == 1:
         return g
-    return g.chunk(f, dim=d)[axis_coord(mesh, FSDP_AXIS)].contiguous()
+    start, length = _chunk(g.shape[d], f, axis_coord(mesh, FSDP_AXIS))
+    return g.narrow(d, start, length).contiguous()
 
 
 def replication(dt) -> int:
@@ -341,12 +369,26 @@ def logical_batch_spec(seq_sharded: bool = False) -> Spec:
 
 
 def local_rows(batch: Mapping[str, Any], mesh, tokens_per_tile: int,
-               image_token_id: int) -> Dict[str, Any]:
+               image_token_id: int, accum: int = 1) -> Dict[str, Any]:
     """The rows of a global batch that this rank's (data, fsdp) coordinate
     holds under `logical_batch_spec` (contiguous blocks, data major), with
-    the image tiles those rows' image tokens take: the batch's tiles are in
-    order of appearance, `tokens_per_tile` image tokens each. Ranks that
-    differ only in other axes get the same rows."""
+    the images those rows' image tokens take: the batch's images are in
+    order of appearance, `tokens_per_tile` image tokens each (a LLaVA
+    tile's, or an Idefics2 image's `num_latents`), with their `patch_mask`.
+    An image may run on from one row into the next, but not across the cut
+    between two ranks' rows: that raises. Ranks that differ only in other
+    axes get the same rows.
+
+    With `accum` > 1 the batch is the step's whole batch for grad
+    accumulation (the JAX trainer's layout): its leading dim splits into
+    `accum` microbatches and images and patch_mask come [accum, tiles, ...].
+    Each microbatch's rows are cut as above; the result holds this rank's
+    rows of every microbatch, microbatch-major, and its images [accum,
+    tiles, ...], each microbatch's padded with zero images (all-zero
+    patch masks) to the most any microbatch takes: no image token reads
+    them."""
+    if accum > 1:
+        return _local_rows_accum(batch, mesh, tokens_per_tile, image_token_id, accum)
     from leopard_tpu_torch.parallel.launch import dp_rank_and_world
 
     r, n = dp_rank_and_world(mesh)
@@ -357,13 +399,32 @@ def local_rows(batch: Mapping[str, Any], mesh, tokens_per_tile: int,
     out = {k: v[lo:hi] for k, v in batch.items() if k not in ("images", "patch_mask")}
     if batch.get("images") is not None:
         per_row = (batch["tokens"] == image_token_id).sum(dim=1).tolist()
-        if any(c % tokens_per_tile for c in per_row):
-            raise ValueError("a row's image tokens are not whole tiles")
-        first = sum(per_row[:lo]) // tokens_per_tile
-        count = sum(per_row[lo:hi]) // tokens_per_tile
+        before, count = sum(per_row[:lo]), sum(per_row[lo:hi])
+        if before % tokens_per_tile or count % tokens_per_tile:
+            raise ValueError(
+                f"the cut between data-parallel ranks' rows falls inside an image: rows "
+                f"[{lo}, {hi}) start after {before} and hold {count} image tokens, "
+                f"{tokens_per_tile} an image")
+        first, count = before // tokens_per_tile, count // tokens_per_tile
         out["images"] = batch["images"][first:first + count]
         if batch.get("patch_mask") is not None:
             out["patch_mask"] = batch["patch_mask"][first:first + count]
+    return out
+
+
+def _local_rows_accum(batch, mesh, tokens_per_tile, image_token_id, accum):
+    import torch.nn.functional as F
+
+    from leopard_tpu_torch.training.trainer import STACKED, split_microbatches
+
+    parts = [local_rows(mb, mesh, tokens_per_tile, image_token_id)
+             for mb in split_microbatches(batch, accum)]
+    out = {k: torch.cat([p[k] for p in parts]) for k in parts[0] if k not in STACKED}
+    for key in STACKED:
+        if key in parts[0]:
+            most = max(p[key].shape[0] for p in parts)
+            out[key] = torch.stack([F.pad(p[key], (0, 0) * (p[key].dim() - 1)
+                                          + (0, most - p[key].shape[0])) for p in parts])
     return out
 
 

@@ -141,7 +141,7 @@ def make_pp_train_step(cfg: VLMConfig, train_cfg: TrainConfig, mesh,
     or `MemoryStages(n)` at a stage axis of one.
 
     Refused: one stage ("use make_train_step"), MoE (as JAX pp.py:82: the
-    router's losses would have to ride the schedule), L not a multiple of
+    router's losses would have to ride the schedule), Leopard-Idefics2, L not a multiple of
     n·v, fsdp > 1 (the JAX package's tests never combine it with stages),
     and what `check_mesh_supported` refuses."""
     from leopard_tpu_torch.parallel.mesh import DATA_AXIS, FSDP_AXIS, SEQ_AXIS, Parallel, axis_size
@@ -155,6 +155,9 @@ def make_pp_train_step(cfg: VLMConfig, train_cfg: TrainConfig, mesh,
     if tcfg.num_experts > 0:
         raise NotImplementedError("MoE under the pipeline is not supported (nor in the JAX "
                                   "package): the router's losses would ride the schedule")
+    if cfg.architecture != "leopard_llava":
+        raise NotImplementedError("Leopard-Idefics2 under the pipeline is not in the port "
+                                  "(ROADMAP)")
     check_mesh_supported(cfg, mesh)
     if axis_size(mesh, FSDP_AXIS) > 1:
         raise NotImplementedError("fsdp > 1 with pipeline stages is not in the port (ROADMAP)")
@@ -191,7 +194,8 @@ def make_pp_train_step(cfg: VLMConfig, train_cfg: TrainConfig, mesh,
     def head_fn(hp, y, a):
         """The final norm and the chunked cross-entropy: unnormalized (nll, w)."""
         h = rms_norm(y, hp["final_norm"], tcfg.rms_norm_eps)
-        return (nll_sum(h, hp["lm_head"], a["targets"], a["w"], train_cfg.loss_chunk, par),
+        return (nll_sum(h, hp["lm_head"], a["targets"], a["w"], train_cfg.loss_chunk, par,
+                        tcfg.vocab_size),
                 a["w"].sum())
 
     def encode(m, images, patch_mask):
@@ -264,7 +268,8 @@ def make_pp_train_step(cfg: VLMConfig, train_cfg: TrainConfig, mesh,
             raise ValueError(f"batch of {b} rows not divisible by {m_total} microbatches")
 
         # embedding, tower and splice, outside the pipeline, under autograd
-        embeds = vocab_parallel_embedding(tokens.clamp(min=0), m.text.embed_tokens, par)
+        embeds = vocab_parallel_embedding(tokens.clamp(min=0), m.text.embed_tokens, par,
+                                          tcfg.vocab_size)
         if batch.get("images") is not None:
             feats = encode(m, batch["images"], batch.get("patch_mask"))
             embeds = splice_image_features(embeds, feats, tokens == cfg.image_token_id)

@@ -37,9 +37,19 @@ masters and both moments are DTensors placed by the rules
     and attends through the ring over the seq axis, and the loss reads the
     same shard of the targets;
   - the loss is this rank's weighted NLL over the whole batch's weight, the
-    vocab-parallel chunked cross-entropy; each gradient is summed over data,
-    fsdp and seq and cut to the master's own shard, so it keeps the
-    parameter's placements;
+    vocab-parallel chunked cross-entropy, plus, with experts, this rank's
+    terms of the global aux and z losses (ops/moe.py: the router's
+    statistics are summed over data, fsdp and seq before they combine);
+    each gradient is summed over data, fsdp and seq and cut to the master's
+    own shard, so it keeps the parameter's placements; an expert bank's
+    gradient arrives whole on the rank that holds its experts, through the
+    backward of the dispatch's all-to-all;
+  - Leopard-Idefics2 rows carry their whole images and patch masks
+    (`local_rows` with the perceiver's `num_latents` tokens an image), and
+    the perceiver runs tensor-parallel like the towers;
+  - with `grad_accum_steps` > 1 the rows are `local_rows(..., accum=)`'s,
+    microbatch-major, each microbatch's gradients weighted by its global
+    tokens in the loss and summed over the batch axes once, after the last;
   - the clip's global norm sums every shard once, and AdamW runs on the
     local shards in place.
 """
@@ -317,6 +327,68 @@ def _to_device(batch: Mapping[str, Any], device) -> Dict[str, Any]:
             for k, v in batch.items()}
 
 
+STACKED = ("images", "patch_mask")
+
+
+def split_microbatches(batch, accum: int) -> list:
+    """The batch's rows split into `accum` microbatches (JAX
+    trainer.py:280-330); images and patch_mask come pre-stacked [accum,
+    tiles, ...] and each microbatch takes its entry."""
+    b = batch["tokens"].shape[0]
+    if b % accum:
+        raise ValueError(f"batch {b} not divisible by grad_accum_steps={accum}")
+    for k in STACKED:
+        if batch.get(k) is not None and batch[k].shape[0] != accum:
+            raise ValueError(f"with grad accumulation, pass {k} as [{accum}, tiles, ...]")
+    n = b // accum
+    return [{k: (v[i] if k in STACKED else v[i * n:(i + 1) * n])
+             for k, v in batch.items() if v is not None} for i in range(accum)]
+
+
+def grads_of(m: torch.nn.Module, scale=None, into=None) -> Tensors:
+    """The compute model's grads upcast to fp32 (zeros where none), times
+    `scale`, added into `into`; the compute grads are freed."""
+    out = {} if into is None else into
+    for name, p in m.named_parameters():
+        g = p.grad.float() if p.grad is not None else torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device)
+        p.grad = None
+        if scale is not None:
+            g = g * scale
+        out[name] = g if into is None else out[name].add_(g)
+    return out
+
+
+def accumulate(m: torch.nn.Module, micros, run) -> Tuple[torch.Tensor, dict, Tensors]:
+    """Grad accumulation: `run(m, mb)` gives (the loss to backward, the
+    microbatch's loss, its metrics with "tokens_in_loss"). Each
+    microbatch's grads, loss and MoE losses are weighted by its tokens in
+    the loss; the dropped share is the worst microbatch's (the JAX trainer
+    drops the MoE metrics under accumulation). Returns (loss, metrics,
+    fp32 grads)."""
+    grads, nll, tw, moe = None, 0.0, 0.0, {}
+    for mb in micros:
+        backward, loss, aux = run(m, mb)
+        backward.backward()
+        w = aux["tokens_in_loss"].detach()
+        grads = grads_of(m, scale=w, into=grads)
+        nll, tw = nll + loss.detach() * w, tw + w
+        for k in ("moe_aux_loss", "moe_z_loss"):
+            if k in aux:
+                moe[k] = moe.get(k, 0.0) + aux[k].detach() * w
+        if "moe_fraction_dropped" in aux:
+            f = aux["moe_fraction_dropped"].detach()
+            moe["moe_fraction_dropped"] = torch.maximum(moe.get("moe_fraction_dropped", f), f)
+    inv = 1.0 / torch.clamp(tw, min=1e-8)
+    for g in grads.values():
+        g.mul_(inv)
+    loss = nll * inv
+    for k in ("moe_aux_loss", "moe_z_loss"):
+        if k in moe:
+            moe[k] = moe[k] * inv
+    return loss, {"loss": loss, "tokens_in_loss": tw, **moe}, grads
+
+
 def make_train_step(cfg: VLMConfig, train_cfg: TrainConfig, frozen=(),
                     grad_accum_steps: int = 1, model: Optional[LeopardVLM] = None,
                     mesh=None):
@@ -335,8 +407,9 @@ def make_train_step(cfg: VLMConfig, train_cfg: TrainConfig, frozen=(),
     (loss, metrics) without gradients, the `loss_fn` of `evaluate_loss`.
 
     `mesh`: the sharded step (module docstring) over a state from
-    `create_train_state(..., mesh=)`, on this rank's rows of the batch; its
-    grads are the masters' local shards. Attention takes the ring over the
+    `create_train_state(..., mesh=)`, on this rank's rows of the batch
+    (`parallel/sharding.py::local_rows`, with `accum=grad_accum_steps`
+    under accumulation); its grads are the masters' local shards. Attention takes the ring over the
     mesh's "seq" axis only when `cfg.text.attn_impl == "ring"` (JAX
     trainer.py:270-271, whose `cp_mesh`/`cp_axis` the mesh replaces)."""
     if mesh is not None:
@@ -358,19 +431,6 @@ def make_train_step(cfg: VLMConfig, train_cfg: TrainConfig, frozen=(),
             p.grad = None
         return m
 
-    def grads_of(m, scale=None, into=None) -> Tensors:
-        """The compute model's grads upcast to fp32 (zeros where none),
-        times `scale`, added into `into`; the compute grads are freed."""
-        out = {} if into is None else into
-        for name, p in m.named_parameters():
-            g = p.grad.float() if p.grad is not None else torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device)
-            p.grad = None
-            if scale is not None:
-                g = g * scale
-            out[name] = g if into is None else out[name].add_(g)
-        return out
-
     def loss_fn(m, mb):
         return vlm_loss(m, cfg, mb, remat, loss_chunk=train_cfg.loss_chunk,
                         remat_vision=train_cfg.remat_vision)
@@ -382,42 +442,12 @@ def make_train_step(cfg: VLMConfig, train_cfg: TrainConfig, frozen=(),
             loss, metrics = loss_fn(m, batch)
             loss.backward()
             return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads_of(m)
-        a = grad_accum_steps
-        micro = {}
-        for k, v in batch.items():
-            if k in ("images", "patch_mask"):
-                if v is not None and v.shape[0] != a:
-                    raise ValueError(f"with grad accumulation, pass {k} as [{a}, tiles, ...]")
-                micro[k] = v
-            else:
-                if v.shape[0] % a:
-                    raise ValueError(f"batch {v.shape[0]} not divisible by grad_accum_steps={a}")
-                micro[k] = v.reshape(a, v.shape[0] // a, *v.shape[1:])
-        grads, nll, tw, moe = None, 0.0, 0.0, {}
-        for i in range(a):
-            loss, aux = loss_fn(m, {k: v[i] for k, v in micro.items() if v is not None})
-            loss.backward()
-            w = aux["tokens_in_loss"].detach()
-            grads = grads_of(m, scale=w, into=grads)
-            nll, tw = nll + loss.detach() * w, tw + w
-            # the MoE metrics: the losses weighted as the gradients are, the
-            # worst microbatch's dropped share (the JAX trainer drops them
-            # under accumulation)
-            for k in ("moe_aux_loss", "moe_z_loss"):
-                if k in aux:
-                    moe[k] = moe.get(k, 0.0) + aux[k].detach() * w
-            if "moe_fraction_dropped" in aux:
-                f = aux["moe_fraction_dropped"].detach()
-                moe["moe_fraction_dropped"] = torch.maximum(
-                    moe.get("moe_fraction_dropped", f), f)
-        inv = 1.0 / torch.clamp(tw, min=1e-8)
-        for g in grads.values():
-            g.mul_(inv)
-        loss = nll * inv
-        for k in ("moe_aux_loss", "moe_z_loss"):
-            if k in moe:
-                moe[k] = moe[k] * inv
-        return loss, {"loss": loss, "tokens_in_loss": tw, **moe}, grads
+
+        def run(m, mb):
+            loss, aux = loss_fn(m, mb)
+            return loss, loss, aux
+
+        return accumulate(m, split_microbatches(batch, grad_accum_steps), run)
 
     @torch.no_grad()
     def eval_loss(params: Tensors, batch):
@@ -433,39 +463,46 @@ def make_train_step(cfg: VLMConfig, train_cfg: TrainConfig, frozen=(),
     return train_step
 
 
-def check_mesh_supported(cfg: VLMConfig, mesh, what: str = "training") -> None:
-    """Refuse what the port does not run under a mesh yet (ROADMAP §1)."""
+def check_mesh_supported(cfg: VLMConfig, mesh) -> None:
+    """Refuse what the port does not run under a mesh (ROADMAP §1); the
+    pipeline (stage > 1) and serving refuse more of their own."""
+    from leopard_tpu_torch.parallel.context_parallel import WINDOWED_RING
     from leopard_tpu_torch.parallel.mesh import mesh_config
 
     m = mesh_config(mesh)
-    if m.expert > 1:
-        raise NotImplementedError("expert > 1 (the expert-parallel dispatch) is not in the "
-                                  "port yet (ROADMAP)")
-    if cfg.text.num_experts > 0 or cfg.architecture != "leopard_llava":
-        raise NotImplementedError(f"{what} of an MoE or Idefics2 model under a mesh is not in "
-                                  "the port yet (ROADMAP)")
+    e = cfg.text.num_experts
+    if m.expert > 1 and e and e % m.expert:
+        raise ValueError(f"{e} experts must divide over expert-axis size {m.expert}")
     if m.seq > 1 and cfg.text.attn_impl != "ring":
         raise NotImplementedError("the port shards the sequence only through the ring: "
                                   "seq > 1 takes text.attn_impl='ring'")
-    if m.model > 1 and (cfg.text.num_kv_heads % m.model or cfg.vision.num_heads % m.model):
-        raise ValueError(f"model={m.model} does not divide the kv heads "
-                         f"({cfg.text.num_kv_heads}) and the vision heads ({cfg.vision.num_heads})")
+    if (m.seq > 1 and cfg.text.sliding_window is not None
+            and getattr(mesh, "device_type", "cpu") == "cuda"):
+        raise NotImplementedError(WINDOWED_RING)
+    heads = {"kv heads": cfg.text.num_kv_heads, "vision heads": cfg.vision.num_heads}
+    if cfg.perceiver is not None:
+        heads.update({"perceiver heads": cfg.perceiver.num_heads,
+                      "perceiver kv heads": cfg.perceiver.num_kv_heads})
+    if m.model > 1 and any(n % m.model for n in heads.values()):
+        raise ValueError(f"model={m.model} does not divide the " + ", the ".join(
+            f"{k} ({n})" for k, n in heads.items()))
 
 
-def _chunk_nll_tp(hx, unembed, tx, wx, par):
+def _chunk_nll_tp(hx, unembed, tx, wx, par, vocab):
     from leopard_tpu_torch.parallel.tensor_parallel import copy_to_tp, vocab_parallel_logz
 
     logits = F.linear(copy_to_tp(hx, par).float(), unembed)
-    logz, true = vocab_parallel_logz(logits, tx, par)
+    logz, true = vocab_parallel_logz(logits, tx, par, vocab)
     return (torch.where(wx > 0, logz - true, 0.0) * wx).sum()
 
 
-def nll_sum(hidden, unembed, targets, weights, chunk: int, par) -> torch.Tensor:
+def nll_sum(hidden, unembed, targets, weights, chunk: int, par,
+            vocab: int) -> torch.Tensor:
     """The weighted NLL summed over [B, S] positions, without [B, S, V]
     logits: each sequence chunk's fp32 logits (this rank's vocab columns
-    under tensor parallelism) are computed, reduced and dropped, and
-    recomputed in the backward. S is padded to a chunk multiple with
-    weight 0."""
+    under tensor parallelism; `vocab` the whole vocabulary) are computed,
+    reduced and dropped, and recomputed in the backward. S is padded to a
+    chunk multiple with weight 0."""
     s = hidden.shape[1]
     chunk = min(chunk, s)
     pad = (-s) % chunk
@@ -477,7 +514,7 @@ def nll_sum(hidden, unembed, targets, weights, chunk: int, par) -> torch.Tensor:
     for i in range(0, s + pad, chunk):
         nll = nll + torch.utils.checkpoint.checkpoint(
             _chunk_nll_tp, hidden[:, i:i + chunk], unembed, targets[:, i:i + chunk],
-            weights[:, i:i + chunk], par, use_reentrant=False)
+            weights[:, i:i + chunk], par, vocab, use_reentrant=False)
     return nll
 
 
@@ -521,21 +558,26 @@ def _sharded_train_step(cfg, train_cfg, frozen, grad_accum_steps, mesh):
     if mesh_config(mesh).stage > 1:
         raise NotImplementedError("stage > 1 is the 1F1B pipeline: train with "
                                   "training.pp.make_pp_train_step")
-    if grad_accum_steps > 1:
-        raise NotImplementedError("grad accumulation under a mesh is not in the port yet")
     opt = make_optimizer(train_cfg.optimizer)
     remat = False if train_cfg.remat == "none" else train_cfg.remat
     par = Parallel.of(mesh)
     ring = cfg.text.attn_impl == "ring"
+    moe = cfg.text.num_experts > 0
     compute_model = sharded_compute_model(cfg, frozen, torch_dtype(cfg.text.dtype), par)
 
+    def global_value(t):
+        return all_reduce_batch(t.detach().clone(), mesh)
+
     def loss_parts(m, batch):
-        """(this rank's NLL over the batch's whole weight, metrics)."""
+        """(this rank's share of the global loss: its NLL over the batch's
+        whole weight, plus its terms of the MoE losses; the metrics, global:
+        the loss without the MoE losses, as `vlm_loss` reports it)."""
         tokens = batch["tokens"]
         seg = batch.get("segment_ids")
-        hidden, _ = m(tokens, images=batch.get("images"), positions=batch.get("positions"),
-                      segment_ids=seg, return_hidden=True, remat=remat,
-                      remat_vision=train_cfg.remat_vision)
+        hidden, _, aux = m(tokens, images=batch.get("images"),
+                           patch_mask=batch.get("patch_mask"), positions=batch.get("positions"),
+                           segment_ids=seg, return_hidden=True, remat=remat,
+                           remat_vision=train_cfg.remat_vision, return_aux=True)
         # targets at every position (the last one weight 0), so that a
         # shard of the sequence takes its targets by the same positions
         targets = F.pad(tokens[:, 1:], (0, 1))
@@ -548,29 +590,48 @@ def _sharded_train_step(cfg, train_cfg, frozen, grad_accum_steps, mesh):
             idx = local_positions(s, par.cp_size, par.cp_rank,
                                   pick_layout(s, par.cp_size)).to(tokens.device)
             targets, weights = targets[:, idx], weights[:, idx]
-        nll = nll_sum(hidden, m.text.unembedding, targets, weights, train_cfg.loss_chunk, par)
-        total_w = torch.clamp(all_reduce_batch(weights.sum().detach(), mesh), min=1e-8)
-        loss = all_reduce_batch(nll.detach().clone(), mesh) / total_w
-        return nll / total_w, {"loss": loss, "tokens_in_loss": total_w}
+        nll = nll_sum(hidden, m.text.unembedding, targets, weights, train_cfg.loss_chunk, par,
+                      cfg.text.vocab_size)
+        total_w = torch.clamp(global_value(weights.sum()), min=1e-8)
+        local = nll / total_w
+        metrics = {"loss": global_value(nll) / total_w, "tokens_in_loss": total_w}
+        if moe:
+            local = local + aux["aux_loss"] + aux["z_loss"]
+            metrics["moe_aux_loss"] = global_value(aux["aux_loss"])
+            metrics["moe_z_loss"] = global_value(aux["z_loss"])
+            metrics["moe_fraction_dropped"] = aux["fraction_dropped"].detach()
+        return local, metrics
+
+    def total(metrics):
+        """The global loss the step minimizes: the cross-entropy plus the
+        MoE losses."""
+        if not moe:
+            return metrics["loss"]
+        return metrics["loss"] + metrics["moe_aux_loss"] + metrics["moe_z_loss"]
 
     def loss_and_grads(state: TrainState, batch):
         m = compute_model(state)
         batch = _to_device(batch, next(m.parameters()).device)
-        local_loss, metrics = loss_parts(m, batch)
-        local_loss.backward()
-        grads = {}
-        for name, p in m.named_parameters():
-            g = p.grad.float() if p.grad is not None else torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device)
-            p.grad = None
-            grads[name] = reduce_to_shard(g, state.params[name])
-        return metrics["loss"], metrics, grads
+        if grad_accum_steps <= 1:
+            local_loss, metrics = loss_parts(m, batch)
+            local_loss.backward()
+            acc, loss = grads_of(m), total(metrics)
+        else:
+            # each microbatch's gradients weighted by its global tokens in
+            # the loss; reduced once at the end
+            def run(m, mb):
+                local_loss, mm = loss_parts(m, mb)
+                return local_loss, total(mm), mm
+
+            loss, metrics, acc = accumulate(m, split_microbatches(batch, grad_accum_steps), run)
+        grads = {name: reduce_to_shard(g, state.params[name]) for name, g in acc.items()}
+        return loss, metrics, grads
 
     @torch.no_grad()
     def eval_loss(params: Tensors, batch):
         m = compute_model(TrainState(step=0, params=params, opt_state=None))
         _, metrics = loss_parts(m, _to_device(batch, next(m.parameters()).device))
-        return metrics["loss"], metrics
+        return total(metrics), metrics
 
     def train_step(state: TrainState, batch):
         loss, metrics, grads = loss_and_grads(state, batch)

@@ -139,12 +139,13 @@ class _MeshShape:
         return self.sizes[dim]
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=_MeshShape(fsdp=2)), dict(mesh=_MeshShape(stage=2))],
-                         ids=["mesh", "stage"])
+@pytest.mark.parametrize("kw", [dict(mesh=_MeshShape(fsdp=2)), dict(mesh=_MeshShape(stage=2)),
+                                dict(mesh=_MeshShape(expert=2))],
+                         ids=["mesh", "stage", "expert"])
 def test_engine_rejects_what_the_port_lacks(engines, kw):
     """Serving under a mesh is ported over "model" (and "data"); a mesh
-    that shards parameters over fsdp, or the layers over pipeline stages,
-    is refused."""
+    that shards parameters over fsdp, the layers over pipeline stages, or
+    experts over "expert" is refused."""
     _, teng = engines
     with pytest.raises(NotImplementedError):
         Engine(teng.cfg, teng.model, **kw)

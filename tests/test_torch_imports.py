@@ -42,7 +42,8 @@ REQUIRED = ("ops.flash_attention", "ops.int4_matmul", "ops.fused_norms",
             "evaluation.loaders", "evaluation.harness", "evaluation.adapter",
             "evaluation.lm_eval_adapter", "cli.run_eval", "ops.remat", "ops.moe",
             "parallel.launch", "parallel.mesh", "parallel.sharding", "parallel.context_parallel",
-            "parallel.tensor_parallel", "parallel.pipeline", "training.pp")
+            "parallel.tensor_parallel", "parallel.pipeline", "training.pp",
+            "cli.train_leopard_idefics2", "models.vlm")
 
 
 def _run(args, cwd):
