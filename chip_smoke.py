@@ -302,6 +302,30 @@ script exits non-zero without printing a result:
      (equal), gradient cosine per group (>= 0.9999), clip norm (rel 1e-5),
      K1 8, K2 4, K3a 17 launches a step as the plain step's, 3 steps of
      each, step ms and peak memory;
+ 45. (after phase 38) the ring's bodies with Mistral's window of 4,096 at
+     phase 38's [1, 16,384, 32/8, 128] over n = 2 and 4 virtual ranks: the
+     blocks wholly outside the window skipped by the schedule; one block of
+     each band it keeps (diagonal, wholly inside, partly inside) through
+     K1/K2 with its q - kv offset against their plain versions
+     (KERNEL_TOL / K2_TOL on the rows that attend a key; the others 0), with
+     their ms, bound over the attended pairs and SDPA with the block's band
+     as a boolean mask; the whole pass against one windowed K1 and one K2
+     call over the sequence (cosine >= 0.9999, finite); K1 and K2 launched
+     `ring_blocks(n, window=)` times a pass (7 and 21 of 10 and 36); ms per
+     pass beside the one call's;
+ 47. (after phase 41) the blockwise "chunked" tier (plain PyTorch, kv
+     chunks of 512) on a new decoder of phase 20's widths and depth, two
+     rows of 4,096 (one with a padding tail): logits against the K1
+     forward, cosine per row >= 0.99, no K1 launch, both forwards' ms and
+     peak memory;
+ 46. (after phase 44) phase 32's Idefics2 step through the 1F1B pipeline
+     (MemoryStages(2) at a world of one, M = 2 rows, the tower and the
+     perceiver in chunks of 4 images, Mistral's window in both stages'
+     layers) against the plain make_train_step from the same weights: loss
+     (rel 1e-5), gradient cosine per group (>= 0.9999; the frozen perceiver
+     left out); K1, K2, K3a and K3b launches a step as
+     `idefics2_pp_launches`, 3 steps, step ms and peak memory beside phase
+     32's;
  31. no JAX was imported (checked last).
 Each engine is freed after its phase, with the phase's peak device memory
 printed. Then the card's name and power limit as nvidia-smi prints them, one
@@ -5184,53 +5208,266 @@ def ring_kernels_phase(device, card):
     out_ref, lse_ref = fa._launch(q, k, v, with_lse=True, **kw)
     grads_ref = fa._launch_bwd(q, k, v, None, None, out_ref, lse_ref, do, causal=True,
                                sliding_window=None)
+    refs = {"out": out_ref, "dq": grads_ref[0], "dk": grads_ref[1], "dv": grads_ref[2]}
     rec = {"shape": dict(RING_SHAPE), "whole_fwd_ms": cuda_ms(
         lambda: fa._launch(q, k, v, with_lse=True, **kw)),
         "whole_bwd_ms": cuda_ms(lambda: fa._launch_bwd(
             q, k, v, None, None, out_ref, lse_ref, do, causal=True, sliding_window=None))}
     for n in RING_SIZES:
-        idx = [cp.local_positions(s, n, r, "zigzag").to(device) for r in range(n)]
-        qs, ks, vs, dos = ([t[:, i].contiguous() for i in idx] for t in (q, k, v, do))
-        ring = cp.MemoryRing(ks, vs)
-        opts = dict(n=n, layout="zigzag", causal=True)
-
-        def fwd():
-            return [cp.ring_forward(qs[r], None, ring.view(r), rank=r, **opts) for r in range(n)]
-
-        def bwd(outs):
-            for t in (*ring.dk, *ring.dv):
-                t.zero_()
-            return [cp.ring_backward(qs[r], None, *outs[r], dos[r], ring.view(r), rank=r, **opts)
-                    for r in range(n)]
-
-        fa.flash_attention.launches = fa.flash_attention_bwd.launches = 0
-        outs = fwd()
-        torch.cuda.synchronize()
-        k1 = fa.flash_attention.launches
-        dqs = bwd(outs)
-        torch.cuda.synchronize()
-        launches = {"flash_attention": k1, "flash_attention_bwd": fa.flash_attention_bwd.launches}
+        got = ring_pass(q, k, v, do, refs, n)
         formula = cp.ring_blocks(n, "zigzag")
-        whole = {"out": torch.empty_like(q), "dq": torch.empty_like(q),
-                 "dk": torch.empty(k.shape, device=device), "dv": torch.empty(v.shape, device=device)}
-        for r, i in enumerate(idx):
-            whole["out"][:, i], whole["dq"][:, i] = outs[r][0], dqs[r]
-            whole["dk"][:, i], whole["dv"][:, i] = ring.dk[r], ring.dv[r]
-        refs = {"out": out_ref, "dq": grads_ref[0], "dk": grads_ref[1], "dv": grads_ref[2]}
-        cos = {name: float(cosine(whole[name].float().flatten(), refs[name].float().flatten(),
-                                  dim=0)) for name in whole}
-        fwd_ms = cuda_ms(fwd, reps=3)
-        bwd_ms = cuda_ms(lambda: bwd(outs), reps=3)
         print(f"ring n={n} (zig-zag, in-memory rotation) at {RING_SHAPE} [{card}]: cosine vs "
-              f"one K1/K2 call {cos} (min {RING_COSINE_MIN}); launches {launches} (a pass: "
-              f"n(2n+1) = {formula} each); ms per ring pass fwd {fwd_ms:.3f} / bwd "
-              f"{bwd_ms:.3f} vs one call {rec['whole_fwd_ms']:.3f} / {rec['whole_bwd_ms']:.3f}",
-              flush=True)
-        if (min(cos.values()) < RING_COSINE_MIN
-                or launches != {"flash_attention": formula, "flash_attention_bwd": formula}):
-            raise AssertionError(f"ring n={n}: cosines {cos}, launches {launches}")
-        rec[f"n{n}"] = {"cosines": cos, "launches": launches, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
-        del ring, outs, dqs, whole
+              f"one K1/K2 call {got['cosines']} (min {RING_COSINE_MIN}); launches "
+              f"{got['launches']} (a pass: n(2n+1) = {formula} each); ms per ring pass fwd "
+              f"{got['fwd_ms']:.3f} / bwd {got['bwd_ms']:.3f} vs one call "
+              f"{rec['whole_fwd_ms']:.3f} / {rec['whole_bwd_ms']:.3f}", flush=True)
+        if (min(got["cosines"].values()) < RING_COSINE_MIN
+                or got["launches"] != {"flash_attention": formula,
+                                       "flash_attention_bwd": formula}):
+            raise AssertionError(f"ring n={n}: {got}")
+        rec[f"n{n}"] = got
+    return rec
+
+
+def ring_pass(q, k, v, do, refs, n, window=None):
+    """One pass of the ring's per-rank bodies over n virtual ranks (the
+    layout `pick_layout` gives, the KV rotation read from memory) on the
+    whole sequence's q, k, v and output gradient: the out and dq/dk/dv put
+    back in sequence order, their cosines to `refs` (one K1/K2 call over
+    the sequence), whether all are finite, the K1 and K2 launches of the
+    pass, and ms a pass forward and backward."""
+    import torch
+
+    from leopard_tpu_torch.ops import flash_attention as fa
+    from leopard_tpu_torch.parallel import context_parallel as cp
+
+    s, device = q.shape[1], q.device
+    layout = cp.pick_layout(s, n)
+    idx = [cp.local_positions(s, n, r, layout).to(device) for r in range(n)]
+    qs, ks, vs, dos = ([t[:, i].contiguous() for i in idx] for t in (q, k, v, do))
+    ring = cp.MemoryRing(ks, vs)
+    opts = dict(n=n, layout=layout, causal=True, window=window)
+
+    def fwd():
+        return [cp.ring_forward(qs[r], None, ring.view(r), rank=r, **opts) for r in range(n)]
+
+    def bwd(outs):
+        for t in (*ring.dk, *ring.dv):
+            t.zero_()
+        return [cp.ring_backward(qs[r], None, *outs[r], dos[r], ring.view(r), rank=r, **opts)
+                for r in range(n)]
+
+    fa.flash_attention.launches = fa.flash_attention_bwd.launches = 0
+    outs = fwd()
+    torch.cuda.synchronize()
+    k1 = fa.flash_attention.launches
+    dqs = bwd(outs)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": k1, "flash_attention_bwd": fa.flash_attention_bwd.launches}
+    whole = {"out": torch.empty_like(q), "dq": torch.empty_like(q),
+             "dk": torch.empty(k.shape, device=device), "dv": torch.empty(v.shape, device=device)}
+    for r, i in enumerate(idx):
+        whole["out"][:, i], whole["dq"][:, i] = outs[r][0], dqs[r]
+        whole["dk"][:, i], whole["dv"][:, i] = ring.dk[r], ring.dv[r]
+    finite = all(bool(torch.isfinite(t).all()) for t in whole.values())
+    cos = {name: float(cosine(whole[name].float().flatten(), refs[name].float().flatten(),
+                              dim=0)) for name in whole}
+    del whole
+    fwd_ms = cuda_ms(fwd, reps=3)
+    bwd_ms = cuda_ms(lambda: bwd(outs), reps=3)
+    return {"layout": layout, "cosines": cos, "finite": finite, "launches": launches,
+            "fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
+
+
+# phase 45: the windowed ring, Mistral's window over phase 38's shape
+RING_WINDOW = 4096
+
+
+def block_valid_rows(sq, skv, causal, window, offset, device):
+    """[Sq] bool: the rows of a ring block that attend at least one key (a
+    partial block's others come out (0, -1e30) from K1 and a uniform
+    average from the plain version, and merge away)."""
+    from leopard_tpu_torch.ops.attention import make_attention_mask
+
+    mask = make_attention_mask(sq, skv, causal=causal, sliding_window=window, device=device,
+                               q_offset=offset)
+    return mask[0, 0].any(-1)
+
+
+def offset_block_vs_plain(q, k, v, dout, kind, window, offset, card):
+    """One ring block's K1 (out, lse) and K2 (dq, dk, dv) with its q − kv
+    offset against their plain versions on the same inputs (K2 from K1's
+    out and lse), under KERNEL_TOL / K2_TOL, on the rows that attend a key;
+    K1's and K2's times beside the bound over the attended pairs."""
+    import torch
+
+    from leopard_tpu_torch.ops import flash_attention as fa
+
+    causal = kind == "diag"
+    kw = dict(causal=causal, sliding_window=window, q_offset=offset)
+    b, ln, hq, d = q.shape
+    out, lse = fa._launch(q, k, v, q_segment_ids=None, kv_segment_ids=None, with_lse=True,
+                          **kw)
+    grads = fa._launch_bwd(q, k, v, None, None, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    rows = block_valid_rows(ln, ln, causal, window, offset, q.device)
+    want_out = fa.flash_attention_ref(q, k, v, **kw)
+    want_lse = fa.flash_attention_lse_ref(q, k, v, **kw)
+    want = fa.flash_attention_bwd_ref(q, k, v, None, None, out, lse, dout, **kw)
+    errs = {"out": (out[:, rows].float() - want_out[:, rows].float()).abs().max().item(),
+            "lse": (lse[:, :, rows] - want_lse[:, :, rows]).abs().max().item()}
+    torch.testing.assert_close(out[:, rows].float(), want_out[:, rows].float(), **KERNEL_TOL)
+    torch.testing.assert_close(lse[:, :, rows], want_lse[:, :, rows], **KERNEL_TOL)
+    if not torch.isfinite(out).all() or not bool((out[:, ~rows] == 0).all()):
+        raise AssertionError(f"ring block {kind} offset {offset}: rows with no key not 0")
+    for name, a, w in zip(("dq", "dk", "dv"), grads, want):
+        errs[name] = (a.float() - w.float()).abs().max().item()
+        torch.testing.assert_close(a.float(), w.float(), **K2_TOL, msg=f"{kind} {offset} {name}")
+    del want_out, want_lse, want
+    ranges = fa.tile_ranges(None, None, sq=ln, skv=ln, causal=causal, window=window,
+                            device=q.device, offset=offset)
+    k1_ms = cuda_ms(lambda: fa._launch(q, k, v, q_segment_ids=None, kv_segment_ids=None,
+                                       with_lse=True, ranges=ranges, **kw))
+    k2_ms = cuda_ms(lambda: fa._launch_bwd(q, k, v, None, None, out, lse, dout, ranges=ranges,
+                                           **kw))
+    from leopard_tpu_torch.ops.attention import make_attention_mask
+
+    band = make_attention_mask(ln, ln, causal=causal, sliding_window=window, device=q.device,
+                               q_offset=offset)
+    lib_fwd, lib_bwd = sdpa_band_ms(q, k, v, dout, band)
+    plain_k1_ms = cuda_ms(lambda: (fa.flash_attention_ref(q, k, v, **kw),
+                                   fa.flash_attention_lse_ref(q, k, v, **kw)), reps=3)
+    plain_k2_ms = cuda_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, None, None, out, lse, dout,
+                                                             **kw), reps=3)
+    # attended pairs: row i of the block attends kv j with j <= i + offset
+    # (causal) and i + offset - j < window
+    i = torch.arange(ln, device=q.device)
+    hi = torch.minimum(i + offset + 1, torch.tensor(ln, device=q.device)) if causal else (
+        torch.full_like(i, ln))
+    lo = (i + offset - window + 1).clamp(min=0)
+    pairs = int((hi - lo).clamp(min=0).sum()) * b
+    k1_bound, k1_by = attn_bound_ms(pairs, hq, d, 2, nbytes(q, k, v, out, lse))
+    k2_bound, k2_by = attn_bound_ms(pairs, hq, d, 5, nbytes(q, k, v, out, dout, lse, q, k, v))
+    print(f"ring block {kind}, offset {offset}, window {window}, [{b}, {ln}, {hq}/"
+          f"{k.shape[2]}, {d}]: {int(rows.sum())} of {ln} rows attend a key, {pairs} pairs; "
+          f"K1/K2 vs plain max_abs_err {errs} (tol {KERNEL_TOL} / {K2_TOL}); K1 {k1_ms:.4f} ms "
+          f"(bound {k1_bound:.4f}, plain {plain_k1_ms:.4f}, SDPA with the band as a boolean "
+          f"mask {lib_fwd if lib_fwd is None else round(lib_fwd, 4)}), K2 {k2_ms:.4f} ms (bound "
+          f"{k2_bound:.4f}, plain {plain_k2_ms:.4f}, SDPA's backward "
+          f"{lib_bwd if lib_bwd is None else round(lib_bwd, 4)}) [{card}]", flush=True)
+    band = "diagonal" if causal else "inside" if offset + ln - 1 < window else "partial"
+    return {"kind": kind, "band": band, "offset": offset, "rows_with_keys": int(rows.sum()),
+            "pairs": pairs,
+            "errs": errs, "k1_ms": k1_ms, "k2_ms": k2_ms, "k1_library_ms": lib_fwd,
+            "k2_library_ms": lib_bwd, "k1_plain_ms": plain_k1_ms, "k2_plain_ms": plain_k2_ms,
+            "k1_bound_ms": k1_bound,
+            "k1_bound_by": k1_by, "k2_bound_ms": k2_bound, "k2_bound_by": k2_by}
+
+
+def sdpa_band_ms(q, k, v, dout, mask):
+    """F.scaled_dot_product_attention's forward and backward ms on a
+    block's inputs with its band (the q − kv offset's causal cut and window)
+    as a boolean attn_mask [1, 1, Sq, Skv]: the library call that computes
+    the block. None where SDPA refuses it."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    kw = dict(attn_mask=mask, enable_gqa=q.shape[2] != k.shape[2])
+    try:
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw))
+        o = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+        g = dout.transpose(1, 2)
+        bwd = cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), g, retain_graph=True))
+        return fwd, bwd
+    except RuntimeError as e:  # reported; the kernels' checks do not depend on it
+        print(f"SDPA with a boolean band refused: {str(e).splitlines()[0]}", flush=True)
+        return None, None
+
+
+def ring_window_phase(device, card):
+    """Phase 45: phase 38's ring bodies with Mistral's window of
+    RING_WINDOW over n = 2 and 4 virtual ranks: each kind of block the
+    schedule keeps (diagonal, wholly inside the window, partly inside)
+    through K1/K2 with its q − kv offset against the plain versions; the
+    whole pass against one windowed K1 and one K2 call over the sequence
+    (cosine >= RING_COSINE_MIN); K1 and K2 launched `ring_blocks(...,
+    window=)` times a pass, the blocks wholly outside the window skipped;
+    ms per pass beside the one call's, and the library call (SDPA with the
+    band as a boolean mask) for the whole sequence."""
+    import torch
+
+    from leopard_tpu_torch.ops import flash_attention as fa
+    from leopard_tpu_torch.parallel import context_parallel as cp
+
+    t_phase = time.perf_counter()
+    b, s, hq, hkv, d = (RING_SHAPE[k] for k in ("b", "s", "hq", "hkv", "d"))
+    w = RING_WINDOW
+    g = torch.Generator(device=device).manual_seed(SEED + 45)
+
+    def rand(h):
+        return torch.randn((b, s, h, d), generator=g, device=device).to(torch.bfloat16)
+
+    q, k, v, do = rand(hq), rand(hkv), rand(hkv), rand(hq)
+    kw = dict(causal=True, q_segment_ids=None, kv_segment_ids=None, sliding_window=w)
+    ranges = fa.tile_ranges(None, None, sq=s, skv=s, causal=True, window=w, device=device)
+    out_ref, lse_ref = fa._launch(q, k, v, with_lse=True, **kw)
+    grads_ref = fa._launch_bwd(q, k, v, None, None, out_ref, lse_ref, do, causal=True,
+                               sliding_window=w)
+    whole_pairs = attended_pairs([[s]] * b, True, w)
+    rec = {"shape": dict(RING_SHAPE), "window": w, "whole_fwd_ms": cuda_ms(
+        lambda: fa._launch(q, k, v, with_lse=True, ranges=ranges, **kw)),
+        "whole_bwd_ms": cuda_ms(lambda: fa._launch_bwd(
+            q, k, v, None, None, out_ref, lse_ref, do, causal=True, sliding_window=w,
+            ranges=ranges))}
+    rec["whole_fwd_bound_ms"], rec["whole_fwd_bound_by"] = attn_bound_ms(
+        whole_pairs, hq, d, 2, nbytes(q, k, v, out_ref, lse_ref))
+    rec["whole_bwd_bound_ms"], rec["whole_bwd_bound_by"] = attn_bound_ms(
+        whole_pairs, hq, d, 5, nbytes(q, k, v, out_ref, do, lse_ref, q, k, v))
+    rec["library_fwd_ms"], rec["library_error"] = sdpa_masked_ms(q, k, v, None, True, w)
+    refs = {"out": out_ref, "dq": grads_ref[0], "dk": grads_ref[1], "dv": grads_ref[2]}
+    rec["blocks"] = []
+    for n in RING_SIZES:
+        layout = cp.pick_layout(s, n)
+        ln = s // (2 * n)
+        kept = {(kind, off) for r in range(n) for t in range(n)
+                for _, _, _, kind, off in cp.schedule(n, r, (r - t) % n, s // n, layout, True, w)}
+        every = {(kind, off) for r in range(n) for t in range(n)
+                 for _, _, _, kind, off in cp.schedule(n, r, (r - t) % n, s // n, layout, True)}
+        # each kind of block this n gives, on the sequence's first chunk
+        # pair at that offset
+        for kind, off in sorted(kept):
+            rec["blocks"].append({"n": n, **offset_block_vs_plain(
+                q[:, off:off + ln], k[:, :ln], v[:, :ln], do[:, off:off + ln], kind, w, off,
+                card)})
+        got = ring_pass(q, k, v, do, refs, n, window=w)
+        formula = cp.ring_blocks(n, layout, window=w, s=s)
+        got.update(ring_blocks=formula, unwindowed_blocks=cp.ring_blocks(n, layout),
+                   kept=sorted(kept), skipped=sorted(every - kept))
+        print(f"windowed ring n={n} ({layout}, window {w}, in-memory rotation) at "
+              f"{RING_SHAPE} [{card}]: blocks kept {got['kept']}, skipped {got['skipped']}; "
+              f"cosine vs one windowed K1/K2 call {got['cosines']} (min {RING_COSINE_MIN}), "
+              f"finite {got['finite']}; launches {got['launches']} (ring_blocks {formula} "
+              f"each, of {got['unwindowed_blocks']} without the window); ms per pass fwd "
+              f"{got['fwd_ms']:.3f} / bwd {got['bwd_ms']:.3f} vs one call "
+              f"{rec['whole_fwd_ms']:.3f} / {rec['whole_bwd_ms']:.3f}", flush=True)
+        if (not got["finite"] or min(got["cosines"].values()) < RING_COSINE_MIN
+                or not got["skipped"] or got["launches"] != {
+                    "flash_attention": formula, "flash_attention_bwd": formula}):
+            raise AssertionError(f"windowed ring n={n}: {got}")
+        rec[f"n{n}"] = got
+        torch.cuda.empty_cache()
+    bands = {blk["band"] for blk in rec["blocks"]}
+    if bands != {"diagonal", "inside", "partial"}:
+        raise AssertionError(f"windowed ring: blocks of {bands}, not every band")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    lib = ("refused: " + str(rec["library_error"]) if rec["library_fwd_ms"] is None
+           else f"{rec['library_fwd_ms']:.3f} ms")
+    print(f"phase 45 took {rec['phase_s']:.1f} s; one windowed call over {s} tokens: K1 "
+          f"{rec['whole_fwd_ms']:.3f} ms (bound {rec['whole_fwd_bound_ms']:.3f}), K2 "
+          f"{rec['whole_bwd_ms']:.3f} ms (bound {rec['whole_bwd_bound_ms']:.3f}), SDPA with the "
+          f"band as a boolean mask {lib} [{card}]", flush=True)
     return rec
 
 
@@ -6004,6 +6241,167 @@ def idefics2_mesh_phase(model, cfg, batches, mesh, card, plain_rec):
     return rec
 
 
+def idefics2_pp_launches(cfg, m_total, tower_chunks):
+    """`pp_launches` for Leopard-Idefics2: the perceiver runs in each tower
+    chunk's forward and again in the chunk checkpoint's recompute (3 RMSNorms
+    a layer and the final one each time; its attention is not K1's)."""
+    want = pp_launches(cfg, m_total, tower_chunks)
+    want["fused_rms_norm"] += 2 * tower_chunks * (3 * cfg.perceiver.num_layers + 1)
+    return want
+
+
+def idefics2_pp_phase(model, cfg, batch, mesh, card, plain_rec):
+    """Phase 46: phase 32's Idefics2 step ("full", the perceiver frozen, no
+    weight decay) through make_pp_train_step with MemoryStages(PP_STAGES) at
+    a world of one, PP_MICROBATCHES microbatches of one row, the tower and
+    the perceiver in chunks of images / M: loss (rel PP_LOSS_RTOL) and
+    gradient cosine per group (>= PP_COSINE_MIN; the frozen perceiver left
+    out) against the plain make_train_step from the same weights; launches
+    a step against `idefics2_pp_launches`, 3 steps, step ms and peak memory
+    beside phase 32's plain "full" steps (`plain_rec`). A twin of `model`
+    becomes the pipeline's DTensors: `model` stays."""
+    import torch
+
+    from leopard_tpu_torch.config import OptimizerConfig, TrainConfig
+    from leopard_tpu_torch.parallel.pipeline import MemoryStages
+    from leopard_tpu_torch.training import pp, trainer
+
+    t_phase = time.perf_counter()
+    lt, lv, lp = cfg.text.num_layers, cfg.vision.num_layers, cfg.perceiver.num_layers
+    device = model.text.lm_head.device
+    b = to_device(batch, device)
+    images = b["images"].shape[0]
+    chunk = -(-images // PP_MICROBATCHES)
+    want = idefics2_pp_launches(cfg, PP_MICROBATCHES, -(-images // chunk))
+    plain_want = {"flash_attention": 2 * (lt + lv), "flash_attention_bwd": lt + lv,
+                  "fused_rms_norm": 2 * 2 * lt + 1 + 3 * lp + 1,
+                  "fused_layer_norm": 2 * 2 * lv + 1}
+    _, counted = launch_counter(want)
+    tcfg = TrainConfig(seq_len=IDEFICS2_TRAIN_SEQ, global_batch_size=2, remat="full",
+                       loss_chunk=1024, optimizer=OptimizerConfig(
+                           lr=1e-5, warmup_steps=1, decay_steps=1000, grad_clip=1.0,
+                           weight_decay=0.0))
+    frozen = ("perceiver",)
+    state = trainer.create_train_state(model, tcfg)
+    step = trainer.make_train_step(cfg, tcfg, frozen=frozen, model=model)
+    (loss, _, grads), plain_ms, launches = counted(lambda: step.loss_and_grads(state, b))
+    if launches != plain_want:
+        raise AssertionError(f"Idefics2 plain step: launches {launches} vs {plain_want}")
+    plain = {"loss": float(loss), "ms": plain_ms, "launches": launches,
+             "step_ms_mean": plain_rec["step_ms"], "peak_gib": plain_rec["peak_memory_gib"]}
+    plain_grads = {k: g.cpu() for k, g in grads.items()}
+    del grads, state, step
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    twin = idefics2_twin(model, cfg)
+    stages = MemoryStages(PP_STAGES)
+    state = pp.create_pp_train_state(twin, tcfg, mesh, stages=stages)
+    step = pp.make_pp_train_step(cfg, tcfg, mesh, num_microbatches=PP_MICROBATCHES,
+                                 frozen=frozen, stages=MemoryStages(PP_STAGES))
+    (loss, _, grads), ms, launches = counted(lambda: step.loss_and_grads(state, b))
+    cos, left_out = live_cosines(grads, plain_grads)
+    del grads, plain_grads
+    rel = abs(float(loss) - plain["loss"]) / abs(plain["loss"])
+    print(f"Idefics2 pipeline (MemoryStages({PP_STAGES}), M={PP_MICROBATCHES}, tower and "
+          f"perceiver in chunks of {chunk} images) vs the plain step (one step's loss and "
+          f"gradients) [{card}]: loss {float(loss):.6f} vs {plain['loss']:.6f} (rel {rel:.3g}, "
+          f"tol {PP_LOSS_RTOL}), cosine per group " + ", ".join(
+              f"{g}: {c:.7f}" for g, c in cos.items()) + f" (min {PP_COSINE_MIN}; left out "
+          f"{left_out}); launches {launches} (expected {want}); {ms:.1f} vs {plain_ms:.1f} ms",
+          flush=True)
+    if rel > PP_LOSS_RTOL or min(cos.values()) < PP_COSINE_MIN or launches != want:
+        raise AssertionError(f"Idefics2 pipeline: loss rel {rel}, cosines {cos}, launches "
+                             f"{launches} vs {want}")
+    times = []
+    for i in range(TRAIN_STEPS):
+        (state, metrics), t, launches = counted(lambda: step(state, b))
+        if launches != want or not np.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"Idefics2 pipeline step {i + 1}: launches {launches}, loss "
+                                 f"{float(metrics['loss'])}")
+        times.append(t)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state, step, twin
+    torch.cuda.empty_cache()
+    mean = lambda ms: statistics.mean(ms[1:])  # noqa: E731
+    rec = {"loss": float(loss), "loss_rel": rel, "cosines": cos, "left_out": left_out,
+           "launches_per_step": want, "plain_launches_per_step": plain_want,
+           "step_ms": times, "step_ms_mean": mean(times), "peak_gib": peak, "plain": plain,
+           "tower_chunk": chunk,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"Idefics2 train step, plain (phase 32, full) vs pipeline [{card}]: "
+          f"{plain['step_ms_mean']:.1f} vs "
+          f"{rec['step_ms_mean']:.1f} ms (mean of steps 2-{TRAIN_STEPS}); launches a step "
+          f"{want} against the plain {plain_want}; peak device memory {plain['peak_gib']:.2f} "
+          f"(plain) / {peak:.2f} GiB (pipeline); phase 46 took {rec['phase_s']:.1f} s",
+          flush=True)
+    return rec
+
+
+# phase 47: the blockwise "chunked" tier (plain PyTorch, a forced option on
+# the card) on the train model's decoder against K1's forward
+CHUNKED_ROWS = ((4096,), (2900,))
+
+
+def chunked_tier_phase(cfg, card, device):
+    """Phase 47: the decoder of Leopard-LLaVA-8B's widths at the train
+    phase's depth, seeded weights, two rows of TRAIN_SEQ tokens (one with a
+    padding tail), forward with text.attn_impl="chunked" (kv chunks of
+    `attn_chunk_size`, no K1 launch) against "flash" (K1 a layer): logits'
+    cosine per valid row >= COSINE_MIN, both forwards' ms and peak memory."""
+    import torch
+
+    from leopard_tpu_torch.models import vlm
+    from leopard_tpu_torch.ops.flash_attention import flash_attention
+
+    t_phase = time.perf_counter()
+    model = vlm.init_params(cfg, torch.Generator(device=device).manual_seed(SEED + 47))
+    dec = model.text
+    g = torch.Generator(device=device).manual_seed(SEED + 47)
+    tokens = torch.randint(1, cfg.text.vocab_size, (len(CHUNKED_ROWS), TRAIN_SEQ), generator=g,
+                           device=device)
+    seg = segments_of(CHUNKED_ROWS, TRAIN_SEQ, device)
+    tokens = tokens * (seg != 0)
+    out, rec = {}, {"rows": CHUNKED_ROWS, "chunk": None}
+    for impl in ("flash", "chunked"):
+        dec.cfg = dataclasses.replace(cfg.text, attn_impl=impl)
+        flash_attention.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            logits, _ = dec(tokens, segment_ids=seg)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            launches = flash_attention.launches
+            ms = wall_s(lambda: dec(tokens, segment_ids=seg)) * 1e3
+        out[impl] = logits.float()
+        del logits
+        rec[impl] = {"ms": ms, "peak_gib": peak, "k1_launches": launches}
+    dec.cfg = cfg.text
+    valid = seg != 0
+    cos = []
+    for r in range(len(CHUNKED_ROWS)):  # in float64: a fp32 sum over 0.5 G terms drifts
+        dot, na, nb = cosine_sums(out["chunked"][r][valid[r]], out["flash"][r][valid[r]])
+        cos.append(dot / max((na * nb) ** 0.5, 1e-30))
+    from leopard_tpu_torch.ops.chunked_attention import pick_chunk
+
+    rec.update(cosines=cos, chunk=pick_chunk(TRAIN_SEQ, cfg.text.attn_chunk_size),
+               phase_s=time.perf_counter() - t_phase)
+    print(f"chunked tier vs K1 (decoder of {cfg.text.num_layers} layers at 8B widths, rows "
+          f"{CHUNKED_ROWS} of {TRAIN_SEQ}, kv chunks of {rec['chunk']}) [{card}]: logits "
+          f"cosine per row {cos} (min {COSINE_MIN}); forward {rec['chunked']['ms']:.1f} ms "
+          f"(K1 launches {rec['chunked']['k1_launches']}, peak {rec['chunked']['peak_gib']:.2f} "
+          f"GiB) vs K1's {rec['flash']['ms']:.1f} ms (K1 launches "
+          f"{rec['flash']['k1_launches']}, peak {rec['flash']['peak_gib']:.2f} GiB); phase 47 "
+          f"took {rec['phase_s']:.1f} s", flush=True)
+    if (min(cos) < COSINE_MIN or rec["chunked"]["k1_launches"] != 0
+            or rec["flash"]["k1_launches"] != cfg.text.num_layers):
+        raise AssertionError(f"chunked tier: {rec}")
+    del model, dec, out
+    torch.cuda.empty_cache()
+    return rec
+
+
 def idefics2_mesh_cli_phase(cli_rec, hf_dir, manifest, rows, cfg, tmp, card, device):
     """Phase 44, last: `python -m torch.distributed.run --nproc_per_node=1 -m
     leopard_tpu_torch.cli.train_leopard_idefics2 --mesh data=1` with phase
@@ -6362,11 +6760,19 @@ def main() -> int:
         # phase 38: the ring's block arithmetic through K1/K2
         mesh_rec["ring"] = ring_kernels_phase(device, card)
         peak["ring"] = phase_memory("ring blocks")
+        # phase 45: the same with Mistral's window, K1/K2 taking each
+        # block's q - kv offset
+        mesh_rec["ring_window"] = ring_window_phase(device, card)
+        peak["ring_window"] = phase_memory("windowed ring blocks")
         # phase 41: phase 20's step through the 1F1B pipeline (a new model
         # from the same seed)
         mesh_rec["pp"] = pp_train_phase(tcfg, batch, mesh, card, device)
         del batch
         peak["pp_train"] = phase_memory("train through the pipeline")
+        # phase 47: the blockwise "chunked" tier against K1 on a new model of
+        # the same widths and depth
+        features["chunked_tier"] = chunked_tier_phase(tcfg, card, device)
+        peak["chunked_tier"] = phase_memory("chunked tier vs K1")
 
         # phase 21: the train CLI from a manifest, --init-from phase 19's
         # checkpoint, through the data pipeline
@@ -6427,6 +6833,10 @@ def main() -> int:
         mesh_rec["idefics2"] = idefics2_mesh_phase(model, dcfg, i2_batches, mesh, card,
                                                    i2_train["remat"]["full"])
         phase44_s = time.perf_counter() - t0
+        # phase 46: the same step through the 1F1B pipeline (MemoryStages)
+        mesh_rec["idefics2_pp"] = idefics2_pp_phase(model, dcfg, i2_batches[0], mesh, card,
+                                                    i2_train["remat"]["full"])
+        peak["idefics2_pp"] = phase_memory("Idefics2 train through the pipeline")
         del model
         peak["idefics2_mesh_train"] = phase_memory("Idefics2 train under a mesh")
 
@@ -6556,9 +6966,13 @@ def main() -> int:
                    name, 0),
                "launches_idefics2_mesh_accum_step": mesh_rec["idefics2"]["accum"]["launches"].get(
                    name, 0)}
+        out["launches_idefics2_pp_train_step"] = mesh_rec["idefics2_pp"]["launches_per_step"][
+            name]
         if name.startswith("flash_attention"):
             out["launches_ring_pass"] = {n: mesh_rec["ring"][f"n{n}"]["launches"][name]
                                          for n in RING_SIZES}
+            out["launches_windowed_ring_pass"] = {
+                n: mesh_rec["ring_window"][f"n{n}"]["launches"][name] for n in RING_SIZES}
         return out
 
     def bound_by(parts):
@@ -6591,6 +7005,7 @@ def main() -> int:
         "launches_build_prefix": features["prefix"]["build_prefix_launches"]["flash_attention"],
         "launches_turn2": features["multiturn"]["launches"]["flash_attention"],
         "launches_chunked_prefill": features["chunked"]["launches"]["flash_attention"],
+        "launches_chunked_tier_forward": features["chunked_tier"]["chunked"]["k1_launches"],
         **mesh_paths("flash_attention"),
         **new_paths("flash_attention"),
         **eval_paths("flash_attention"),
@@ -6614,6 +7029,14 @@ def main() -> int:
             "end_to_end_cosine_vs_dense": idefics2["dense"]["cosine_vs_dense"],
         },
         "shapes": list(per_shape.values()),
+        "offset_shapes": [{key: blk[key] for key in (
+            "n", "kind", "band", "offset", "pairs", "k1_ms", "k1_plain_ms", "k1_bound_ms",
+            "k1_bound_by", "k1_library_ms", "errs")} for blk in mesh_rec["ring_window"]["blocks"]],
+        "offset_shapes_is": (f"phase 45: one ring block of [1, S/2n, 32/8, 128] at each "
+                             f"(n, q - kv offset) the windowed ring keeps, window {RING_WINDOW}; "
+                             "library: SDPA with the block's band as a boolean mask"),
+        "windowed_ring_whole_call": {key: mesh_rec["ring_window"][key] for key in (
+            "whole_fwd_ms", "whole_fwd_bound_ms", "library_fwd_ms")},
         "card": card,
         "serve": timings,
         "end_to_end_cosine": cos,
@@ -6711,6 +7134,11 @@ def main() -> int:
             "train": i2_train,
         },
         "shapes": list(k2.values()),
+        "offset_shapes": [{key: blk[key] for key in (
+            "n", "kind", "band", "offset", "pairs", "k2_ms", "k2_plain_ms", "k2_bound_ms",
+            "k2_bound_by", "k2_library_ms", "errs")} for blk in mesh_rec["ring_window"]["blocks"]],
+        "windowed_ring_whole_call": {key: mesh_rec["ring_window"][key] for key in (
+            "whole_bwd_ms", "whole_bwd_bound_ms")},
         "card": card,
         "train": train_run,
         "train_grads_vs_dense": grads_check,

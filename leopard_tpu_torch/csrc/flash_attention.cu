@@ -13,7 +13,10 @@
 //   - segment mask: a pair attends iff q_seg == kv_seg and both are non-zero
 //     (0 = padding); null segment pointers mean no segment mask;
 //   - causal (q index >= kv index) and sliding window (q - kv < window;
-//     window <= 0 means none);
+//     window <= 0 means none), with the q index shifted by the call's q - kv
+//     offset: 0, but for a ring block of a longer sequence
+//     (parallel/context_parallel.py), whose q rows sit `offset` positions
+//     after its kv rows;
 //   - the ragged tail (S not a multiple of the tile, e.g. 676 patches) is
 //     filled with zeros by TMA and masked: callers never pad;
 //   - masked scores are -1e30, never -inf, masked probabilities are exactly
@@ -83,7 +86,7 @@ struct Params {
   long long o_sb, o_ss, o_sh;
   long long qseg_sb, kvseg_sb, ranges_sb, quid_sb, kvuid_sb;
   float scale_log2;
-  int causal, window;
+  int causal, window, offset;  // offset: the q - kv offset (flash_common.cuh attends)
 };
 
 template <int D>
@@ -113,7 +116,9 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], float (&m)[2], 
     if (MASK) {
       const int kj = k0 + 8 * (i / 4) + 2 * t + (i & 1);
       const int ks = has_seg && kj < p.Skv ? __ldg(kv_seg + kj) : 0;
-      x = attends(qi[r], kj, p.Sq, p.Skv, has_seg, qs[r], ks, p.causal, p.window) ? x : kNegInf;
+      x = attends(qi[r], kj, p.Sq, p.Skv, has_seg, qs[r], ks, p.causal, p.window, p.offset)
+              ? x
+              : kNegInf;
     }
     s[i] = x;
     mt[r] = fmaxf(mt[r], x);
@@ -240,7 +245,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const __grid_con
     }
     float alpha[2];
     uint32_t pa[BN / 16][4];
-    if (needs_mask(qw, 64, k0, BN, p.Sq, p.Skv, p.causal, p.window, has_seg, uniform))
+    if (needs_mask(qw, 64, k0, BN, p.Sq, p.Skv, p.causal, p.window, p.offset, has_seg, uniform))
       softmax_tile<true, BN>(sc, m, l, alpha, pa, p, qi, qs, kv_seg, k0, t);
     else
       softmax_tile<false, BN>(sc, m, l, alpha, pa, p, qi, qs, kv_seg, k0, t);
@@ -299,16 +304,16 @@ extern "C" {
 // q_seg, kv_seg, ranges, q_uid and kv_uid. ranges is tile_ranges' kv range
 // per q tile; q_uid/kv_uid the per-64-row segment ids (null with null
 // segments). lse is null (serving) or a contiguous [B, Hq, Sq] fp32 array
-// (training). block and uid_block are the caller's tile sizes, checked
-// against the kernel's. Returns 0 or a cudaError_t code
-// (cudaErrorInvalidValue for an unsupported head dim, head grouping, tile
-// size or layout).
+// (training). offset is the q - kv offset (0 but for a ring block). block
+// and uid_block are the caller's tile sizes, checked against the kernel's.
+// Returns 0 or a cudaError_t code (cudaErrorInvalidValue for an unsupported
+// head dim, head grouping, tile size or layout).
 int leopard_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                                 const int* q_seg, const int* kv_seg, const int* ranges,
                                 const int* q_uid, const int* kv_uid, int B, int Sq, int Skv,
                                 int Hq, int Hkv, int D, int block, int uid_block,
                                 const long long* strides, float scale, int causal, int window,
-                                void* stream) {
+                                int offset, void* stream) {
   if (block != kTile || uid_block != kUid) return cudaErrorInvalidValue;
   if (Hkv <= 0 || Hq % Hkv != 0 || Skv <= 0) return cudaErrorInvalidValue;
   if ((q_seg == nullptr) != (kv_seg == nullptr)) return cudaErrorInvalidValue;
@@ -337,6 +342,7 @@ int leopard_flash_attention_fwd(const void* q, const void* k, const void* v, voi
   p.scale_log2 = scale * kLog2e;
   p.causal = causal;
   p.window = window;
+  p.offset = offset;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return launch<16>(p, q, k, v, B, Hq, Hkv, strides, s);

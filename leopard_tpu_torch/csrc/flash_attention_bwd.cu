@@ -75,7 +75,7 @@ struct Params {
   long long dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh;
   long long qseg_sb, kvseg_sb, kvr_sb, qr_sb, quid_sb, kvuid_sb;
   float scale, scale_log2;
-  int causal, window;
+  int causal, window, offset;  // offset: the q - kv offset (flash_common.cuh attends)
 };
 
 template <int D>
@@ -156,7 +156,9 @@ __device__ __forceinline__ void dq_tile(float (&s)[BK / 2], float (&dp)[BK / 2],
     if (MASK) {
       const int kj = k0 + 8 * (i / 4) + 2 * t + (i & 1);
       const int ks = has_seg && kj < p.Skv ? __ldg(kv_seg + kj) : 0;
-      pr = attends(qi[r], kj, p.Sq, p.Skv, has_seg, qs[r], ks, p.causal, p.window) ? pr : 0.f;
+      pr = attends(qi[r], kj, p.Sq, p.Skv, has_seg, qs[r], ks, p.causal, p.window, p.offset)
+               ? pr
+               : 0.f;
     }
     s[i] = pr * (dp[i] - delta[r]) * p.scale;  // dS
   }
@@ -244,7 +246,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(const __grid_
     fence_regs(dp);
 
     const bool uniform = uniform_pair(q_uid, kv_uid, qw, k0, p.Sq, p.Skv);
-    if (needs_mask(qw, 64, k0, BK, p.Sq, p.Skv, p.causal, p.window, has_seg, uniform))
+    if (needs_mask(qw, 64, k0, BK, p.Sq, p.Skv, p.causal, p.window, p.offset, has_seg, uniform))
       dq_tile<true>(sc, dp, p, qi, qs, lse2, delta, kv_seg, k0, t);
     else
       dq_tile<false>(sc, dp, p, qi, qs, lse2, delta, kv_seg, k0, t);
@@ -285,7 +287,9 @@ __device__ __forceinline__ void dkv_tile(float (&st)[BQ2 / 2], float (&dpt)[BQ2 
     if (MASK) {
       const int qi = q0 + col;
       const int qs = has_seg && qi < p.Sq ? __ldg(q_seg + qi) : 0;
-      pr = attends(qi, kj[r], p.Sq, p.Skv, has_seg, qs, ks[r], p.causal, p.window) ? pr : 0.f;
+      pr = attends(qi, kj[r], p.Sq, p.Skv, has_seg, qs, ks[r], p.causal, p.window, p.offset)
+               ? pr
+               : 0.f;
     }
     st[i] = pr;
     dpt[i] = pr * (dpt[i] - rows[BQ2 + col]) * p.scale;
@@ -389,7 +393,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(const __grid
     fence_regs(dpt);
 
     const bool uniform = uniform_pair(q_uid, kv_uid, q0, kw, p.Sq, p.Skv);
-    if (needs_mask(q0, BQ2, kw, 64, p.Sq, p.Skv, p.causal, p.window, has_seg, uniform))
+    if (needs_mask(q0, BQ2, kw, 64, p.Sq, p.Skv, p.causal, p.window, p.offset, has_seg, uniform))
       dkv_tile<true>(st, dpt, p, kj, ks, rows, q_seg, q0, t);
     else
       dkv_tile<false>(st, dpt, p, kj, ks, rows, q_seg, q0, t);
@@ -460,17 +464,18 @@ extern "C" {
 // batch strides of q_seg, kv_seg, kv_ranges, q_ranges, q_uid and kv_uid.
 // lse is contiguous [B, Hq, Sq] fp32; delta is a [B, Hq, Sq] fp32 buffer
 // that this call fills. kv_ranges / q_ranges are tile_ranges' two outputs;
-// q_uid / kv_uid the per-64-row segment ids (null with null segments).
-// block and uid_block are the caller's tile sizes, checked against the
-// kernels'. Returns 0 or a cudaError_t code (cudaErrorInvalidValue for an
-// unsupported head dim, head grouping, tile size or layout).
+// q_uid / kv_uid the per-64-row segment ids (null with null segments);
+// offset the q - kv offset (0 but for a ring block). block and uid_block are
+// the caller's tile sizes, checked against the kernels'. Returns 0 or a
+// cudaError_t code (cudaErrorInvalidValue for an unsupported head dim, head
+// grouping, tile size or layout).
 int leopard_flash_attention_bwd(const void* q, const void* k, const void* v, const void* out,
                                 const void* dout, const float* lse, float* delta, void* dq,
                                 void* dk, void* dv, const int* q_seg, const int* kv_seg,
                                 const int* kv_ranges, const int* q_ranges, const int* q_uid,
                                 const int* kv_uid, int B, int Sq, int Skv, int Hq, int Hkv, int D,
                                 int block, int uid_block, const long long* strides, float scale,
-                                int causal, int window, void* stream) {
+                                int causal, int window, int offset, void* stream) {
   if (block != kTile || uid_block != kUid) return cudaErrorInvalidValue;
   if (Hkv <= 0 || Hq % Hkv != 0 || Skv <= 0) return cudaErrorInvalidValue;
   if ((q_seg == nullptr) != (kv_seg == nullptr)) return cudaErrorInvalidValue;
@@ -509,6 +514,7 @@ int leopard_flash_attention_bwd(const void* q, const void* k, const void* v, con
   p.scale_log2 = scale * kLog2e;
   p.causal = causal;
   p.window = window;
+  p.offset = offset;
   switch (D) {
     case 16: return launch<16>(p, q, k, v, dout, B, Hkv, strides, s);
     case 64: return launch<64>(p, q, k, v, dout, B, Hkv, strides, s);

@@ -346,26 +346,31 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[N / 16][4], const float (
 
 // Whether query qi attends key kj: both inside their sequences, the same
 // non-zero segment (when segments are given; qs/ks are the two ids), causal
-// (qi >= kj) and within the sliding window (qi - kj < window; window <= 0 is
-// none).
+// (qi + offset >= kj) and within the sliding window (qi + offset - kj <
+// window; window <= 0 is none). `offset` is the q - kv offset of a block of
+// a longer sequence (a ring block: q row i sits at position i + offset
+// counted from kv row 0); 0 everywhere else.
 __device__ __forceinline__ bool attends(int qi, int kj, int sq, int skv, bool has_seg, int qs,
-                                        int ks, int causal, int window) {
+                                        int ks, int causal, int window, int offset) {
   bool ok = qi < sq && kj < skv;
   if (has_seg) ok = ok && qs != 0 && qs == ks;
-  if (causal) ok = ok && qi >= kj;
-  if (window > 0) ok = ok && qi - kj < window;
+  const int qp = qi + offset;
+  if (causal) ok = ok && qp >= kj;
+  if (window > 0) ok = ok && qp - kj < window;
   return ok;
 }
 
 // Whether a tile of q rows [q0, q0 + nq) and kv rows [k0, k0 + nk) needs
 // the per-element mask: it crosses the end of either sequence, the causal
-// diagonal or the window's edge, or its rows are not all of one segment
-// (uniform: every kUid-row block of both sides carries the same non-zero id,
-// read from the per-block ids; -1 marks a mixed or padding block).
+// diagonal or the window's edge (both shifted by the q - kv offset), or its
+// rows are not all of one segment (uniform: every kUid-row block of both
+// sides carries the same non-zero id, read from the per-block ids; -1 marks
+// a mixed or padding block).
 __device__ __forceinline__ bool needs_mask(int q0, int nq, int k0, int nk, int sq, int skv,
-                                           int causal, int window, bool has_seg, bool uniform) {
-  return q0 + nq > sq || k0 + nk > skv || (causal && k0 + nk - 1 > q0) ||
-         (window > 0 && q0 + nq - 1 - k0 >= window) || (has_seg && !uniform);
+                                           int causal, int window, int offset, bool has_seg,
+                                           bool uniform) {
+  return q0 + nq > sq || k0 + nk > skv || (causal && k0 + nk - 1 > q0 + offset) ||
+         (window > 0 && q0 + offset + nq - 1 - k0 >= window) || (has_seg && !uniform);
 }
 
 // ------------------------------------------------------------ host: maps

@@ -16,8 +16,13 @@ one kv chunk at a time. A sequence of at least `long_seq_threshold` tokens
 without a cache, or into a fresh cache, takes the flash tier; shorter ones
 take dense. On a CUDA tensor the flash tier is the Hopper kernel; on a CPU
 tensor it is the kernel's plain version, which stands in for the JAX
-package's CPU chunked tier (the same function). `attn_impl="dense"` and
-`"flash"` force a tier for uncached and fresh-cache calls.
+package's CPU chunked tier (the same function). `attn_impl="dense"`,
+`"flash"` and `"chunked"` force a tier for uncached and fresh-cache calls:
+"chunked" is the JAX package's blockwise tier (JAX decoder.py:324-331,
+`ops/chunked_attention.py::chunked_attention`), kv chunks of
+`pick_chunk(S, attn_chunk_size)` with each chunk recomputed in the
+backward, plain PyTorch on every device, which bounds the scores held at
+once by the chunk.
 
 Parallelism (parallel/): the modules hold this rank's shards and read the
 groups of `self.par` (parallel/mesh.py::Parallel, None without a mesh).
@@ -80,7 +85,9 @@ from torch import nn
 from leopard_tpu_torch.config import TextConfig
 from leopard_tpu_torch.models.params import Params, new_param, torch_dtype
 from leopard_tpu_torch.ops.attention import attention, attention_quant_kv, make_attention_mask
-from leopard_tpu_torch.ops.chunked_attention import chunked_continuation_attention, pick_chunk
+from leopard_tpu_torch.ops.chunked_attention import (
+    chunked_attention, chunked_continuation_attention, pick_chunk,
+)
 from leopard_tpu_torch.ops.flash_attention import TileRanges, flash_attention, tile_ranges
 from leopard_tpu_torch.ops.moe import MoEConfig, moe_layer
 from leopard_tpu_torch.ops.norms import rms_norm
@@ -139,6 +146,14 @@ def _q8(x: torch.Tensor):
     s = (xf.abs().amax(dim=-1) / 127.0).clamp(min=1e-8)
     q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
     return q, s
+
+
+def _head_version(t: torch.Tensor):
+    """What identifies a head's current values: its storage, shape, dtype and
+    version counter (which every in-place op advances; an inference tensor
+    has none, and is keyed by its storage alone)."""
+    version = None if t.is_inference() else t._version
+    return t.data_ptr(), tuple(t.shape), t.dtype, version
 
 
 def moe_config(cfg: TextConfig) -> MoEConfig:
@@ -231,6 +246,10 @@ class DecoderLayer(nn.Module):
         elif attn_impl == "ring":
             o = ring_attention(q, k, v, par, causal=True, segment_ids=segment_ids,
                                sliding_window=cfg.sliding_window, layout=ring_layout)
+        elif attn_impl == "chunked":  # saved under "attn"/"selective", as the dense output
+            o = tag_attn_out(chunked_attention(
+                q, k, v, causal=True, q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
+                sliding_window=cfg.sliding_window, chunk_size=pick_chunk(s, cfg.attn_chunk_size)))
         elif attn_impl == "chunked_cont":
             # the layer's cache slice after this call's writes (JAX decoder.py:373-390)
             ck, ck_s, cv, cv_s = quant_kv if quant_kv is not None else (k, None, v, None)
@@ -275,6 +294,7 @@ class Decoder(nn.Module):
         if not cfg.tie_word_embeddings:
             self.lm_head = new_param((cfg.vocab_size, h), dt, device)
         self._head_f32: Optional[torch.Tensor] = None
+        self._head_key = None  # what the copy was made from (`_head_version`)
         self._inv_freq = torch.from_numpy(compute_inv_freq(cfg))  # moved on first use
 
     def _rope_inv_freq(self, device) -> torch.Tensor:
@@ -292,21 +312,33 @@ class Decoder(nn.Module):
         return self.embed_tokens if self.cfg.tie_word_embeddings else self.lm_head
 
     def keep_fp32_head(self) -> None:
-        """Keep one fp32 copy of the unembedding, made once from the final
-        weights. Logits are fp32 as in the JAX package, where the bf16 head
-        is promoted inside the fp32 product; without the copy each call
-        would cast the whole [vocab, hidden] table (2.1 GB at 8B) anew. A
-        quantized head keeps no copy: it goes through quant.matmul. The copy
-        serves only calls without autograd: a call that records gradients
-        reads the live head."""
+        """Keep one fp32 copy of the unembedding. Logits are fp32 as in the
+        JAX package, where the bf16 head is promoted inside the fp32
+        product; without the copy each call would cast the whole [vocab,
+        hidden] table (2.1 GB at 8B) anew. A quantized head keeps no copy:
+        it goes through quant.matmul. The copy serves only calls without
+        autograd (a call that records gradients reads the live head), and it
+        follows the live head: `_head` makes it again when the head's
+        storage or version counter has moved since it was made (an in-place
+        update, as a train step's `cast_for_compute` makes, or a new
+        tensor), so logits never mix an updated body with a stale head. One
+        copy is kept, never one a call."""
         if not is_quantized(self.unembedding):
-            self._head_f32 = self.unembedding.detach().float()
+            self._head_f32, self._head_key = self._copy_head()
+
+    def _copy_head(self):
+        head = self.unembedding
+        with torch.inference_mode(False):  # a normal tensor, whatever mode the caller is in
+            return head.detach().float(), _head_version(head)
 
     def _head(self):
         head = self.unembedding
         if is_quantized(head):
             return head
         if self._head_f32 is not None and not torch.is_grad_enabled():
+            if self._head_key != _head_version(head):
+                self._head_f32, self._head_key = None, None  # free the stale 2.1 GB first
+                self._head_f32, self._head_key = self._copy_head()
             return self._head_f32
         return head.float()
 
@@ -322,8 +354,8 @@ class Decoder(nn.Module):
         if impl == "ring" and self.par is None:
             raise ValueError("attn_impl='ring' needs a seq group: a model under a mesh "
                              "(make_train_step(mesh=...), parallel/mesh.py::set_parallel)")
-        if impl not in ("flash", "dense", "ring"):
-            raise NotImplementedError(f"attn_impl={impl!r} is not in the port yet")
+        if impl not in ("flash", "dense", "ring", "chunked"):
+            raise ValueError(f"attn_impl={impl!r} is none of auto, flash, dense, chunked, ring")
         return impl
 
     def forward(

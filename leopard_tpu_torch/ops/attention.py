@@ -32,12 +32,15 @@ def make_attention_mask(
     kv_segment_ids: Optional[torch.Tensor] = None,  # [B, Skv]
     sliding_window: Optional[int] = None,
     device=None,
+    q_offset: int = 0,
 ) -> Optional[torch.Tensor]:
-    """Boolean mask [B or 1, 1, Sq, Skv]; True = attend."""
+    """Boolean mask [B or 1, 1, Sq, Skv]; True = attend. `q_offset` shifts
+    the query positions (q row i sits at i + q_offset, counted from kv row
+    0): a block of a longer sequence, as a ring block."""
     if device is None and q_segment_ids is not None:
         device = q_segment_ids.device
     masks = []
-    q_pos = torch.arange(q_len, device=device)[:, None]
+    q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
     kv_pos = torch.arange(kv_len, device=device)[None, :]
     if causal:
         masks.append((q_pos >= kv_pos)[None, None])

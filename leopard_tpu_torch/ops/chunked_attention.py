@@ -1,10 +1,24 @@
-"""Continuation attention over a KV cache in kv chunks with an online
-softmax (port of leopard_tpu/ops/chunked_attention.py:106-200), and the
-chunk picker (leopard_tpu/models/decoder.py:40-54).
+"""Blockwise attention in kv chunks with an online softmax (port of
+leopard_tpu/ops/chunked_attention.py): `chunked_attention` (:22-103), the
+memory-bounded tier of an uncached forward, `chunked_continuation_attention`
+(:106-200) over a KV cache, and the chunk picker
+(leopard_tpu/models/decoder.py:40-54).
 
-S new queries attend over the whole cache, which already holds their own
-keys and values, one kv chunk at a time, so the scores held at once are
-[B, Hq, S, chunk] rather than [B, Hq, S, S_max]. The cache's invariant
+`chunked_attention` is the decoder's `attn_impl="chunked"`: the keys and
+values are read one chunk at a time with running (max, denominator,
+weighted sum) in fp32, so the scores held at once are [B, Hq, Sq, chunk];
+with `remat` each chunk's step runs under `torch.utils.checkpoint`, so the
+backward keeps only the running state between chunks and recomputes each
+chunk's scores (the JAX package's `jax.checkpoint` of the scan body). A
+query with no key (a padding row) comes out as the mean of V, as in the
+JAX package: the masked scores are -1e30, never -inf. It is XLA code in the
+JAX package, not a Pallas kernel, so plain PyTorch is its port; on the card
+"auto" takes the flash kernel and "chunked" is a forced option.
+
+`chunked_continuation_attention`: S new queries attend over the whole
+cache, which already holds their own keys and values, one kv chunk at a
+time, so the scores held at once are [B, Hq, S, chunk] rather than
+[B, Hq, S, S_max]. The cache's invariant
 slot == absolute position makes causality a compare, q_position >= slot;
 a slot takes part only where its segment id is non-zero. This is plain
 PyTorch on every device: it is plain JAX in the JAX package too, outside
@@ -25,6 +39,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 NEG_INF = -1e30
 
@@ -42,6 +57,80 @@ def pick_chunk(s: int, target: int) -> int:
     while s % c:
         c -= 1
     return c
+
+
+def _chunk_step(m, l, acc, qg, kb, vb, mask, scale):
+    """One chunk's online-softmax update of (m, l, acc) [B, Hkv, G, Sq(, D)]
+    from its k/v [B, bk, Hkv, D] and its mask [B, Sq, bk]."""
+    scores = torch.einsum("bhgqd,bkhd->bhgqk", qg, kb.float()) * scale
+    scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
+    m_new = torch.maximum(m, scores.amax(dim=-1))
+    p = torch.exp(scores - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l_new = l * alpha + p.sum(dim=-1)
+    acc_new = acc * alpha[..., None] + torch.einsum(
+        "bhgqk,bkhd->bhgqd", p.to(vb.dtype).float(), vb.float())
+    return m_new, l_new, acc_new
+
+
+def chunked_attention(
+    q: torch.Tensor,            # [B, Sq, Hq, D]
+    k: torch.Tensor,            # [B, Skv, Hkv, D]
+    v: torch.Tensor,            # [B, Skv, Hkv, D]
+    *,
+    causal: bool = True,
+    q_segment_ids: Optional[torch.Tensor] = None,   # [B, Sq]; 0 = padding
+    kv_segment_ids: Optional[torch.Tensor] = None,  # [B, Skv]
+    sliding_window: Optional[int] = None,
+    scale: Optional[float] = None,
+    chunk_size: int = 512,
+    remat: bool = True,
+) -> torch.Tensor:
+    """Returns [B, Sq, Hq, D] in q.dtype: softmax(scale · QKᵀ + mask) V with
+    the JAX package's mask (segments equal and non-zero, causal, q − kv <
+    window), one kv chunk of `chunk_size` at a time (Skv a multiple of it).
+    The scores are fp32 from q and k as given; the probabilities are
+    rounded to V's dtype before their product with V, as in the JAX
+    package."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    if hq % hkv:
+        raise ValueError(f"{hq} q heads not a multiple of {hkv} kv heads")
+    group = hq // hkv
+    if scale is None:
+        scale = d**-0.5
+    bk = min(chunk_size, skv)
+    if skv % bk:
+        raise ValueError(f"kv length {skv} not divisible by chunk {bk}")
+    if q_segment_ids is None:
+        q_segment_ids = torch.ones((b, sq), dtype=torch.int32, device=q.device)
+    if kv_segment_ids is None:
+        kv_segment_ids = torch.ones((b, skv), dtype=torch.int32, device=q.device)
+    qg = q.reshape(b, sq, hkv, group, d).permute(0, 2, 3, 1, 4).float()  # [B,Hkv,G,Sq,D]
+    q_pos = torch.arange(sq, device=q.device)
+    q_live = (q_segment_ids != 0)[:, :, None]
+    m = torch.full((b, hkv, group, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, group, sq, d), dtype=torch.float32, device=q.device)
+    for start in range(0, skv, bk):
+        sl = slice(start, start + bk)
+        kv_seg = kv_segment_ids[:, sl]
+        mask = (q_segment_ids[:, :, None] == kv_seg[:, None, :]) & q_live & (
+            kv_seg != 0)[:, None, :]
+        kv_pos = torch.arange(start, start + bk, device=q.device)
+        rel = q_pos[:, None] - kv_pos[None, :]
+        if causal:
+            mask = mask & (rel >= 0)[None]
+        if sliding_window is not None:
+            mask = mask & (rel < sliding_window)[None]
+        args = (m, l, acc, qg, k[:, sl], v[:, sl], mask, scale)
+        if remat and torch.is_grad_enabled():
+            m, l, acc = torch.utils.checkpoint.checkpoint(_chunk_step, *args,
+                                                          use_reentrant=False)
+        else:
+            m, l, acc = _chunk_step(*args)
+    out = acc / l.clamp(min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
 
 
 def chunked_continuation_attention(

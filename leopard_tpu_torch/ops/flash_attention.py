@@ -44,6 +44,13 @@ cut to the causal band and the window. A caller that passes the same ids to
 many calls (the decoder, to each of its layers) computes them once and
 passes them as `ranges`; otherwise each call computes its own, and an
 autograd call keeps its forward's for the backward.
+
+A call may take a q − kv offset (`q_offset`, the kernels' `offset`): q row i
+then sits at position i + q_offset counted from kv row 0, and the causal
+band and the window are read in those positions. It is 0 but for a block of
+a ring (parallel/context_parallel.py), whose q chunk lies `q_offset`
+positions after its kv chunk: the windowed ring runs through the kernels by
+it.
 """
 
 from __future__ import annotations
@@ -79,7 +86,7 @@ class TileRanges(NamedTuple):
 
 
 def tile_ranges(q_seg, kv_seg, *, sq, skv, causal, window=None, block=TILE,
-                device="cpu") -> TileRanges:
+                device="cpu", offset=0) -> TileRanges:
     """The tile-skipping rule of K1 and K2. A q tile's kv range spans, over
     its non-padding rows, the first to the last kv position of each row's
     segment id, cut to the causal band (kv < the tile's last row + 1) and
@@ -87,18 +94,19 @@ def tile_ranges(q_seg, kv_seg, *, sq, skv, causal, window=None, block=TILE,
     the same way round. Every pair the mask lets through lies in both
     ranges of its tiles, for any ids (an id that recurs, as in 1, 2, 1, only
     widens the range). Without segments the ranges are the band alone,
-    computed once per shape."""
+    computed once per shape, offset and band. `offset` is the call's q − kv
+    offset: the band and the window are cut in positions q + offset."""
     if q_seg is None:
-        return _band_ranges(sq, skv, causal, window or 0, block, torch.device(device))
+        return _band_ranges(sq, skv, causal, window or 0, offset, block, torch.device(device))
     q_first, q_last = _spans(q_seg, kv_seg)
     k_first, k_last = _spans(kv_seg, q_seg)
-    return TileRanges(_per_tile(q_first, q_last, skv, block, causal, window, True),
-                      _per_tile(k_first, k_last, sq, block, causal, window, False),
+    return TileRanges(_per_tile(q_first, q_last, skv, block, causal, window, True, offset),
+                      _per_tile(k_first, k_last, sq, block, causal, window, False, offset),
                       uniform_ids(q_seg), uniform_ids(kv_seg))
 
 
 @functools.lru_cache(maxsize=64)
-def _band_ranges(sq, skv, causal, window, block, device):
+def _band_ranges(sq, skv, causal, window, offset, block, device):
     def every(n, n_other):  # each row spans the whole other side
         return (torch.zeros((1, n), dtype=torch.int32, device=device),
                 torch.full((1, n), n_other - 1, dtype=torch.int32, device=device))
@@ -107,8 +115,8 @@ def _band_ranges(sq, skv, causal, window, block, device):
     # call runs under inference mode (a generate), since a train step's K1
     # saves them for K2 and autograd refuses to save inference tensors
     with torch.inference_mode(False):
-        return TileRanges(_per_tile(*every(sq, skv), skv, block, causal, window, True),
-                          _per_tile(*every(skv, sq), sq, block, causal, window, False),
+        return TileRanges(_per_tile(*every(sq, skv), skv, block, causal, window, True, offset),
+                          _per_tile(*every(skv, sq), sq, block, causal, window, False, offset),
                           None, None)
 
 
@@ -135,9 +143,10 @@ def _spans(a_seg, b_seg):
     return first.gather(1, a_bins), last.gather(1, a_bins)
 
 
-def _per_tile(first, last, n_other, block, causal, window, q_tiles):
+def _per_tile(first, last, n_other, block, causal, window, q_tiles, offset=0):
     """[B, tiles, 2] int32 ranges of rows of the other side per tile of
-    `block` rows: the union of the rows' spans, cut to the band."""
+    `block` rows: the union of the rows' spans, cut to the band, q rows at
+    positions shifted by `offset`."""
     b, n = first.shape
     tiles = -(-n // block)
     pad = tiles * block - n
@@ -145,16 +154,16 @@ def _per_tile(first, last, n_other, block, causal, window, q_tiles):
     hi = F.pad(last, (0, pad), value=-1).view(b, tiles, block).amax(-1) + 1
     start = torch.arange(tiles, device=first.device) * block
     end = (start + block).clamp(max=n)  # one past the tile's last row
-    if q_tiles:  # the other side is kv: kv <= q, q - kv < window
+    if q_tiles:  # the other side is kv: kv <= q + offset, q + offset - kv < window
         if causal:
-            hi = torch.minimum(hi, end)
+            hi = torch.minimum(hi, end + offset)
         if window:
-            lo = torch.maximum(lo, start - window + 1)
-    else:  # the other side is q: q >= kv, q < kv + window
+            lo = torch.maximum(lo, start + offset - window + 1)
+    else:  # the other side is q: q + offset >= kv, q + offset < kv + window
         if causal:
-            lo = torch.maximum(lo, start)
+            lo = torch.maximum(lo, start - offset)
         if window:
-            hi = torch.minimum(hi, end - 1 + window)
+            hi = torch.minimum(hi, end - 1 + window - offset)
     lo, hi = lo.clamp(min=0), hi.clamp(max=n_other)
     empty = hi <= lo
     return torch.stack([lo.masked_fill(empty, 0), hi.masked_fill(empty, 0)], -1).to(
@@ -180,17 +189,18 @@ def flash_attention_ref(
     q_segment_ids: Optional[torch.Tensor] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
     sliding_window: Optional[int] = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """The kernel's plain version: dense attention with the same masks."""
     q_segment_ids, kv_segment_ids = _fill_segments(q, k, q_segment_ids, kv_segment_ids)
-    return attention(
-        q, k, v, causal=causal,
-        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-        sliding_window=sliding_window,
-    )
+    mask = make_attention_mask(
+        q.shape[1], k.shape[1], causal=causal, q_segment_ids=q_segment_ids,
+        kv_segment_ids=kv_segment_ids, sliding_window=sliding_window, device=q.device,
+        q_offset=q_offset)
+    return attention(q, k, v, mask=mask)
 
 
-def _scores_and_mask(q, k, q_seg, kv_seg, causal, sliding_window):
+def _scores_and_mask(q, k, q_seg, kv_seg, causal, sliding_window, q_offset=0):
     """Dense scaled scores [B, Hkv, G, Sq, Skv] fp32 and the mask
     [B|1, 1, 1, Sq, Skv] (None: every pair attends)."""
     b, sq, hq, d = q.shape
@@ -199,17 +209,18 @@ def _scores_and_mask(q, k, q_seg, kv_seg, causal, sliding_window):
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * d**-0.5
     mask = make_attention_mask(
         sq, skv, causal=causal, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
-        sliding_window=sliding_window, device=q.device,
+        sliding_window=sliding_window, device=q.device, q_offset=q_offset,
     )
     return s, None if mask is None else mask[:, :, None]
 
 
 def flash_attention_lse_ref(q, k, v, *, causal=True, q_segment_ids=None,
-                            kv_segment_ids=None, sliding_window=None) -> torch.Tensor:
+                            kv_segment_ids=None, sliding_window=None,
+                            q_offset=0) -> torch.Tensor:
     """The plain version of K1's lse output: logsumexp over the masked,
     scaled scores, [B, Hq, Sq] fp32 (about -1e30 on a fully-masked row)."""
     q_seg, kv_seg = _fill_segments(q, k, q_segment_ids, kv_segment_ids)
-    s, mask = _scores_and_mask(q, k, q_seg, kv_seg, causal, sliding_window)
+    s, mask = _scores_and_mask(q, k, q_seg, kv_seg, causal, sliding_window, q_offset)
     if mask is not None:
         s = s.masked_fill(~mask, NEG_INF)
     b, sq, hq, _ = q.shape
@@ -217,7 +228,7 @@ def flash_attention_lse_ref(q, k, v, *, causal=True, q_segment_ids=None,
 
 
 def flash_attention_bwd_ref(q, k, v, q_segment_ids, kv_segment_ids, out, lse, dout, *,
-                            causal=True, sliding_window=None):
+                            causal=True, sliding_window=None, q_offset=0):
     """K2's plain version: the same formulas, dense, in fp32.
 
     P = where(mask, exp(scale·QKᵀ − lse), 0); delta = rowsum(dO·O);
@@ -228,7 +239,7 @@ def flash_attention_bwd_ref(q, k, v, q_segment_ids, kv_segment_ids, out, lse, do
     _, skv, hkv, _ = k.shape
     g = hq // hkv
     q_seg, kv_seg = _fill_segments(q, k, q_segment_ids, kv_segment_ids)
-    s, mask = _scores_and_mask(q, k, q_seg, kv_seg, causal, sliding_window)
+    s, mask = _scores_and_mask(q, k, q_seg, kv_seg, causal, sliding_window, q_offset)
     p = torch.exp(s - lse.float().reshape(b, hkv, g, sq, 1))
     if mask is not None:
         p = torch.where(mask, p, 0.0)  # a select: masked pairs never reach exp's value
@@ -259,41 +270,46 @@ def flash_attention(
     kv_segment_ids: Optional[torch.Tensor] = None,
     sliding_window: Optional[int] = None,
     ranges: Optional[TileRanges] = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """Returns [B, Sq, Hq, D] in q.dtype; scores are scaled by D^-0.5.
-    `ranges`: `tile_ranges` of these segment ids, shapes, causal flag and
-    window, from a caller that reuses them across calls; computed here when
-    None. The plain version needs none."""
+    `ranges`: `tile_ranges` of these segment ids, shapes, causal flag,
+    window and offset, from a caller that reuses them across calls;
+    computed here when None. The plain version needs none. `q_offset`: the
+    q − kv offset (module docstring)."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     if sliding_window is not None and sliding_window <= 0:
         raise ValueError(f"sliding_window must be positive, got {sliding_window}")
     kw = dict(causal=causal, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-              sliding_window=sliding_window)
+              sliding_window=sliding_window, q_offset=q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         rng = (None,) * len(TileRanges._fields)
         if q.device.type == "cuda":  # the ranges K1 runs by, saved for K2
             rng = _ranges(q, k, ranges, causal, sliding_window,
-                          *_segments(q, k, q_segment_ids, kv_segment_ids))
+                          *_segments(q, k, q_segment_ids, kv_segment_ids), q_offset)
         return torch.ops.leopard.flash_attention_fwd(
-            q, k, v, q_segment_ids, kv_segment_ids, causal, sliding_window or 0, *rng)[0]
+            q, k, v, q_segment_ids, kv_segment_ids, causal, sliding_window or 0, *rng,
+            q_offset)[0]
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, **kw)
     return _launch(q, k, v, ranges=ranges, **kw)[0]
 
 
 def flash_attention_bwd(q, k, v, q_segment_ids, kv_segment_ids, out, lse, dout, *,
-                        causal=True, sliding_window=None, ranges=None):
+                        causal=True, sliding_window=None, ranges=None, q_offset=0):
     """Gradients (dq, dk, dv) of `flash_attention` from its output and lse:
-    K2 on a CUDA tensor, the plain version on a CPU tensor. `ranges` as in
-    `flash_attention`."""
+    K2 on a CUDA tensor, the plain version on a CPU tensor. `ranges` and
+    `q_offset` as in `flash_attention`."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, q_segment_ids, kv_segment_ids, out, lse,
-                                       dout, causal=causal, sliding_window=sliding_window)
+                                       dout, causal=causal, sliding_window=sliding_window,
+                                       q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not {q.device}")
     return _launch_bwd(q, k, v, q_segment_ids, kv_segment_ids, out, lse, dout,
-                       causal=causal, sliding_window=sliding_window, ranges=ranges)
+                       causal=causal, sliding_window=sliding_window, ranges=ranges,
+                       q_offset=q_offset)
 
 
 flash_attention.launches = 0
@@ -306,13 +322,14 @@ def _flash_fwd_op(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_seg: Optional[torch.Tensor],
     kv_seg: Optional[torch.Tensor], causal: bool, window: int,
     kv_of_q: Optional[torch.Tensor], q_of_kv: Optional[torch.Tensor],
-    q_uid: Optional[torch.Tensor], kv_uid: Optional[torch.Tensor],
+    q_uid: Optional[torch.Tensor], kv_uid: Optional[torch.Tensor], offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The `_flash` custom_vjp's forward rule of the JAX package: (out, lse).
     K1 on a CUDA tensor, with the tile ranges the caller checked; the plain
-    versions on a CPU tensor. `window` 0 means none."""
+    versions on a CPU tensor. `window` 0 means none; `offset` is the q − kv
+    offset."""
     kw = dict(causal=causal, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
-              sliding_window=window or None)
+              sliding_window=window or None, q_offset=offset)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, **kw), flash_attention_lse_ref(q, k, v, **kw)
     return _launch(q, k, v, with_lse=True,
@@ -321,7 +338,8 @@ def _flash_fwd_op(
 
 def _flash_setup_context(ctx, inputs, output):
     q, k, v, q_seg, kv_seg, causal, window, *ranges = inputs
-    ctx.causal, ctx.window = causal, window or None
+    ranges, offset = ranges[:4], (ranges[4] if len(ranges) > 4 else 0)
+    ctx.causal, ctx.window, ctx.offset = causal, window or None, offset
     # saved, the segment ids are checked for in-place changes before the
     # backward, which reads ranges made from them
     ctx.save_for_backward(q, k, v, q_seg, kv_seg, *output, *ranges)
@@ -331,9 +349,9 @@ def _flash_backward(ctx, dout, _dlse):
     q, k, v, q_seg, kv_seg, out, lse, *ranges = ctx.saved_tensors
     dq, dk, dv = flash_attention_bwd(
         q, k, v, q_seg, kv_seg, out, lse, dout, causal=ctx.causal,
-        sliding_window=ctx.window,
+        sliding_window=ctx.window, q_offset=ctx.offset,
         ranges=None if ranges[0] is None else TileRanges(*ranges))
-    return dq, dk, dv, *(None,) * 8
+    return dq, dk, dv, *(None,) * 9
 
 
 torch.library.register_autograd("leopard::flash_attention_fwd", _flash_backward,
@@ -387,7 +405,7 @@ def _strides(t):
 
 _ARGTYPES = {
     # q k v o lse q_seg kv_seg ranges q_uid kv_uid, B Sq Skv Hq Hkv D block
-    # uid_block, strides, scale causal window stream
+    # uid_block, strides, scale causal window offset stream
     "flash_attention": ("leopard_flash_attention_fwd", 10),
     # q k v out dout lse delta dq dk dv q_seg kv_seg kv_ranges q_ranges q_uid
     # kv_uid, then as above
@@ -406,7 +424,7 @@ def _library(name: str):
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [
             *[p] * n_ptrs, *[i] * 8,
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, i, p,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, i, i, p,
         ]
         fn.restype = ctypes.c_int
         lib.leopard_cuda_error_string.argtypes = [i]
@@ -446,7 +464,7 @@ def _batch_stride(t):
     return 0 if t is None or t.shape[0] == 1 else t.stride(0)
 
 
-def _ranges(q, k, ranges, causal, window, q_seg, kv_seg) -> TileRanges:
+def _ranges(q, k, ranges, causal, window, q_seg, kv_seg, offset=0) -> TileRanges:
     """The tile ranges of one call on the int32 segments of `_segments`:
     `tile_ranges` of them when `ranges` is None, else `ranges` once they fit
     the call, since the kernels index them unchecked."""
@@ -454,7 +472,7 @@ def _ranges(q, k, ranges, causal, window, q_seg, kv_seg) -> TileRanges:
     skv = k.shape[1]
     if ranges is None:
         return tile_ranges(q_seg, kv_seg, sq=sq, skv=skv, causal=causal, window=window,
-                           device=q.device)
+                           device=q.device, offset=offset)
     rows = ranges.kv_of_q.shape[0]
     fits = [rows in (1, b), ranges.kv_of_q.shape == (rows, -(-sq // TILE), 2),
             ranges.q_of_kv.shape == (rows, -(-skv // TILE), 2)]
@@ -473,14 +491,14 @@ def _ranges(q, k, ranges, causal, window, q_seg, kv_seg) -> TileRanges:
 
 
 def _launch(q, k, v, *, causal, q_segment_ids, kv_segment_ids, sliding_window,
-            with_lse=False, ranges=None):
+            with_lse=False, ranges=None, q_offset=0):
     """K1: (out, lse [B, Hq, Sq] fp32 or None)."""
     _check(q, k, v)
     q, k, v = (_tma_ready(t) for t in (q, k, v))
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     q_seg, kv_seg = _segments(q, k, q_segment_ids, kv_segment_ids)
-    rng = _ranges(q, k, ranges, causal, sliding_window, q_seg, kv_seg)
+    rng = _ranges(q, k, ranges, causal, sliding_window, q_seg, kv_seg, q_offset)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if with_lse else None
     strides = (ctypes.c_longlong * 17)(
@@ -491,13 +509,13 @@ def _launch(q, k, v, *, causal, q_segment_ids, kv_segment_ids, sliding_window,
           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
           _ptr(q_seg), _ptr(kv_seg), _ptr(rng.kv_of_q), _ptr(rng.q_uid), _ptr(rng.kv_uid),
           b, sq, skv, hq, hkv, d, TILE, UID_BLOCK, strides, float(d**-0.5), int(causal),
-          int(sliding_window or 0))
+          int(sliding_window or 0), int(q_offset))
     flash_attention.launches += 1
     return out, lse
 
 
 def _launch_bwd(q, k, v, q_segment_ids, kv_segment_ids, out, lse, dout, *, causal,
-                sliding_window, ranges=None):
+                sliding_window, ranges=None, q_offset=0):
     """K2: (dq, dk, dv) in bf16."""
     _check(q, k, v, ("out", out), ("dout", dout))
     b, sq, hq, d = q.shape
@@ -509,7 +527,7 @@ def _launch_bwd(q, k, v, q_segment_ids, kv_segment_ids, out, lse, dout, *, causa
                          f"{lse.dtype}")
     q, k, v, out, dout = (_tma_ready(t) for t in (q, k, v, out, dout))
     q_seg, kv_seg = _segments(q, k, q_segment_ids, kv_segment_ids)
-    rng = _ranges(q, k, ranges, causal, sliding_window, q_seg, kv_seg)
+    rng = _ranges(q, k, ranges, causal, sliding_window, q_seg, kv_seg, q_offset)
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
@@ -525,6 +543,6 @@ def _launch_bwd(q, k, v, q_segment_ids, kv_segment_ids, out, lse, dout, *, causa
           lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
           _ptr(q_seg), _ptr(kv_seg), _ptr(rng.kv_of_q), _ptr(rng.q_of_kv), _ptr(rng.q_uid),
           _ptr(rng.kv_uid), b, sq, skv, hq, hkv, d, TILE, UID_BLOCK, strides,
-          float(d**-0.5), int(causal), int(sliding_window or 0))
+          float(d**-0.5), int(causal), int(sliding_window or 0), int(q_offset))
     flash_attention_bwd.launches += 1
     return dq, dk, dv

@@ -82,6 +82,19 @@ The expert-parallel body is written once, in stages (`ep_route`,
 group, `MemoryEP` runs every rank of a virtual group in one process with
 the exchanges in memory (the smoke drives ep = 2 and 4 on one card that
 way).
+
+Padding rows (segment id 0) are routed and counted like any other row, as
+in the JAX package: the layer sees no segment ids, T counts every position,
+and the router's statistics (aux, z, the capacity positions and the dropped
+count) include those rows. What a padding row holds is left unspecified by
+the reference: its attention reads no key, and its own flash kernel calls
+such a query's output "uniform garbage — callers must discard/ignore them"
+(leopard_tpu/ops/pallas/flash_attention.py:121-124). So the statistics over
+padding rows depend on the attention tier: the dense tier gives such a query
+V's mean in both packages, and there the aux, z and dropped count equal the
+JAX package's (tests/test_torch_moe_padding.py); K1 gives it 0, as the
+port's ring does, where the JAX ring and dense tier give V's mean. Rows
+that hold tokens route identically in every tier.
 """
 
 from __future__ import annotations

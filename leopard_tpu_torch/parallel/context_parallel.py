@@ -14,10 +14,13 @@ each block through the flash kernels:
     travels with the KV and arrives home after n hops.
 
 On a CPU tensor each block is the plain version of the same (out, lse) and
-gradients, dense in fp32; it takes any window. On a CUDA tensor a window
-needs the band shifted by the block's q − k offset, which the kernels do not
-take: a windowed ring raises there unless every block with a window is a
-diagonal one (offset 0).
+gradients, dense in fp32. A block reads the window in global positions: its
+q chunk lies `offset` positions after its kv chunk, and K1/K2 take that q −
+kv offset (ops/flash_attention.py), so Mistral's window runs on the card as
+on the CPU (JAX context_parallel.py:95-98 masks q_pos − k_pos < window in
+every block). A block wholly outside the window is not run, as a block
+wholly in the future is not; a partial one leaves some rows with no key,
+whose (out, lse) = (0, -1e30) merge away.
 
 Layouts (the sequence split into chunks; rank r holds):
   - "zigzag" (causal): chunks r and 2n − 1 − r of 2n, so every rank does the
@@ -99,24 +102,36 @@ def _chunks(n: int, rank: int, s_local: int, layout: str) -> List[Tuple[int, int
     return [(rank, 0, s_local)]
 
 
-def schedule(n: int, rank: int, src: int, s_local: int, layout: str, causal: bool):
+def schedule(n: int, rank: int, src: int, s_local: int, layout: str, causal: bool,
+             window: Optional[int] = None):
     """The blocks of one ring step: [(q start, kv start, length, kind,
     q − kv offset)], kind "diag" or "full"; blocks wholly in the future
-    are left out."""
+    are left out, and with a window those wholly before it (every pair at
+    q − kv ≥ window: offset − (length − 1) ≥ window)."""
     out = []
     for qc, qs, ln in _chunks(n, rank, s_local, layout):
         for kc, ks, _ in _chunks(n, src, s_local, layout):
             if causal and kc > qc:
                 continue
+            offset = (qc - kc) * ln
+            if window is not None and offset - (ln - 1) >= window:
+                continue
             kind = "diag" if causal and kc == qc else "full"
-            out.append((qs, ks, ln, kind, (qc - kc) * ln))
+            out.append((qs, ks, ln, kind, offset))
     return out
 
 
-def ring_blocks(n: int, layout: str, causal: bool = True) -> int:
+def ring_blocks(n: int, layout: str, causal: bool = True, window: Optional[int] = None,
+                s: Optional[int] = None) -> int:
     """Blocks of one ring pass over all n ranks (K1 launches forward, K2
     backward): zig-zag n(2n + 1), 2n + 1 on every rank; contiguous causal
-    n(n + 1)/2, r + 1 on rank r; n² when not causal."""
+    n(n + 1)/2, r + 1 on rank r; n² when not causal. With a window, the
+    blocks `schedule` keeps at sequence length `s`."""
+    if window is not None:
+        if s is None:
+            raise ValueError("a windowed ring's blocks depend on the length: pass s")
+        return sum(len(schedule(n, r, (r - t) % n, s // n, layout, causal, window))
+                   for r in range(n) for t in range(n))
     if layout == "zigzag":
         return n * (2 * n + 1)
     return n * (n + 1) // 2 if causal else n * n
@@ -173,16 +188,6 @@ def _plain_bwd(q, k, v, mask, out, lse, dout):
     return dq, dk, dv
 
 
-WINDOWED_RING = ("a windowed ring block off the diagonal needs the band shifted by its q - kv "
-                 "offset, which K1/K2 do not take (ROADMAP: the windowed ring on the card)")
-
-
-def _kernel_args(kind, window, offset):
-    if window is not None and offset != 0:
-        raise NotImplementedError(WINDOWED_RING)
-    return kind == "diag"
-
-
 def block_forward(q, k, v, q_seg, kv_seg, kind, window, offset):
     """One block's (out, lse [B, Hq, Sq] fp32): K1 on a CUDA tensor, the
     plain version on a CPU tensor."""
@@ -192,9 +197,9 @@ def block_forward(q, k, v, q_seg, kv_seg, kind, window, offset):
         return _plain_fwd(q, k, v, mask)
     from leopard_tpu_torch.ops import flash_attention as fa
 
-    causal = _kernel_args(kind, window, offset)
-    return fa._launch(q, k, v, causal=causal, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
-                      sliding_window=window, with_lse=True)
+    return fa._launch(q, k, v, causal=kind == "diag", q_segment_ids=q_seg,
+                      kv_segment_ids=kv_seg, sliding_window=window, with_lse=True,
+                      q_offset=offset)
 
 
 def block_backward(q, k, v, q_seg, kv_seg, out, lse, dout, kind, window, offset):
@@ -206,9 +211,8 @@ def block_backward(q, k, v, q_seg, kv_seg, out, lse, dout, kind, window, offset)
         return _plain_bwd(q, k, v, mask, out, lse, dout)
     from leopard_tpu_torch.ops import flash_attention as fa
 
-    causal = _kernel_args(kind, window, offset)
     return fa._launch_bwd(q, k, v, q_seg, kv_seg, out, lse.contiguous(), dout,
-                          causal=causal, sliding_window=window)
+                          causal=kind == "diag", sliding_window=window, q_offset=offset)
 
 
 # ---- the rotations ----
@@ -301,9 +305,13 @@ class P2PRing:
 # ---- the per-rank bodies ----
 
 def _merge(acc, lse_acc, out_b, lse_b):
-    """Fold one block's (out, lse) into a running fp32 (out, lse)."""
+    """Fold one block's (out, lse) into a running fp32 (out, lse). A row
+    with no key in a block comes with lse -1e30 (or -inf) and out 0; the lse
+    is clamped at -1e30 first, so that two such blocks merge to a finite
+    (0, about -1e30), never exp(-inf - -inf) = NaN."""
+    lse_b = lse_b.float().clamp(min=NEG_INF)
     if acc is None:
-        return out_b.float(), lse_b.float()
+        return out_b.float(), lse_b
     new = torch.logaddexp(lse_acc, lse_b)
     w_old = torch.exp(lse_acc - new).transpose(1, 2)[..., None]
     w_new = torch.exp(lse_b - new).transpose(1, 2)[..., None]
@@ -322,7 +330,7 @@ def ring_forward(q, seg, ring, *, rank: int, n: int, layout: str, causal: bool =
     for t in range(n):
         k, v, kv_seg = ring.kv(t)
         src = (rank - t) % n
-        for qs, ks, ln, kind, off in schedule(n, rank, src, s_local, layout, causal):
+        for qs, ks, ln, kind, off in schedule(n, rank, src, s_local, layout, causal, window):
             o, lse = block_forward(
                 q[:, qs:qs + ln], k[:, ks:ks + ln], v[:, ks:ks + ln],
                 None if seg is None else seg[:, qs:qs + ln],
@@ -346,7 +354,7 @@ def ring_backward(q, seg, out, lse, dout, ring, *, rank: int, n: int, layout: st
         src = (rank - t) % n
         dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
         dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
-        for qs, ks, ln, kind, off in schedule(n, rank, src, s_local, layout, causal):
+        for qs, ks, ln, kind, off in schedule(n, rank, src, s_local, layout, causal, window):
             qr, kr = slice(qs, qs + ln), slice(ks, ks + ln)
             g = block_backward(
                 q[:, qr], k[:, kr], v[:, kr], None if seg is None else seg[:, qr],

@@ -322,8 +322,13 @@ def reduce_to_shard(g: torch.Tensor, dt) -> torch.Tensor:
     """The gradient of a compute copy (see gather_fsdp) → the gradient of
     the parameter's own local shard: summed over data, fsdp and seq, then
     cut to this rank's fsdp block. `g` is consumed."""
+    return cut_to_shard(all_reduce_batch(g, dt.device_mesh), dt)
+
+
+def cut_to_shard(g: torch.Tensor, dt) -> torch.Tensor:
+    """A gradient of a compute copy that is already summed over the batch
+    axes → this rank's fsdp block of it, the parameter's own shard."""
     mesh = dt.device_mesh
-    all_reduce_batch(g, mesh)
     d = _fsdp_dim(dt)
     f = axis_size(mesh, FSDP_AXIS)
     if d is None or f == 1:

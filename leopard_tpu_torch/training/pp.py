@@ -28,7 +28,24 @@ Layout, as the JAX step's:
     seq rank holds a contiguous shard of the sequence (JAX "ring_local") and
     attends through `ring_attention(..., layout="contiguous")`;
   - tensor parallelism inside a stage over the mesh's "model" group, batch
-    rows over "data", as the sharded step (training/trainer.py);
+    rows over "data" and "fsdp", as the sharded step (training/trainer.py);
+  - with fsdp > 1 each stage's layers are sharded over the stage group's
+    fsdp axis, and so is every non-layer tensor over the whole mesh's (the
+    rules' placements): the compute copy gathers each master's fsdp shards
+    (parallel/sharding.py::gather_fsdp), and each gradient, summed over the
+    axes it is partial on, is cut to the master's own shard
+    (`cut_to_shard`), as in the plain mesh step. The JAX package's tests
+    never combine fsdp with stages; this step is held against its plain
+    step;
+  - Leopard-Idefics2 (JAX pp.py:135-181): the NaViT tower and the perceiver
+    run on every stage rank outside the pipeline, over chunks of images,
+    each chunk with its slice of `patch_mask` under one checkpoint
+    (`encode_images` runs both, as JAX's `vlm.encode_images`); the latents
+    are spliced at the image tokens and the loss skips image-token targets,
+    as `trainer.vlm_loss`; Mistral's window bites in every stage's layers,
+    through K1/K2 (or the ring's offset blocks under CP) on the card;
+    `frozen=("perceiver",)` freezes the perceiver; the 32,003-row
+    vocabulary is cut unevenly under TP as in the mesh step;
   - a stage rank's train state (`create_pp_train_state`) holds only its
     layers' masters and moments, DTensors on the mesh without its "stage"
     axis, and every non-layer tensor, replicated over "stage"; so each
@@ -141,11 +158,10 @@ def make_pp_train_step(cfg: VLMConfig, train_cfg: TrainConfig, mesh,
     or `MemoryStages(n)` at a stage axis of one.
 
     Refused: one stage ("use make_train_step"), MoE (as JAX pp.py:82: the
-    router's losses would have to ride the schedule), Leopard-Idefics2, L not a multiple of
-    n·v, fsdp > 1 (the JAX package's tests never combine it with stages),
-    and what `check_mesh_supported` refuses."""
-    from leopard_tpu_torch.parallel.mesh import DATA_AXIS, FSDP_AXIS, SEQ_AXIS, Parallel, axis_size
-    from leopard_tpu_torch.parallel.sharding import all_reduce_batch
+    router's losses would have to ride the schedule), L not a multiple of
+    n·v, and what `check_mesh_supported` refuses."""
+    from leopard_tpu_torch.parallel.mesh import DATA_AXIS, FSDP_AXIS, SEQ_AXIS, Parallel
+    from leopard_tpu_torch.parallel.sharding import all_reduce_batch, cut_to_shard
 
     tcfg = cfg.text
     n, local = _layout(mesh, stages)
@@ -155,12 +171,7 @@ def make_pp_train_step(cfg: VLMConfig, train_cfg: TrainConfig, mesh,
     if tcfg.num_experts > 0:
         raise NotImplementedError("MoE under the pipeline is not supported (nor in the JAX "
                                   "package): the router's losses would ride the schedule")
-    if cfg.architecture != "leopard_llava":
-        raise NotImplementedError("Leopard-Idefics2 under the pipeline is not in the port "
-                                  "(ROADMAP)")
     check_mesh_supported(cfg, mesh)
-    if axis_size(mesh, FSDP_AXIS) > 1:
-        raise NotImplementedError("fsdp > 1 with pipeline stages is not in the port (ROADMAP)")
     layout = stage_layers(tcfg.num_layers, n, v)
     where = _local_layers(tcfg.num_layers, n, local, v)
     if stages is None:
@@ -172,13 +183,13 @@ def make_pp_train_step(cfg: VLMConfig, train_cfg: TrainConfig, mesh,
     remat = False if train_cfg.remat == "none" else train_cfg.remat
     remat_vision = remat if train_cfg.remat_vision is None else train_cfg.remat_vision
     compute_model = sharded_compute_model(cfg, frozen, torch_dtype(tcfg.dtype), par)
-    batch_axes = (DATA_AXIS,)
-    embed_axes = (DATA_AXIS, SEQ_AXIS) if cp else (DATA_AXIS,)
+    batch_axes = (DATA_AXIS, FSDP_AXIS)   # the axes that split the rows
+    embed_axes = (*batch_axes, SEQ_AXIS) if cp else batch_axes
 
     def attn_impl(s):
         if cp:
             return "ring"
-        if tcfg.attn_impl in ("flash", "dense"):
+        if tcfg.attn_impl in ("flash", "dense", "chunked"):
             return tcfg.attn_impl
         return "flash" if s >= tcfg.long_seq_threshold else "dense"
 
@@ -293,8 +304,10 @@ def make_pp_train_step(cfg: VLMConfig, train_cfg: TrainConfig, mesh,
             embeds.backward(res["d_xs"].reshape(embeds.shape))
 
         # each gradient is summed over the axes its part is still partial on:
-        # the pipeline's (layers, head) over data; the embedding side's over
-        # data and, each seq rank having back-propagated its own shard, seq
+        # the pipeline's (layers, head) over data and fsdp; the embedding
+        # side's (embedding, tower, perceiver) over those and, each seq rank
+        # having back-propagated its own shard, seq; then cut to the master's
+        # own fsdp shard
         grads = {}
         for name in state.params:
             p = m.get_parameter(name)
@@ -313,7 +326,7 @@ def make_pp_train_step(cfg: VLMConfig, train_cfg: TrainConfig, mesh,
             for part, axes in parts:
                 if part is not None:
                     g += all_reduce_batch(part, mesh, axes)
-            grads[name] = g.mul_(inv)
+            grads[name] = cut_to_shard(g.mul_(inv), state.params[name])
         loss = nll * inv
         return loss, {"loss": loss, "tokens_in_loss": total_w}, grads
 

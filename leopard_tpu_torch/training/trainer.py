@@ -466,7 +466,6 @@ def make_train_step(cfg: VLMConfig, train_cfg: TrainConfig, frozen=(),
 def check_mesh_supported(cfg: VLMConfig, mesh) -> None:
     """Refuse what the port does not run under a mesh (ROADMAP §1); the
     pipeline (stage > 1) and serving refuse more of their own."""
-    from leopard_tpu_torch.parallel.context_parallel import WINDOWED_RING
     from leopard_tpu_torch.parallel.mesh import mesh_config
 
     m = mesh_config(mesh)
@@ -476,9 +475,6 @@ def check_mesh_supported(cfg: VLMConfig, mesh) -> None:
     if m.seq > 1 and cfg.text.attn_impl != "ring":
         raise NotImplementedError("the port shards the sequence only through the ring: "
                                   "seq > 1 takes text.attn_impl='ring'")
-    if (m.seq > 1 and cfg.text.sliding_window is not None
-            and getattr(mesh, "device_type", "cpu") == "cuda"):
-        raise NotImplementedError(WINDOWED_RING)
     heads = {"kv heads": cfg.text.num_kv_heads, "vision heads": cfg.vision.num_heads}
     if cfg.perceiver is not None:
         heads.update({"perceiver heads": cfg.perceiver.num_heads,

@@ -145,13 +145,6 @@ def test_pick_layout_falls_back_as_jax():
         cp.pick_layout(30, 4)
 
 
-def test_window_off_the_diagonal_refused_for_the_kernels():
-    assert cp._kernel_args("diag", 5, 0) is True
-    assert cp._kernel_args("full", None, 8) is False
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cp._kernel_args("full", 5, 8)
-
-
 def _p2p_worker(rank, world, store, path, out_path):
     import torch.distributed as dist
 

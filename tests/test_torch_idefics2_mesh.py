@@ -397,13 +397,23 @@ class _CudaCoord:
         return mesh
 
 
-@pytest.mark.parametrize("case", ["experts_do_not_divide", "windowed_ring_on_cuda",
-                                  "perceiver_heads", "pipeline", "cli_expert", "cli_stage"])
+def test_windowed_ring_is_accepted_on_a_cuda_mesh():
+    """Mistral's window over the ring at seq > 1 on the card: K1/K2 take
+    each block's q − kv offset (tests/test_torch_ring_window.py holds the
+    blocks against JAX's ring), so a cuda mesh no longer refuses it; the
+    Idefics2 pipeline runs too (tests/test_torch_pp_idefics2.py)."""
+    from leopard_tpu_torch.training import trainer
+
+    for sizes in (dict(seq=2), dict(seq=4, model=2)):
+        assert trainer.check_mesh_supported(port_cfg(ring=True), _CudaCoord(**sizes)) is None
+
+
+@pytest.mark.parametrize("case", ["experts_do_not_divide", "perceiver_heads", "cli_expert",
+                                  "cli_stage"])
 def test_what_stays_refused(case):
     """What ROADMAP still lists is refused when the step is built."""
     from leopard_tpu_torch.cli import start_mesh
-    from leopard_tpu_torch.parallel.context_parallel import WINDOWED_RING
-    from leopard_tpu_torch.training import pp, trainer
+    from leopard_tpu_torch.training import trainer
 
     tc = train_cfg(tcfgs)
     if case == "experts_do_not_divide":
@@ -411,20 +421,11 @@ def test_what_stays_refused(case):
         cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_experts=4))
         with pytest.raises(ValueError, match="4 experts must divide over expert-axis size 3"):
             trainer.make_train_step(cfg, tc, mesh=_CudaCoord(expert=3))
-    elif case == "windowed_ring_on_cuda":
-        with pytest.raises(NotImplementedError) as err:
-            trainer.make_train_step(port_cfg(ring=True), tc, mesh=_CudaCoord(seq=2))
-        assert str(err.value) == WINDOWED_RING
     elif case == "perceiver_heads":
         cfg = port_cfg()
         cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, num_heads=8))
         with pytest.raises(ValueError, match="perceiver heads"):
             trainer.make_train_step(cfg, tc, mesh=_CudaCoord(model=8))
-    elif case == "pipeline":
-        from leopard_tpu_torch.parallel.pipeline import MemoryStages
-
-        with pytest.raises(NotImplementedError, match="Idefics2 under the pipeline"):
-            pp.make_pp_train_step(port_cfg(), tc, _CudaCoord(), stages=MemoryStages(2))
     else:
         axis = case.split("_")[1]
         with pytest.raises(SystemExit, match=f"--mesh {axis}"):
