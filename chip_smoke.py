@@ -42,12 +42,28 @@ script exits non-zero without printing a result:
      cosine >= KERNEL_COSINE_MIN too, K3a at (16,384, 2,048), and K4 at
      Mistral's head padded to 32,128 columns (M = 1, K = 4,096); for phase
      41: K1/K2 at one microbatch's row, K2 at one tower chunk, K3a at
-     (4096, 4096) and K3b at (8·676, 1152);
+     (4096, 4096) and K3b at (8·676, 1152); for phases 48-49: K1/K2 at the
+     CLIP tower's [8, 577, 16, 64] non-causal against SDPA, K3b at
+     (8·577, 1024) with eps 1e-5; K4 at every per-rank block of the 8B
+     decoder's int4 leaves and head at model = 2, 4 and 8 (columns cut
+     and padded, rows repacked split-half by ops/quant.py::int4_block),
+     M = 1 and 8: rank 0's block against its plain version, the fp32
+     oracle and tinygemm, timed; every rank's block through K4, the column
+     blocks' outputs concatenated and the row blocks' partials summed in
+     fp32 against the whole leaf's K4 product;
   4. serving at 8B: Engine.generate on Leopard-LLaVA-8B with seeded random
      weights, 2 requests of 16 uint8 364×364 tiles each, 16 greedy tokens;
      K1's and K3's launch counts, no K1 input copied (TMA reads every
      input in place), repeatability, TTFT, prefill tok/s and decode ms/step;
   5. the K1 path against the dense path end to end (one request);
+ 48. the CLIP tower (config.clip_vit_large_336: class token, pre-LN,
+     quick-GELU, 23 of 24 layers, 576 tokens a 336-px tile) with phase 4's
+     decoder, shared: 2 requests of 4 uint8 tiles and text (bucket 4,096),
+     16 greedy tokens, twice; K1 23 + 32, K3b 1 + 2 x 23 and K3a 65 a
+     forward; TTFT, tower and decode times, peak memory; the K1 path
+     against the dense path (cosine >= 0.99); a seeded full-width
+     transformers CLIPVisionModel through convert_clip_vision against its
+     hidden_states[-2][:, 1:] (cosine >= 0.995);
   6. int4 serving at 8B: Engine(quantize="int4") on the same model and
      requests; K1 and K4 launch counts, repeatability, TTFT, decode ms/step;
   7. one decode step of the int4 engine (K4) against the same step through a
@@ -318,6 +334,11 @@ script exits non-zero without printing a result:
      rows of 4,096 (one with a padding tail): logits against the K1
      forward, cosine per row >= 0.99, no K1 launch, both forwards' ms and
      peak memory;
+ 49. (after phase 47) phase 20's step with the CLIP tower in place of
+     SigLIP (2 tiles a sample, weight decay 0.1), 3 steps of train(): K1
+     2 x (23 + 4), K2 23 + 4 a step, step 2's loss on step 1's unchanged
+     params equal to step 1's, the tower's unrun last layer moved by the
+     weight decay alone; step ms, tokens/s, peak memory;
  46. (after phase 44) phase 32's Idefics2 step through the 1F1B pipeline
      (MemoryStages(2) at a world of one, M = 2 rows, the tower and the
      perceiver in chunks of 4 images, Mistral's window in both stages'
@@ -416,7 +437,30 @@ K1_SHAPES = {
     # phase 41's microbatches: one packed train row each
     **{f"train_pp_row{i}": dict(b=1, s=TRAIN_SEQ, hq=32, hkv=8, d=128, causal=True, rows=(row,))
        for i, row in enumerate(TRAIN_ROWS)},
+    # the CLIP tower (config.clip_vit_large_336: 576 patches and the class
+    # token, 16 heads of 64) at phases 48-49's 8 tiles
+    "clip_b8": dict(b=8, s=577, hq=16, hkv=16, d=64, causal=False, rows=None),
 }
+CLIP_TOKENS = 577
+# phases 48-49: the CLIP tower with Leopard-LLaVA-8B's decoder. Phase 48
+# serves 2 requests of 4 tiles (bucket 4,096, tile bucket 8); phase 49 runs
+# phase 20's step with 2 tiles a sample (576 image tokens a tile: 8 tiles)
+# and weight decay, which AdamW applies to the tower's unrun last layer
+CLIP_TILES_PER_REQUEST = 4
+CLIP_TEXT = (500, 1100)
+CLIP_HF_TILES = 8
+CLIP_TRAIN_TILES_PER_SAMPLE = 2
+CLIP_WEIGHT_DECAY = 0.1
+# phase 3: K4 at every per-rank block of the 8B decoder's int4 leaves at
+# model = 2, 4 and 8 (parallel/sharding.py::tp_local_model's cut); (K, N)
+# of the whole leaf and how the model axis cuts it
+K4_TP_SIZES = (2, 4, 8)
+K4_TP_M = (1, 8)
+K4_TP_LEAVES = {"wq": (4096, 4096, "columns"), "wk_wv": (4096, 1024, "columns"),
+                "wo": (4096, 4096, "rows"), "gate_up": (4096, 14336, "columns"),
+                "down": (14336, 4096, "rows"), "lm_head": (4096, 128256, "columns")}
+# K4 calls of each leaf in one 8B decode step, on every rank
+K4_TP_CALLS = {"wq": 32, "wk_wv": 64, "wo": 32, "gate_up": 64, "down": 32, "lm_head": 1}
 
 
 def k2_shapes(text, vis):
@@ -935,12 +979,14 @@ def tinygemm(x, q4, s):
         return None, f"{type(e).__name__}: {e}".splitlines()[0]
 
 
-def int4_vs_plain(name, m, k, n, device, card, flush):
+def int4_vs_plain(name, m, k, n, device, card, flush, weight=None, host=True):
     """Phase 3 for one K4 shape: the largest error against the plain version
     and against the fp32 oracle; kernel, plain, tinygemm and dense bf16
     (F.linear) times with cold L2; GB/s over the bytes the call must move;
-    host µs per call of the decoder's int4 matmul (quant.matmul into K4)
-    and of F.linear."""
+    with `host`, host µs per call of the decoder's int4 matmul (quant.matmul
+    into K4) and of F.linear. `weight`: a QuantizedWeight to take in place
+    of a seeded random one of [K, N] (its dense twin its dequantized
+    weight in bf16)."""
     import torch
     import torch.nn.functional as F
 
@@ -950,8 +996,12 @@ def int4_vs_plain(name, m, k, n, device, card, flush):
 
     g = torch.Generator(device=device).manual_seed(SEED)
     x = torch.randn((m, k), generator=g, device=device, dtype=torch.bfloat16)
-    w = torch.randn((n, k), generator=g, device=device, dtype=torch.bfloat16) * k**-0.5
-    q = quant.quantize_int4(w)
+    if weight is None:
+        w = torch.randn((n, k), generator=g, device=device, dtype=torch.bfloat16) * k**-0.5
+        q = quant.quantize_int4(w)
+    else:
+        q = {"q4": weight.q4, "s": weight.s}
+        w = quant._unpack_int4(weight.q4, weight.s).to(torch.bfloat16).t().contiguous()
     q4, s = q["q4"], q["s"]
     got = int4_matmul(x, q4, s)
     want = int4_matmul_ref(x, q4, s)
@@ -976,19 +1026,22 @@ def int4_vs_plain(name, m, k, n, device, card, flush):
         del lib_out
         library_ms = cuda_ms(lib_fn, flush=flush)
     dense_ms = cuda_ms(lambda: F.linear(x, w), flush=flush)
-    x3, qw = x[:, None], QuantizedWeight(q)
-    k4_host = host_us(lambda: quant.matmul(x3, qw))
-    dense_host = host_us(lambda: F.linear(x3, w))
+    k4_host = dense_host = None
+    if host:
+        x3, qw = x[:, None], QuantizedWeight(q)
+        k4_host = host_us(lambda: quant.matmul(x3, qw))
+        dense_host = host_us(lambda: F.linear(x3, w))
     n_bytes = k // 2 * n + k // 128 * n * 4 + m * k * 2 + m * n * 4
     gbs = n_bytes / (ms * 1e-3) / 1e9
     lib_note = (f"tinygemm {library_ms:.4f} ms (|diff| {lib_err:.3g})" if lib_fn is not None
                 else f"tinygemm not available ({lib_error})")
+    host_note = (f"; host us per call: quant.matmul (K4) {k4_host:.2f}, F.linear "
+                 f"{dense_host:.2f}" if host else "")
     print(f"kernel int4_matmul {name}: M={m} K={k} N={n}: max_abs_err={err:.6g} (tol {K4_TOL}), "
           f"vs fp32 oracle {oracle_err:.3g} (tol {K4_ORACLE_TOL}); kernel {ms:.4f} ms "
           f"({gbs:.1f} GB/s of {n_bytes} bytes, bound {n_bytes / PEAK_BYTES_S * 1e3:.4f} ms), "
-          f"plain {plain_ms:.4f} ms, {lib_note}, dense bf16 F.linear {dense_ms:.4f} ms; "
-          f"host us per call: quant.matmul (K4) {k4_host:.2f}, F.linear {dense_host:.2f} "
-          f"[{card}]", flush=True)
+          f"plain {plain_ms:.4f} ms, {lib_note}, dense bf16 F.linear {dense_ms:.4f} ms"
+          f"{host_note} [{card}]", flush=True)
     return {"shape": f"{name}: M={m} K={k} N={n}", "max_abs_err": err,
             "oracle_max_abs_err": oracle_err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_max_abs_diff": lib_err,
@@ -1024,7 +1077,8 @@ def serve(engine, cfg, prompts, tiles, card, label, k4_per_step=0, runs=2, time_
     from leopard_tpu_torch.ops.int4_matmul import int4_matmul
 
     gen = GenerateConfig(max_new_tokens=MAX_NEW_TOKENS)
-    expected = cfg.vision.num_layers + cfg.text.num_layers
+    tower_layers, tower_norms = tower_run(cfg.vision)
+    expected = tower_layers + cfg.text.num_layers
     results, copies = [], 0
     for _ in range(runs):
         for counter in (flash_attention, int4_matmul, fused_rms_norm, fused_layer_norm):
@@ -1048,7 +1102,7 @@ def serve(engine, cfg, prompts, tiles, card, label, k4_per_step=0, runs=2, time_
                 # two norms a layer and the final one, in the prefill and
                 # every decode forward; two a tower layer and the post-LN
                 "fused_rms_norm": (2 * cfg.text.num_layers + 1) * (1 + steps),
-                "fused_layer_norm": 2 * cfg.vision.num_layers + 1}
+                "fused_layer_norm": tower_norms}
         if launches != want:
             raise AssertionError(f"{label}: generate launched {launches}, expected {want}")
         for toks, lps in zip(res.tokens, res.logprobs):
@@ -1063,9 +1117,9 @@ def serve(engine, cfg, prompts, tiles, card, label, k4_per_step=0, runs=2, time_
                 raise AssertionError(f"{label}: generate is not repeatable: {a} vs {b}")
     k4_note = f"; K4: 1 + {k4_per_step} x {steps} decode forwards" if k4_per_step else ""
     print(f"{label}: {runs} generate call(s), K1/K2 input copies {copies}, launches each {launches} "
-          f"(K1: {cfg.vision.num_layers} vision + {cfg.text.num_layers} decoder prefill{k4_note}; "
+          f"(K1: {tower_layers} vision + {cfg.text.num_layers} decoder prefill{k4_note}; "
           f"K3a: {2 * cfg.text.num_layers + 1} x (1 + {steps}) forwards; "
-          f"K3b: {2 * cfg.vision.num_layers + 1}), "
+          f"K3b: {tower_norms}), "
           f"tokens{' identical' if runs > 1 else ''}: {[t.tolist() for t in results[0].tokens]}",
           flush=True)
     timings = {"launches": launches, "decode_steps": steps, "copies": copies,
@@ -1090,6 +1144,15 @@ def serve(engine, cfg, prompts, tiles, card, label, k4_per_step=0, runs=2, time_
           f"({prompt_tokens} prompt tokens / TTFT), decode {decode_ms:.2f} ms/step "
           f"(batch {len(prompts)}, {steps} steps; median of {time_reps})", flush=True)
     return timings
+
+
+def tower_run(v):
+    """The layers a tower config runs (all but the last -1 - feature_layer)
+    and its K3b launches in one forward: two a layer, and the pre-LN and the
+    sequence post-LN where the config has them (SigLIP: 27 and 55; the CLIP
+    tower at feature layer -2: 23 and 47)."""
+    layers = v.num_layers if v.feature_layer == -1 else v.num_layers + 1 + v.feature_layer
+    return layers, 2 * layers + int(v.pre_ln) + int(v.post_ln_sequence)
 
 
 def phase_memory(label):
@@ -1133,14 +1196,14 @@ def kernel_vs_dense_end_to_end(model, cfg, prompt, tiles, device):
             torch.cuda.synchronize()
             logits[name] = (out[0, 0].float(), flash_attention.launches)
     (lk, nk), (ld, nd) = logits["kernel"], logits["dense"]
-    if nk != cfg.vision.num_layers + cfg.text.num_layers or nd != 0:
+    if nk != tower_run(cfg.vision)[0] + cfg.text.num_layers or nd != 0:
         raise AssertionError(f"kernel path launched {nk}, dense path {nd} times")
     if not (torch.isfinite(lk).all() and torch.isfinite(ld).all()):
         raise AssertionError("non-finite logits")
     cos = torch.nn.functional.cosine_similarity(lk, ld, dim=0).item()
     same_argmax = int(lk.argmax()) == int(ld.argmax())
     print(f"end to end, kernel vs dense (1 request, {len(prompt)} tokens, "
-          f"{TILES_PER_REQUEST} tiles): cosine {cos:.6f} (min {COSINE_MIN}), "
+          f"{len(tiles)} tiles): cosine {cos:.6f} (min {COSINE_MIN}), "
           f"argmax agrees: {same_argmax}, max |diff| {(lk - ld).abs().max().item():.4g}",
           flush=True)
     if cos < COSINE_MIN:
@@ -2265,11 +2328,11 @@ def noise_png_file(path, rng, w, h):
 
 
 def k1_held(shapes=None):
-    """The K1 shapes phase 3 holds: ("tower", tiles), ("navit", images,
-    patches) and ("decoder", rows, bucket, window). `shapes`: phase 3's
+    """The K1 shapes phase 3 holds: ("tower", tiles), ("clip", tiles),
+    ("navit", images, patches) and ("decoder", rows, bucket, window). `shapes`: phase 3's
     dict of every K1 entry, K1_SHAPES with the Idefics2 ones."""
     shapes = K1_SHAPES if shapes is None else shapes
-    return ({("tower", kw["b"]) for kw in shapes.values()
+    return ({("clip" if kw["s"] == CLIP_TOKENS else "tower", kw["b"]) for kw in shapes.values()
              if not kw["causal"] and kw.get("seg_ids") is None}
             | {("navit", kw["b"], kw["s"]) for kw in shapes.values()
                if kw.get("seg_ids") is not None}
@@ -2609,7 +2672,7 @@ def train_config():
     return dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_layers=TRAIN_TEXT_LAYERS))
 
 
-def train_batch(cfg, device):
+def train_batch(cfg, device, tiles_per_sample=TRAIN_TILES_PER_SAMPLE):
     """TRAIN_ROWS packed as the data pipeline packs them: each sample is BOS,
     its tiles' image tokens, then text; segment ids 1, 2 and 0 for the
     padding tail; positions restart at 0 in each segment; loss weight 1 on
@@ -2618,7 +2681,7 @@ def train_batch(cfg, device):
     import torch
 
     rng = np.random.RandomState(SEED)
-    n_img = TRAIN_TILES_PER_SAMPLE * cfg.anyres.tokens_per_tile
+    n_img = tiles_per_sample * cfg.anyres.tokens_per_tile
     shape = (len(TRAIN_ROWS), TRAIN_SEQ)
     tokens, seg, pos = (np.zeros(shape, np.int64) for _ in range(3))
     weights = np.zeros(shape, np.float32)
@@ -2631,7 +2694,7 @@ def train_batch(cfg, device):
             tokens[r, start:end], seg[r, start:end], pos[r, start:end] = sample, sid, np.arange(n)
             weights[r, start:end] = sample != cfg.image_token_id
             start = end
-    n_tiles = sum(len(row) for row in TRAIN_ROWS) * TRAIN_TILES_PER_SAMPLE
+    n_tiles = sum(len(row) for row in TRAIN_ROWS) * tiles_per_sample
     size = cfg.vision.image_size
     g = torch.Generator(device=device).manual_seed(SEED)
     images = torch.randn((n_tiles, 3, size, size), generator=g, device=device)
@@ -2707,9 +2770,13 @@ def train_grads_vs_dense(model, cfg, batch, card):
     return {"cosines": cosines, "losses": losses}
 
 
-def train_phase(model, cfg, batch, card):
+def train_phase(model, cfg, batch, card, weight_decay=0.0, label="train"):
     """Phase 20, then: TRAIN_STEPS steps of train() through the user's entry
-    points, each step timed and its kernel launches counted."""
+    points, each step timed and its kernel launches counted; step 2's loss,
+    on step 1's unchanged params (lr 0), must equal step 1's. A tower
+    layer the config does not run (the CLIP tower's last) gets no gradient:
+    its matrices must move by AdamW's weight decay alone and its vectors
+    not at all (phase 49)."""
     import torch
 
     from leopard_tpu_torch.config import OptimizerConfig, TrainConfig
@@ -2720,15 +2787,20 @@ def train_phase(model, cfg, batch, card):
 
     counters = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
                 "fused_rms_norm": fused_rms_norm, "fused_layer_norm": fused_layer_norm}
-    lt, lv = cfg.text.num_layers, cfg.vision.num_layers
+    lt = cfg.text.num_layers
+    lv, tower_norms = tower_run(cfg.vision)
+    v = cfg.vision
     # full recompute runs each layer's forward twice (K1, K3) and its
-    # backward once (K2); the final norm and the tower's post-LN run once
+    # backward once (K2); the final norm, the tower's pre-LN and post-LN
+    # run once
     want = {"flash_attention": 2 * (lt + lv), "flash_attention_bwd": lt + lv,
-            "fused_rms_norm": 2 * 2 * lt + 1, "fused_layer_norm": 2 * 2 * lv + 1}
+            "fused_rms_norm": 2 * 2 * lt + 1,
+            "fused_layer_norm": 2 * 2 * lv + int(v.pre_ln) + int(v.post_ln_sequence)}
     tcfg = TrainConfig(
         seq_len=TRAIN_SEQ, global_batch_size=len(TRAIN_ROWS), train_steps=TRAIN_STEPS,
         log_interval=1, eval_interval=0, save_interval=0, remat="full", loss_chunk=1024,
-        optimizer=OptimizerConfig(lr=1e-5, warmup_steps=1, decay_steps=1000, grad_clip=1.0))
+        optimizer=OptimizerConfig(lr=1e-5, warmup_steps=1, decay_steps=1000, grad_clip=1.0,
+                                  weight_decay=weight_decay))
     torch.cuda.reset_peak_memory_stats()
     state = trainer.create_train_state(model, tcfg)
     step = trainer.make_train_step(cfg, tcfg, model=model)
@@ -2771,7 +2843,7 @@ def train_phase(model, cfg, batch, card):
     totals = {k: c.launches for k, c in counters.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     for i, r in enumerate(records, start=1):
-        print(f"train step {i}: loss {r['loss']:.6f}, grad norm {r['grad_norm']:.6f}, "
+        print(f"{label} step {i}: loss {r['loss']:.6f}, grad norm {r['grad_norm']:.6f}, "
               f"{r['ms']:.1f} ms, launches {r['launches']} [{card}]", flush=True)
         if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])) or r["nan_step"]:
             raise AssertionError(f"step {i}: non-finite loss or grad norm: {r}")
@@ -2789,18 +2861,69 @@ def train_phase(model, cfg, batch, card):
         grp[1] += 1
     if any(changed == 0 for changed, _ in moved.values()):
         raise AssertionError(f"steps 2-3 left a parameter group unchanged: {moved}")
+    repeat = abs(records[1]["loss"] - records[0]["loss"]) / abs(records[0]["loss"])
+    if repeat > 1e-6:
+        raise AssertionError(f"{label}: step 2's loss on step 1's params differs by rel {repeat}")
+    unrun = (unrun_layer_decay(snaps, state, tcfg.optimizer, lv) if lv < v.num_layers
+             else None)
     step_ms = statistics.mean(r["ms"] for r in records[1:])
     tokens = len(TRAIN_ROWS) * TRAIN_SEQ
-    print(f"train: {TRAIN_STEPS} steps of train(), step 1 left the params unchanged (lr 0); "
+    print(f"{label}: {TRAIN_STEPS} steps of train(), step 1 left the params unchanged (lr 0), "
+          f"step 2's loss on them equal to step 1's (rel {repeat:.3g}); "
           f"steps 2-3 changed tensors per group (changed/total): "
           + ", ".join(f"{g}: {c}/{t}" for g, (c, t) in moved.items())
-          + f"; K1/K2 input copies {copies}; launches per step {want} (K1 2 x ({lt} + {lv}) layers, K2 {lt} + {lv}, "
-          f"K3a 2 x 2 x {lt} + 1, K3b 2 x 2 x {lv} + 1), in all {totals}; step "
+          + f"; K1/K2 input copies {copies}; launches per step {want} (K1 2 x ({lt} + {lv}) "
+          f"layers, K2 {lt} + {lv}, K3a 2 x 2 x {lt} + 1, K3b 2 x 2 x {lv} "
+          f"+ {want['fused_layer_norm'] - 4 * lv}), in all {totals}; step "
           f"{step_ms:.1f} ms (mean of steps 2-{TRAIN_STEPS}), {tokens / step_ms * 1e3:.1f} "
           f"tokens/s, peak device memory {peak_gib:.2f} GiB [{card}]", flush=True)
     return {"steps": records, "launches": totals, "launches_per_step": want, "copies": copies,
             "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
-            "peak_memory_gib": peak_gib, "params_moved": moved}
+            "peak_memory_gib": peak_gib, "params_moved": moved, "loss_repeat_rel": repeat,
+            "unrun_layers": unrun}
+
+
+def unrun_layer_decay(snaps, state, opt, run):
+    """The tower layers past `run` never run, so their gradient is 0 and
+    AdamW's moments stay 0: each of steps 2.. moves a matrix by the decay
+    alone, w ← w − lr·wd·w, and leaves a vector. Held on the sampled
+    elements against that update applied to step 1's snapshot in fp32."""
+    import torch
+
+    from leopard_tpu_torch.training.trainer import decay_mask, lr_schedule
+
+    # the update counts of steps 2.. (step 1's is 0)
+    lrs = [lr_schedule(opt)(c) for c in range(1, state.opt_state.count)]
+    out = {}
+    for n, before in snaps[1].items():
+        parts = n.split(".")
+        if parts[:2] != ["vision", "layers"] or int(parts[2]) < run:
+            continue
+        got, want = snaps[-1][n], before.clone()
+        matrix = decay_mask(n, state.params[n]) and opt.weight_decay > 0
+        for lr in lrs:
+            if matrix:
+                want = want + (want * opt.weight_decay) * -lr
+        if not matrix:
+            if not torch.equal(got, before):
+                raise AssertionError(f"unrun layer: vector {n} moved")
+            continue
+        step, want_step = (got - before).double(), (want - before).double()
+        cos = float(step @ want_step / (step.norm() * want_step.norm()).clamp(min=1e-300))
+        ratio = float(step.norm() / want_step.norm().clamp(min=1e-300))
+        out[n] = {"cosine": cos, "norm_ratio": ratio, "rel_change": float(
+            step.norm() / before.double().norm())}
+        if cos < 0.999 or abs(ratio - 1) > 0.01:
+            raise AssertionError(f"unrun layer: {n} moved by other than its weight decay: "
+                                 f"cosine {cos}, norm ratio {ratio}")
+    if not out:
+        raise AssertionError("unrun layer: no matrix to hold against its weight decay")
+    print(f"unrun tower layers (>= {run}): {len(out)} matrices moved by AdamW's weight decay "
+          f"alone (lr {lrs}, wd {opt.weight_decay}; cosine to the decay-only update min "
+          f"{min(r['cosine'] for r in out.values()):.6f}, norm ratio "
+          f"{[round(r['norm_ratio'], 6) for r in out.values()][:4]}...), vectors unchanged",
+          flush=True)
+    return out
 
 
 # phases 22-25 (A-D): Leopard-Idefics2 serving at 8B. Phase A serves one
@@ -6461,6 +6584,236 @@ def idefics2_mesh_cli_phase(cli_rec, hf_dir, manifest, rows, cfg, tmp, card, dev
             "step_ms": row["step_time"] * 1e3, "wall_s": wall}
 
 
+def int4_tp_blocks(device, card, flush):
+    """Phase 3, K4 at every per-rank block of the 8B decoder's int4 leaves
+    at model = 2, 4 and 8: each whole leaf is quantized once and cut by
+    `ops/quant.py::int4_block`, as `tp_local_model` cuts it (a column
+    block padded to whole 128-column tiles; a row block repacked
+    split-half). Rank 0's block goes through `int4_vs_plain` at M = 1 and
+    8 (its plain version, the fp32 oracle, tinygemm, times and bound);
+    every rank's block goes through K4, and the column blocks' outputs
+    concatenated, or the row blocks' partial products summed in fp32, are
+    held against the whole leaf's K4 product. On one card no serving path
+    runs at model > 1: the launches a rank would make are 7 x 32 + 1 a
+    decode step, as at model = 1; the times of rank 0's blocks are summed
+    into a decode step's per model size and M."""
+    import torch
+
+    from leopard_tpu_torch.models.params import QuantizedWeight
+    from leopard_tpu_torch.ops import quant
+    from leopard_tpu_torch.ops.int4_matmul import int4_matmul
+    from leopard_tpu_torch.parallel.sharding import _chunk
+
+    g = torch.Generator(device=device).manual_seed(SEED + 3)
+    out = []
+    for leaf, (k, n, dim) in K4_TP_LEAVES.items():
+        w = torch.randn((n, k), generator=g, device=device, dtype=torch.bfloat16) * k**-0.5
+        whole = QuantizedWeight(quant.quantize_int4(w))
+        del w
+        xs = {m: torch.randn((m, k), generator=g, device=device, dtype=torch.bfloat16)
+              for m in K4_TP_M}
+        want = {m: int4_matmul(xs[m], whole.q4, whole.s)[:, :whole.n] for m in K4_TP_M}
+        for tp in K4_TP_SIZES:
+            cuts = [_chunk(whole.n if dim == "columns" else k, tp, r) for r in range(tp)]
+            blocks = [QuantizedWeight(quant.int4_block(whole, dim, *c)) for c in cuts]
+            for m in K4_TP_M:
+                x = xs[m]
+                if dim == "columns":
+                    got = torch.cat([int4_matmul(x, b.q4, b.s)[:, :b.n] for b in blocks], 1)
+                else:
+                    got = sum(int4_matmul(x[:, lo:lo + size].contiguous(), b.q4, b.s)
+                              for (lo, size), b in zip(cuts, blocks))
+                torch.cuda.synchronize()
+                err = (got - want[m]).abs().max().item()
+                torch.testing.assert_close(got, want[m], **K4_ORACLE_TOL)
+                b0 = blocks[0]
+                rec = int4_vs_plain(f"{leaf}_tp{tp}_m{m}", m, 2 * b0.q4.shape[0], b0.q4.shape[1],
+                                    device, card, flush, weight=b0, host=False)
+                rec.update(leaf=leaf, tp=tp, m=m, cut=dim, true_n=b0.n,
+                           ranks_vs_whole_max_abs_err=err)
+                print(f"  {leaf} at model={tp}, M={m}: {tp} {dim} blocks, rank 0's "
+                      f"{rec['shape']} (true N {b0.n}), "
+                      f"{'concatenated' if dim == 'columns' else 'summed'} vs "
+                      f"the whole leaf's K4 product: max |diff| {err:.3g} (tol "
+                      f"{K4_ORACLE_TOL})", flush=True)
+                out.append(rec)
+        del whole, want, blocks
+    per_step = {}
+    keys = ("ms", "bound_ms", "plain_ms", "library_ms", "dense_ms")
+    for tp in K4_TP_SIZES:
+        for m in K4_TP_M:
+            recs = {r["leaf"]: r for r in out if r["tp"] == tp and r["m"] == m}
+            step = {key: (None if any(recs[x][key] is None for x in recs) else
+                          sum(K4_TP_CALLS[x] * recs[x][key] for x in recs)) for key in keys}
+            per_step[f"model{tp}_m{m}"] = step
+            lib = "n/a" if step["library_ms"] is None else f"{step['library_ms']:.4f}"
+            print(f"K4 per 8B decode step on one rank at model={tp}, M={m} "
+                  f"({sum(K4_TP_CALLS[x] for x in recs)} calls): kernel {step['ms']:.4f} ms, "
+                  f"bound {step['bound_ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, tinygemm "
+                  f"{lib} ms, dense bf16 {step['dense_ms']:.4f} ms [{card}]", flush=True)
+    return {"blocks": out, "per_step": per_step}
+
+
+def clip_config(cfg):
+    """`cfg` with the CLIP tower (config.clip_vit_large_336, 23 of 24
+    layers run, the class token dropped: 576 tokens a 336-px tile), no
+    pixel shuffle, and a projector from its 1,024 features."""
+    from leopard_tpu_torch.config import clip_vit_large_336
+
+    v = clip_vit_large_336()
+    return dataclasses.replace(
+        cfg, vision=v, pixel_shuffle_factor=1,
+        projector=dataclasses.replace(cfg.projector, input_size=v.hidden_size),
+        anyres=dataclasses.replace(cfg.anyres, tile_size=v.image_size,
+                                   tokens_per_tile=v.tokens_per_tile))
+
+
+def clip_model(model, ccfg, device):
+    """A CLIP VLM on `model`'s decoder (shared, not copied): a new seeded
+    tower (0.3 B) and projector."""
+    import torch
+
+    from leopard_tpu_torch.models.params import init_normal_
+    from leopard_tpu_torch.models.projector import Projector
+    from leopard_tpu_torch.models.siglip import SiglipVisionTower
+    from leopard_tpu_torch.models.vlm import LeopardVLM
+
+    g = torch.Generator(device=device).manual_seed(SEED + 48)
+    clip = LeopardVLM(ccfg, device="meta")
+    clip.vision = init_normal_(SiglipVisionTower(ccfg.vision, device=device), g)
+    clip.projector = init_normal_(Projector(ccfg.projector, device=device), g)
+    clip.text = model.text
+    return clip
+
+
+def clip_requests(cfg):
+    """Phase 48's prompts, [BOS, 4 tiles' image tokens, text], and uint8
+    tiles."""
+    rng = np.random.RandomState(SEED + 48)
+    n_img = CLIP_TILES_PER_REQUEST * cfg.anyres.tokens_per_tile
+    prompts = [np.concatenate([[128000], np.full(n_img, cfg.image_token_id),
+                               rng.randint(0, 128000, n)]).astype(np.int32) for n in CLIP_TEXT]
+    size = cfg.vision.image_size
+    tiles = rng.randint(0, 256, (len(CLIP_TEXT) * CLIP_TILES_PER_REQUEST, size, size, 3),
+                        dtype=np.uint8)
+    return prompts, tiles
+
+
+def clip_hf_compare(ccfg, launches, card, device):
+    """Phase 48, last: a seeded full-width transformers CLIPVisionModel
+    (built on the card in bf16, sdpa) converted by `convert_clip_vision`
+    into the port's tower, held against its hidden_states[-2][:, 1:]."""
+    import torch
+    from transformers import CLIPVisionConfig, CLIPVisionModel
+
+    from leopard_tpu_torch.convert import hf as chf
+    from leopard_tpu_torch.models.siglip import SiglipVisionTower
+
+    v = ccfg.vision
+    hcfg = CLIPVisionConfig(
+        hidden_size=v.hidden_size, intermediate_size=v.intermediate_size,
+        num_hidden_layers=v.num_layers, num_attention_heads=v.num_heads,
+        num_channels=v.num_channels, image_size=v.image_size, patch_size=v.patch_size,
+        layer_norm_eps=v.layer_norm_eps, hidden_act=v.hidden_act, attn_implementation="sdpa")
+    torch.manual_seed(SEED + 48)
+    with torch.device(device):
+        hf = CLIPVisionModel(hcfg)
+    hf = hf.to(torch.bfloat16).eval()
+    tower = SiglipVisionTower(v, device="meta")
+    tower.load_state_dict(chf.convert_clip_vision(hf.state_dict(), v, device=device),
+                          strict=True, assign=True)
+    if on_meta(tower):
+        raise AssertionError(f"CLIP tower: left on the meta device: {on_meta(tower)[:5]}")
+    g = torch.Generator(device=device).manual_seed(SEED + 48)
+    pixels = torch.randn((CLIP_HF_TILES, 3, v.image_size, v.image_size), generator=g,
+                         device=device).to(torch.bfloat16)
+    with torch.inference_mode():
+        want = hf(pixel_values=pixels, output_hidden_states=True).hidden_states[-2][:, 1:]
+        with launches:
+            got = tower(pixels)
+    layers, norms = tower_run(v)
+    expect("HF CLIP vs tower", launches.counts,
+           {"flash_attention": layers, "fused_layer_norm": norms})
+    cos = row_cosine(got[None], want[None])[0]
+    tile_cos = min(row_cosine(got, want))
+    rec = {"tiles": CLIP_HF_TILES, "cosine": cos, "tile_cosine_min": tile_cos,
+           "max_abs_diff": (got.float() - want.float()).abs().max().item(),
+           "launches": launches.counts}
+    print(f"HF CLIPVisionModel (transformers, sdpa, bf16, 24 layers of 1,024) through "
+          f"convert_clip_vision vs the port's tower on {CLIP_HF_TILES} tiles: "
+          f"hidden_states[-2][:, 1:] cosine {cos:.6f} (min {HF_COSINE_MIN}), per tile min "
+          f"{tile_cos:.6f}, max |diff| {rec['max_abs_diff']:.4g}; launches {launches.counts} "
+          f"[{card}]", flush=True)
+    del hf, tower, want, got
+    if cos < HF_COSINE_MIN:
+        raise AssertionError(f"HF CLIP disagrees with the port: cosine {cos}")
+    return rec
+
+
+def clip_serve_phase(model, cfg, launches, card, k1_checked, device):
+    """Phase 48: the CLIP tower with phase 4's Leopard-LLaVA-8B decoder,
+    served at full width: 2 requests of 4 uint8 336-px tiles and text
+    (bucket 4,096), 16 greedy tokens, twice (repeatable), K1/K3a/K3b
+    launches per generate (K1 23 + 32, K3b 1 + 2 x 23, K3a 65 a forward),
+    TTFT, tower and decode times; the K1 path against the dense path; then
+    a transformers CLIPVisionModel through convert_clip_vision."""
+    import torch
+
+    from leopard_tpu_torch.inference.engine import Engine
+
+    t0 = time.perf_counter()
+    ccfg = clip_config(cfg)
+    clip = clip_model(model, ccfg, device)
+    prompts, tiles = clip_requests(ccfg)
+    n_tower = sum(p.numel() for p in clip.vision.parameters())
+    print(f"CLIP VLM: the CLIP tower ({n_tower} parameters, bf16) and a projector, seeded, "
+          f"on phase 4's Leopard-LLaVA-8B decoder; {len(prompts)} requests of "
+          f"{CLIP_TILES_PER_REQUEST} tiles, {[len(p) for p in prompts]} tokens", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    engine = Engine(ccfg, clip)
+    held("CLIP serve", "K1", {("clip", engine._bucket(len(tiles), engine.tile_buckets))},
+         k1_checked)
+    rec = {"serve": serve(engine, ccfg, prompts, tiles, card, "serve CLIP bf16")}
+    del engine
+    clip.text._head_f32 = None
+    rec["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["cosine_vs_dense"], rec["argmax_agrees"] = kernel_vs_dense_end_to_end(
+        clip, ccfg, prompts[0], tiles, device)
+    del clip
+    rec["hf"] = clip_hf_compare(ccfg, launches, card, device)
+    rec["phase_s"] = time.perf_counter() - t0
+    t = rec["serve"]
+    print(f"phase 48 (CLIP serving) took {rec['phase_s']:.1f} s: TTFT "
+          f"{t['ttft_s'] * 1e3:.1f} ms, tower {t['vision_tower_s'] * 1e3:.1f} ms, decode "
+          f"{t['decode_ms_per_step']:.2f} ms/step, peak device memory "
+          f"{rec['peak_memory_gib']:.2f} GiB while serving [{card}]", flush=True)
+    return rec
+
+
+def clip_train_phase(tcfg, card, device):
+    """Phase 49: phase 20's step (8B widths, text depth 4, "full") with the
+    CLIP tower in place of SigLIP, 2 tiles a sample, weight decay 0.1:
+    TRAIN_STEPS steps of train(), K1 2 x (23 + 4) and K2 23 + 4 a step,
+    and the tower's unrun last layer moved by the decay alone."""
+    import torch
+
+    from leopard_tpu_torch.models import vlm
+
+    t0 = time.perf_counter()
+    ccfg = clip_config(tcfg)
+    model = vlm.init_params(ccfg, torch.Generator(device=device).manual_seed(SEED))
+    batch = train_batch(ccfg, device, tiles_per_sample=CLIP_TRAIN_TILES_PER_SAMPLE)
+    print(f"CLIP train model: 8B widths, {ccfg.text.num_layers} of 32 text layers, the CLIP "
+          f"tower, {sum(p.numel() for p in model.parameters())} parameters; "
+          f"{batch['images'].shape[0]} tiles of {CLIP_TOKENS} tokens", flush=True)
+    rec = train_phase(model, ccfg, batch, card, weight_decay=CLIP_WEIGHT_DECAY,
+                      label="CLIP train")
+    del model, batch
+    rec["phase_s"] = time.perf_counter() - t0
+    print(f"phase 49 (CLIP training) took {rec['phase_s']:.1f} s", flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -6587,6 +6940,16 @@ def main() -> int:
     # padded to whole 128-column tiles, K = 4,096, one request's decode
     k4_mistral_head = int4_vs_plain("mistral_head_m1", 1, icfg.text.hidden_size,
                                     MISTRAL_HEAD_PADDED, device, card, flush)
+    # the CLIP tower of phases 48-49: K2 at its 8 tiles of 577 tokens (K1 is
+    # in k1_shapes), K3b at its rows with eps 1e-5
+    t0 = time.perf_counter()
+    k2_clip = flash_bwd_vs_plain("clip_tower", device=device, card=card, **K1_SHAPES["clip_b8"])
+    k3_clip = norm_vs_plain("ln", K1_SHAPES["clip_b8"]["b"] * CLIP_TOKENS, 1024, device, card,
+                            flush, eps=1e-5)
+    # K4 at every per-rank block of the 8B int4 leaves, model = 2, 4, 8
+    k4_tp = int4_tp_blocks(device, card, flush)
+    print(f"phase 3, the CLIP shapes and the per-rank K4 blocks took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     del flush
     # K4 in one 8B decode step: the seven matmuls of each layer and lm_head
     n_layers = leopard_llava_8b().text.num_layers
@@ -6637,6 +7000,11 @@ def main() -> int:
         model, cfg, prompts[0], tiles[:TILES_PER_REQUEST], device)
     phase_memory("K1 vs dense")
 
+    # phase 48: the CLIP tower on phase 4's decoder, served at full width
+    launches = Launches()
+    clip_rec = {"serve": clip_serve_phase(model, cfg, launches, card, k1_checked, device)}
+    peak["clip_serve"] = phase_memory("CLIP serve")
+
     # phase 6: int4 serving at 8B, through K4 at every decode matmul
     k4_per_step = 7 * cfg.text.num_layers + 1
     engine = Engine(cfg, model, quantize="int4")
@@ -6672,7 +7040,6 @@ def main() -> int:
 
     # phases 10-14: prefixes, multi-turn chat, chunked prefill, int4 + int8
     # KV over a second turn, speculative decode and beam search
-    launches = Launches()
     features = {}
     engine = Engine(cfg, model)
     features["prefix"] = prefix_phase(engine, cfg, launches, card)
@@ -6773,6 +7140,9 @@ def main() -> int:
         # the same widths and depth
         features["chunked_tier"] = chunked_tier_phase(tcfg, card, device)
         peak["chunked_tier"] = phase_memory("chunked tier vs K1")
+        # phase 49: phase 20's step with the CLIP tower (a new model)
+        clip_rec["train"] = clip_train_phase(tcfg, card, device)
+        peak["clip_train"] = phase_memory("CLIP train")
 
         # phase 21: the train CLI from a manifest, --init-from phase 19's
         # checkpoint, through the data pipeline
@@ -6975,6 +7345,12 @@ def main() -> int:
                 n: mesh_rec["ring_window"][f"n{n}"]["launches"][name] for n in RING_SIZES}
         return out
 
+    def clip_paths(name):
+        """A kernel's launches in one CLIP generate (phase 48) and a CLIP
+        train step (phase 49)."""
+        return {"launches_clip_generate": clip_rec["serve"]["serve"]["launches"].get(name, 0),
+                "launches_clip_train_step": clip_rec["train"]["launches_per_step"].get(name, 0)}
+
     def bound_by(parts):
         """What bounds a sum of calls: the side holding most of its bound."""
         share = {"operations": 0.0, "bytes": 0.0}
@@ -7013,6 +7389,8 @@ def main() -> int:
         **idefics2_train_paths("flash_attention"),
         **moe_paths("flash_attention"),
         "moe_shapes": [per_shape["moe_train"], per_shape["moe_serve"]],
+        **clip_paths("flash_attention"),
+        "clip_shape": per_shape["clip_b8"],
         "idefics2": {
             "launches_per_generate": idefics2["serve"]["launches"]["flash_attention"],
             "launches_int4_generate": idefics2["int4"]["launches"]["flash_attention"],
@@ -7049,7 +7427,7 @@ def main() -> int:
         "launches": timings_int4["launches"]["int4_matmul"],
         "max_abs_err": max(r["max_abs_err"] for r in [*k4_shapes.values(),
                                                        *k4_pool.values(), k4_m64,
-                                                       *k4_m1.values()]),
+                                                       *k4_m1.values(), *k4_tp["blocks"]]),
         "ms": k4_step["ms"],
         "plain_ms": k4_step["plain_ms"],
         "bound_ms": k4_step["bound_ms"],
@@ -7091,6 +7469,12 @@ def main() -> int:
         "launches_idefics2_int4_head": idefics2["int4"]["head_k4_launches"],
         "idefics2_int4": idefics2["int4"],
         "mistral_head_shape": k4_mistral_head,
+        "tp_blocks": k4_tp,
+        "tp_blocks_is": ("phase 3: rank 0's block of each 8B int4 leaf at model = 2, 4, 8 and "
+                         "M = 1, 8 (ops/quant.py::int4_block); ranks_vs_whole_max_abs_err: "
+                         "every rank's K4 output, concatenated (columns) or summed in fp32 "
+                         "(rows), against the whole leaf's; not on a path of this one-card "
+                         "run, where a rank would launch K4 7 x 32 + 1 times a decode step"),
         "serve_int8": timings_int8,
         "end_to_end_cosine": cos4,
         "end_to_end_argmax_agrees": same_argmax4,
@@ -7102,7 +7486,9 @@ def main() -> int:
         "replaces": "leopard_tpu/ops/pallas/flash_attention.py:443",
         "launches": train_run["launches"]["flash_attention_bwd"],
         "max_abs_err": max(r["max_abs_err"] for r in [*k2.values(), *k2_idefics2.values(),
-                                                       k2_moe]),
+                                                       k2_moe, k2_clip]),
+        "clip_shape": k2_clip,
+        **clip_paths("flash_attention_bwd"),
         **moe_paths("flash_attention_bwd"),
         "moe_shape": k2_moe,
         "ms": total(per_train_step, "ms"),
@@ -7167,6 +7553,8 @@ def main() -> int:
         "ms_is": f"per call at {k3[kind]['shape']}",
         "idefics2_shape": k3_idefics2[kind],
         "moe_shape": k3_moe if kind == "rms" else None,
+        "clip_shape": k3_clip if kind == "ln" else None,
+        **clip_paths(name),
         "pp_shape": k3_pp[kind],
         "card": card,
     } for name, kind, line, library in (
@@ -7176,6 +7564,7 @@ def main() -> int:
     print(json.dumps({"mesh": mesh_rec}), flush=True)
     print(json.dumps({"serving_features": features}), flush=True)
     print(json.dumps({"eval": evals}), flush=True)
+    print(json.dumps({"clip": clip_rec}), flush=True)
     print(smi.splitlines()[0], flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

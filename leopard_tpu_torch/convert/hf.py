@@ -32,8 +32,11 @@ head as `lm_head.weight`, where HF's Idefics2 model keeps it. The JAX export
 derives it from the decoder's prefix and writes `model.text_lm_head.weight`,
 a key HF does not read; `convert_leopard_idefics2` reads either.
 
-Not in the port yet (it raises): the CLIP tower (ROADMAP §1 item 4, with the
-CLIP tower options).
+The CLIP tower (`convert_clip_vision`, JAX convert/hf.py:162-200) reads a
+CLIPVisionModel: the SigLIP names with `embeddings.class_embedding`,
+`pre_layrnorm.*` and an unbiased patch embedding. The tower's names follow
+its config (`_siglip_names`), so `export_siglip_vision` writes a CLIP
+tower's keys too, as the JAX export does.
 """
 
 from __future__ import annotations
@@ -99,8 +102,6 @@ PERCEIVER_LAYER = {
 }
 IDEFICS2_LM_HEAD = "lm_head.weight"
 
-CLIP_PENDING = "the CLIP tower is not in the port yet (ROADMAP §1 item 4, the CLIP tower options)"
-
 
 def _as_tensor(a) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
@@ -140,13 +141,20 @@ def _decoder_names(cfg: TextConfig, prefix: str) -> Dict[str, str]:
 
 
 def _siglip_names(cfg: VisionConfig, prefix: str) -> Dict[str, str]:
-    """{port name: HF name} of a SigLIP tower, the patch kernel excluded."""
+    """{port name: HF name} of a SigLIP or CLIP tower (as `cfg` says), the
+    patch kernel excluded."""
     names = {
-        "patch_embed.bias": f"{prefix}embeddings.patch_embedding.bias",
         "pos_embed": f"{prefix}embeddings.position_embedding.weight",
         "post_ln.scale": f"{prefix}post_layernorm.weight",
         "post_ln.bias": f"{prefix}post_layernorm.bias",
     }
+    if cfg.patch_bias:
+        names["patch_embed.bias"] = f"{prefix}embeddings.patch_embedding.bias"
+    if cfg.use_class_token:
+        names["class_embed"] = f"{prefix}embeddings.class_embedding"
+    if cfg.pre_ln:  # HF's CLIP spells it so
+        names["pre_ln.scale"] = f"{prefix}pre_layrnorm.weight"
+        names["pre_ln.bias"] = f"{prefix}pre_layrnorm.bias"
     for i in range(cfg.num_layers):
         for ours, theirs in SIGLIP_LAYER.items():
             names[f"layers.{i}.{ours}"] = f"{prefix}encoder.layers.{i}.{theirs}"
@@ -188,8 +196,12 @@ def convert_siglip_vision(sd: StateDict, cfg: VisionConfig, prefix: str = "visio
 
 
 def convert_clip_vision(sd: StateDict, cfg: VisionConfig, prefix: str = "vision_model.",
-                        device="cuda"):
-    raise NotImplementedError(CLIP_PENDING)
+                        device="cuda") -> Dict[str, torch.Tensor]:
+    """HF CLIPVisionModel state dict → the port's `SiglipVisionTower` state
+    dict with the CLIP options (class token, pre-LN, no patch bias; `cfg`
+    as `config.clip_vit_large_336` sets them). Keys the tower does not use
+    (`vision_model.embeddings.position_ids`) are ignored."""
+    return convert_siglip_vision(sd, cfg, prefix, device=device)
 
 
 def convert_projector(sd: StateDict, cfg: ProjectorConfig,

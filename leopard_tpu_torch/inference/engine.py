@@ -38,20 +38,29 @@ the padded bucket, so capacity-mode drops are those of the JAX engine at the
 same buckets, and dropless dispatch reads its group sizes on the host once a
 layer at every forward.
 
-`mesh=` serves tensor-parallel over the mesh's "model" axis (JAX
-engine.py:199-223): the model is placed by the rules
+`mesh=` serves on any mesh, as JAX's engine does (JAX engine.py:199-223):
+the model is placed by the rules over "model" and "expert"
 (parallel/sharding.py::tp_local_model: each rank keeps its block of heads,
-of the MLP and of the vocabulary; int8 payloads cut like their weights,
-int4 leaves replicated), the KV cache holds this rank's kv heads, and the
-logits are gathered whole for sampling, so every rank of the model group
-emits the same tokens. Each data-parallel group serves the whole batch it
-is given (the caller splits requests over data ranks), and an MoE layer
-routes that batch alone, as the plain engine does. The MoE decoder and
-Leopard-Idefics2 serve so too, through the forward that training under a
-mesh runs (the experts' F and the perceiver's heads cut over "model").
-Not under a mesh yet (ROADMAP): fsdp, seq, expert or stage > 1, and int4
-weights at model > 1 (the rules replicate them, and cutting their
-split-half rows per rank is not written).
+of the MLP and of the vocabulary, and its block of the expert banks; int8
+payloads cut like their weights, int4 weights cut per rank, their
+split-half rows repacked for the row-parallel ones), the KV cache holds
+this rank's kv heads, and the logits are gathered whole for sampling, so
+every rank of the model group emits the same tokens. The other axes shard
+no serving work, as in JAX's engine, which never places the batch: ranks
+along data, fsdp, seq and stage each serve the whole batch they are given
+(the caller splits requests over them) on replicated tensors, the
+embedding table's model block whole on every fsdp rank (JAX cuts its
+vocabulary over model × fsdp; a lookup gives the same rows), the prefill
+on the flash tier rather than the ring (JAX's cache prefill never takes
+the ring). An MoE layer routes the batch it is given alone, with no
+statistics summed over other ranks; at expert > 1 each expert rank runs
+its own experts on the whole batch and the outputs are summed over the
+expert group (ops/moe.py), the plain dispatch's positions and drops in
+both modes. The MoE decoder and Leopard-Idefics2 serve so too, through
+the forward that training under a mesh runs (the experts' F and the
+perceiver's heads cut over "model"). A mesh whose model or expert axis
+does not divide the heads or the experts is refused
+(training/trainer.py::check_divisible).
 
 Where the JAX engine clamps a cache write that falls outside a too-small
 `max_cache`, this engine raises before it writes anything.
@@ -195,17 +204,10 @@ class Engine:
     ):
         if quantize not in (None, "int8", "int4"):
             raise ValueError(f"unknown quantize mode {quantize}")
-        if mesh is not None:
-            from leopard_tpu_torch.parallel.mesh import mesh_config
-            from leopard_tpu_torch.training.trainer import check_mesh_supported
+        if mesh is not None:  # serving needs only the heads and experts to divide
+            from leopard_tpu_torch.training.trainer import check_divisible
 
-            m = mesh_config(mesh)
-            check_mesh_supported(cfg, mesh)
-            if m.fsdp > 1 or m.seq > 1 or m.stage > 1 or m.expert > 1:
-                raise NotImplementedError("serving shards over data and model only (ROADMAP)")
-            if quantize == "int4" and m.model > 1:
-                raise NotImplementedError("int4 serving at model > 1: the rules replicate "
-                                          "int4 leaves (ROADMAP)")
+            check_divisible(cfg, mesh)
         if quantize is not None and cfg.text.num_experts > 0:
             # the JAX quantize_tree would quantize the expert banks, which
             # its moe_layer reads as raw weights: neither package serves it
@@ -225,9 +227,13 @@ class Engine:
             from leopard_tpu_torch.parallel.sharding import tp_local_model
 
             tp = axis_size(mesh, MODEL_AXIS)
-            # each data-parallel group serves its own batch: an MoE layer
-            # routes it alone, with no statistics summed over data ranks
-            par = dataclasses.replace(Parallel.of(mesh), dp_group=None, dp_size=1, dp_rank=0)
+            # every rank serves the whole batch it is given: an MoE layer
+            # routes it alone, with no statistics summed over data, fsdp or
+            # seq, and its expert ranks each run their experts on all of it
+            full = Parallel.of(mesh)
+            par = Parallel(tp_group=full.tp_group, tp_size=full.tp_size, tp_rank=full.tp_rank,
+                           ep_group=full.ep_group, ep_size=full.ep_size, ep_rank=full.ep_rank,
+                           ep_replicated=True)
             model = set_parallel(tp_local_model(model, mesh), par)
             self.cache_cfg = dataclasses.replace(cfg.text, num_kv_heads=cfg.text.num_kv_heads // tp)
         self.mesh = mesh

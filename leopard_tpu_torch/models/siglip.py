@@ -1,5 +1,6 @@
 """SigLIP vision tower of both families (port of leopard_tpu/models/siglip.py):
-LLaVA's 364-px tiles and Idefics2's NaViT images of up to 980 px.
+LLaVA's 364-px tiles and Idefics2's NaViT images of up to 980 px; and the
+CLIP tower (clip-vit-large-patch14-336, `config.clip_vit_large_336`).
 
 Pre-LN layers with qkv bias, GELU-tanh MLP and a post-LN over the sequence;
 the patchify conv is an unfold-matmul. Attention on a CUDA tensor goes
@@ -22,9 +23,22 @@ Under tensor parallelism (`self.par`, parallel/mesh.py::Parallel) each rank
 holds a block of heads and of the MLP's width: q/k/v and fc1 are
 column-parallel, wo and fc2 row-parallel (parallel/tensor_parallel.py).
 
-Not in the port: the CLIP tower's options (class token, pre-LN, bias-free
-patchify, quick-GELU, un-normed sequence output), which the constructor
-rejects.
+The CLIP options (JAX siglip.py:127-245), each a `VisionConfig` field:
+  - `use_class_token`: a learned `class_embed` plus position row 0 is
+    prepended to the patches, whose position ids start at 1 (under a
+    `patch_mask` too: the NaViT ids plus one), and under a patch mask the
+    class token takes segment 1; with `drop_class_token` its row is cut off
+    after the last run layer. The sequence is then one longer than the
+    patch grid (577 at 336 px), an odd length that K1 and K2 mask at the
+    tail;
+  - `pre_ln`: a LayerNorm (K3b on the card) before the first layer;
+  - `patch_bias=False`: the patch embedding has no bias;
+  - `hidden_act="quick_gelu"`: y·sigmoid(1.702·y) in the MLP;
+  - `post_ln_sequence=False`: the sequence output is not normed (`post_ln`
+    is still a parameter, as in the JAX tree and HF's CLIP, and unused).
+`feature_layer` -2 runs all but the last layer: that layer's parameters get
+no gradient, and the trainer's AdamW still decays them (zero gradients), as
+the JAX trainer does.
 """
 
 from __future__ import annotations
@@ -107,22 +121,33 @@ class SiglipLayer(nn.Module):
             o = tag_attn_out(attention(q, k, v, q_segment_ids=seg, kv_segment_ids=seg))
         x = x + row_linear(o.reshape(b, s, -1), a.wo, a.bo, par)
         y = copy_to_tp(layer_norm(x, self.ln2.scale, self.ln2.bias, cfg.layer_norm_eps), par)
-        y = F.gelu(F.linear(y, self.mlp.fc1, self.mlp.b1), approximate="tanh")
+        y = F.linear(y, self.mlp.fc1, self.mlp.b1)
+        if cfg.hidden_act == "quick_gelu":
+            y = y * torch.sigmoid(1.702 * y)
+        else:
+            y = F.gelu(y, approximate="tanh")
         return x + row_linear(y, self.mlp.fc2, self.mlp.b2, par)
 
 
 class SiglipVisionTower(nn.Module):
     def __init__(self, cfg: VisionConfig, device=None):
         super().__init__()
-        if (cfg.use_class_token or cfg.pre_ln or not cfg.patch_bias
-                or cfg.hidden_act != "gelu_pytorch_tanh" or not cfg.post_ln_sequence):
-            raise NotImplementedError("the CLIP tower's options are not in the port yet")
+        if cfg.hidden_act not in ("gelu_pytorch_tanh", "quick_gelu"):
+            raise ValueError(f"vision hidden_act={cfg.hidden_act!r}: gelu_pytorch_tanh "
+                             "or quick_gelu")
         self.cfg = cfg
         dt = torch_dtype(cfg.dtype)
         h, p = cfg.hidden_size, cfg.patch_size
-        self.patch_embed = Params({"kernel": (h, p * p * cfg.num_channels), "bias": (h,)},
-                                  dtype=dt, device=device)
-        self.pos_embed = new_param((cfg.patches_per_side**2, h), dt, device)
+        patch = {"kernel": (h, p * p * cfg.num_channels)}
+        if cfg.patch_bias:
+            patch["bias"] = (h,)
+        self.patch_embed = Params(patch, dtype=dt, device=device)
+        n_pos = cfg.patches_per_side**2 + (1 if cfg.use_class_token else 0)
+        self.pos_embed = new_param((n_pos, h), dt, device)
+        if cfg.use_class_token:
+            self.class_embed = new_param((h,), dt, device)
+        if cfg.pre_ln:
+            self.pre_ln = Params({"scale": (h,), "bias": (h,)}, dtype=dt, device=device)
         self.layers = nn.ModuleList(
             SiglipLayer(cfg, dtype=dt, device=device) for _ in range(cfg.num_layers)
         )
@@ -130,20 +155,30 @@ class SiglipVisionTower(nn.Module):
 
     def forward(self, pixel_values: torch.Tensor, patch_mask: Optional[torch.Tensor] = None,
                 remat=False) -> torch.Tensor:
-        """pixel_values [B, 3, H, W] → [B, (H/p)·(W/p), hidden] post-LN
-        features. `patch_mask` [B, H/p, W/p] bool: NaViT position ids and
-        attention among real patches only. `remat`: "none" | "full" | "attn"
-        | "selective" per layer (ops/remat.py)."""
+        """pixel_values [B, 3, H, W] → [B, (H/p)·(W/p), hidden] features
+        (post-LN unless `post_ln_sequence` is off; the class token's row
+        first unless dropped). `patch_mask` [B, H/p, W/p] bool: NaViT
+        position ids and attention among real patches only. `remat`: "none"
+        | "full" | "attn" | "selective" per layer (ops/remat.py)."""
         cfg = self.cfg
         x = patchify(pixel_values.to(self.pos_embed.dtype), cfg.patch_size)
-        x = F.linear(x, self.patch_embed.kernel, self.patch_embed.bias)
+        x = F.linear(x, self.patch_embed.kernel, getattr(self.patch_embed, "bias", None))
+        b, n, h = x.shape
+        first = 1 if cfg.use_class_token else 0  # position row 0 is the class token's
         seg = None
         if patch_mask is None:
-            x = x + self.pos_embed[: x.shape[1]]
+            x = x + self.pos_embed[first:first + n]
         else:
             patch_mask = patch_mask.to(device=x.device, dtype=torch.bool)
-            x = x + self.pos_embed[navit_position_ids(patch_mask, cfg.patches_per_side)]
-            seg = patch_mask.reshape(x.shape[0], -1).to(torch.int32)
+            x = x + self.pos_embed[navit_position_ids(patch_mask, cfg.patches_per_side) + first]
+            seg = patch_mask.reshape(b, -1).to(torch.int32)
+        if cfg.use_class_token:
+            cls = (self.class_embed + self.pos_embed[0]).to(x.dtype).expand(b, 1, h)
+            x = torch.cat([cls, x], dim=1)
+            if seg is not None:
+                seg = torch.cat([seg.new_ones((b, 1)), seg], dim=1)
+        if cfg.pre_ln:
+            x = layer_norm(x, self.pre_ln.scale, self.pre_ln.bias, cfg.layer_norm_eps)
 
         impl = cfg.attn_impl
         if impl == "auto":
@@ -159,4 +194,8 @@ class SiglipVisionTower(nn.Module):
             n_layers = cfg.num_layers + 1 + cfg.feature_layer
         for layer in self.layers[:n_layers]:
             x = remat_wrap(layer, remat)(x, cfg, impl, seg, ranges)
-        return layer_norm(x, self.post_ln.scale, self.post_ln.bias, cfg.layer_norm_eps)
+        if cfg.post_ln_sequence:
+            x = layer_norm(x, self.post_ln.scale, self.post_ln.bias, cfg.layer_norm_eps)
+        if cfg.use_class_token and cfg.drop_class_token:
+            x = x[:, 1:]
+        return x

@@ -55,12 +55,13 @@ batch:
     ring's layout, as JAX runs its layer stack), so one rank's tokens can
     drop another's; under `expert > 1` each rank runs its own experts on every
     token it holds and the partial outputs are summed over the expert group;
-  - dropless under `expert > 1` is JAX's `_dropless_dispatch_ep`: each
-    expert rank dispatches the contiguous 1/ep slice of its tokens (JAX
-    shards the tokens over data, fsdp, seq and expert), sorts its T·k/ep
-    assignments by expert (stable), exchanges the per-expert counts
-    (one all-gather, one host read of the [ep, E] matrix a layer, kept for
-    the backward), moves the rows to the ranks that hold their experts by
+  - dropless under `expert > 1` in training is JAX's
+    `_dropless_dispatch_ep`: each expert rank dispatches the contiguous
+    1/ep slice of its tokens (JAX shards the tokens over data, fsdp, seq
+    and expert), sorts its T·k/ep assignments by expert (stable),
+    exchanges the per-expert counts (one all-gather, one host read of the
+    [ep, E] matrix a layer, kept for the backward), moves the rows to the
+    ranks that hold their experts by
     an all-to-all, runs its local experts, sends the rows back and combines.
     Two transports (`moe_ep_ragged_a2a`): dense buckets of C rows per
     (source, destination) pair, JAX's C, the rows past C dropped and
@@ -68,6 +69,11 @@ batch:
     matrix, dropping nothing. The outputs are all-gathered over the expert
     group, since the layers around the MoE compute the same rows on every
     expert rank.
+  - serving (`par.ep_replicated`): every rank of the expert group holds the
+    whole batch, as in JAX's engine, whose MoE layer runs the
+    single-device dispatch on expert-sharded banks; both modes keep the
+    single-device dispatch's positions and drops, each expert rank runs its
+    own experts, and the outputs are summed over the expert group.
 
 Under `model > 1` the experts are column-split (gate, up) and row-split
 (down) over the model group; each expert's output rows are summed over the
@@ -186,19 +192,32 @@ def _dropless_dispatch(experts: Dict[str, torch.Tensor], xt: torch.Tensor,
     """Sort the T·k assignments by expert (stable), run each expert on its
     contiguous rows, scatter-add the gated outputs back to their tokens.
     Under tensor parallelism the rows are summed over the model group
-    before the gates."""
-    from leopard_tpu_torch.parallel.tensor_parallel import copy_to_tp, reduce_from_tp
+    before the gates. With `experts` this rank's block of an expert group
+    that holds the same tokens (serving, `par.ep_replicated`), the rank runs
+    its experts' rows and the sorted rows are summed over the expert group
+    before the gates: each row is another rank's zero, so the sum is the
+    single-device dispatch's, bit for bit."""
+    from leopard_tpu_torch.parallel.tensor_parallel import (
+        copy_to_tp, reduce_from_ep, reduce_from_tp,
+    )
 
     t, h = xt.shape
     k = top_i.shape[1]
-    e = experts["w_gate"].shape[0]
+    e_local = experts["w_gate"].shape[0]
+    ep = 1 if par is None else par.ep_size
     e_flat = top_i.reshape(t * k)
     sort_idx = torch.sort(e_flat, stable=True).indices
     tok_idx = sort_idx // k
     x_sorted = copy_to_tp(xt, par)[tok_idx]                        # [T·k, H]
     # the one host read of the layer: each expert's row count
-    sizes = torch.bincount(e_flat, minlength=e).tolist()
-    y_sorted = reduce_from_tp(_grouped(x_sorted, experts, sizes), par)   # [T·k, H]
+    sizes = torch.bincount(e_flat, minlength=e_local * ep).tolist()
+    first = par.ep_rank * e_local if ep > 1 else 0
+    lo, hi = sum(sizes[:first]), sum(sizes[:first + e_local])   # this rank's experts' rows
+    y_sorted = _grouped(x_sorted[lo:hi], experts, sizes[first:first + e_local])
+    if hi > lo:  # the same on every rank of the model group: one routing
+        y_sorted = reduce_from_tp(y_sorted, par)
+    if ep > 1:  # the other ranks' experts' rows, zero here, come by the sum
+        y_sorted = reduce_from_ep(F.pad(y_sorted, (0, 0, lo, t * k - hi)), par)  # [T·k, H]
     gates = top_p.reshape(t * k)[sort_idx].to(y_sorted.dtype)
     out = torch.zeros((t, h), dtype=y_sorted.dtype, device=xt.device)
     return out.index_add(0, tok_idx, y_sorted * gates[:, None])
@@ -501,7 +520,7 @@ def moe_layer(router_w: torch.Tensor, experts: Dict[str, torch.Tensor], cfg: MoE
            "z_loss": cfg.z_loss_coef * z_loss(logits, par)}
 
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.dropless and par is not None and par.ep_size > 1:
+    if cfg.dropless and par is not None and par.ep_size > 1 and not par.ep_replicated:
         out, dropped = _dispatch_ep_mesh(experts, xt, top_p, top_i, cfg, par, t_global)
         count = par.sum_over_tokens(zero + dropped)
         aux["fraction_dropped"] = count / (t_global * k)

@@ -25,6 +25,16 @@ and the product is sliced back, so it reaches K4 too, where the JAX package's
 TPU kernel refuses it. The
 dense path scales in fp32 and casts once to x's dtype, where the JAX package
 scales in x's dtype (ADVICE r5: bf16 group scales lose precision).
+
+Under tensor parallelism (parallel/sharding.py::tp_local_model) each rank
+holds its block of an int4 weight, cut from the whole leaf's bytes, so that
+its dequantized block equals the same rows or columns of the whole weight's
+bit for bit (`int4_block`): a column-parallel weight's block is its columns
+of q4 and s; a row-parallel weight's block of K/model logical rows is
+unpacked from the split-half bytes and packed again, split-half over the
+block, with its rows of s. The JAX package replicates int4 leaves under its
+rules and runs the whole weight on every device; the port's ranks read
+1/model of the bytes each.
 """
 
 from __future__ import annotations
@@ -110,6 +120,34 @@ def matmul(x: torch.Tensor, w: Weight) -> torch.Tensor:
         return y[..., :w.n] if w.padded else y
     y = x @ w.q.to(x.dtype)
     return y * w.s.to(x.dtype)[..., 0, :]
+
+
+def int4_block(w: QuantizedWeight, dim: str, start: int, length: int) -> Dict[str, torch.Tensor]:
+    """A block of an int4 weight as new {"q4", "s"} leaves of its true
+    width (QuantizedWeight pads them to whole tiles again):
+      dim "columns": output columns [start, start + length) of the true N;
+      dim "rows": logical input rows [start, start + length) of K, repacked
+        split-half (byte i holds block row i low and row i + length/2
+        high), with their groups' rows of s. The block must hold whole
+        scale groups: else it raises with the shapes."""
+    q4, s = w.q4[:, :w.n], w.s[:, :w.n]
+    if dim == "columns":
+        return {"q4": q4[:, start:start + length].contiguous(),
+                "s": s[:, start:start + length].contiguous()}
+    if dim != "rows":
+        raise ValueError(f"dim {dim!r}: rows or columns")
+    kh = q4.shape[0]
+    k, group = 2 * kh, 2 * kh // s.shape[0]
+    if start % group or length % group:
+        raise ValueError(
+            f"int4 weight [K={k}, N={w.n}] in groups of {group} rows: the block of rows "
+            f"[{start}, {start + length}) would split a scale group")
+    rows = torch.arange(start, start + length, device=q4.device)
+    shift = ((rows >= kh).to(torch.uint8) * 4)[:, None]
+    codes = (q4[rows % kh] >> shift) & 15                          # [length, N] q + 8
+    half = length // 2
+    return {"q4": (codes[:half] | (codes[half:] << 4)).contiguous(),
+            "s": s[start // group:(start + length) // group].contiguous()}
 
 
 def _quantize_leaf(w: torch.Tensor, mode: str) -> Dict[str, torch.Tensor]:

@@ -130,6 +130,10 @@ class Parallel:
     fsdp_group: Optional[object] = None
     fsdp_size: int = 1
     fsdp_rank: int = 0
+    # the expert group's ranks hold the same tokens, and each runs its own
+    # experts on all of them (serving); False: the tokens are split over
+    # the expert group, JAX's expert-parallel dispatch (training)
+    ep_replicated: bool = False
 
     @staticmethod
     def of(mesh) -> "Parallel":

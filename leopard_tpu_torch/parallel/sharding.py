@@ -39,7 +39,7 @@ import torch
 import torch.distributed as dist
 
 from leopard_tpu_torch.parallel.mesh import (
-    DATA_AXIS, FSDP_AXIS, MODEL_AXIS, SEQ_AXIS, axis_coord, axis_group, axis_size,
+    DATA_AXIS, EXPERT_AXIS, FSDP_AXIS, MODEL_AXIS, SEQ_AXIS, axis_coord, axis_group, axis_size,
 )
 
 Entry = Union[None, str, Tuple[str, ...]]
@@ -435,32 +435,58 @@ def _local_rows_accum(batch, mesh, tokens_per_tile, image_token_id, accum):
 
 def tp_local_model(model: torch.nn.Module, mesh, rules=None) -> torch.nn.Module:
     """A new module of `model`'s class and config, on "meta" then given this
-    rank's model-axis shard of each of `model`'s tensors (views, no copy;
-    the full tensors on every rank): what serving under a mesh runs (JAX
-    engine.py:199-223 places the same tree by the rules). Quantized leaves
-    follow their rules: an int8 payload is cut like its weight, and its
+    rank's shard over the "model" and "expert" axes of each of `model`'s
+    tensors (views, no copy; the full tensors on every rank): what serving
+    under a mesh runs (JAX engine.py:199-223 places the same tree by the
+    rules). Every other axis (data, stage, fsdp, seq) keeps the tensors
+    whole: serving replicates over them, and the embedding table's fsdp
+    blocks are this rank's model block whole, as one all-gather at
+    construction would give it.
+
+    Quantized leaves: an int8 payload is cut like its weight, and its
     replicated per-column scales are cut with a column-parallel payload's
-    columns. Int4 leaves are replicated by the rules and are not cut."""
+    columns. An int4 weight, which the rules replicate, is cut like its
+    unquantized weight all the same (`ops/quant.py::int4_block`): this
+    rank's columns of a column-parallel weight (the head's true columns cut
+    as its vocabulary is, each block padded to whole 128-column tiles with
+    its own `n`), or its block of rows of a row-parallel one, repacked
+    split-half. Those blocks are new tensors, 1/model of the leaf's bytes:
+    the whole int4 leaves are not kept."""
     from leopard_tpu_torch.models.params import QuantizedWeight
-    from leopard_tpu_torch.ops.quant import quantize_tree
+    from leopard_tpu_torch.ops.quant import int4_block, quantize_tree
 
     local = type(model)(model.cfg, device="meta")
-    quantized = [m for m in model.modules() if isinstance(m, QuantizedWeight)]
+    quantized = {name: m for name, m in model.named_modules() if isinstance(m, QuantizedWeight)}
     if quantized:  # the structure only, on "meta"
-        quantize_tree(local.text, mode="int4" if quantized[0].int4 else "int8")
-    model_only = (MODEL_AXIS,)
+        mode = "int4" if next(iter(quantized.values())).int4 else "int8"
+        quantize_tree(local.text, mode=mode)
+    int4 = {name: m for name, m in quantized.items() if m.int4}
+    axes = (MODEL_AXIS, EXPERT_AXIS)
     specs = param_specs(model, rules)
     for name, t in model.state_dict(keep_vars=True).items():
+        if name.rsplit(".", 1)[0] in int4:
+            continue
         spec = specs[name]
         if name.endswith(".s"):  # a scale: cut with its payload's columns
             q = name[:-2] + ".q"
             if q in specs and specs[q][-1] == MODEL_AXIS:
                 spec = (None,) * (t.dim() - 1) + (MODEL_AXIS,)
-        piece = local_shard(t.detach(), spec, mesh, model_only)
+        piece = local_shard(t.detach(), spec, mesh, axes)
         if isinstance(t, torch.nn.Parameter):
             piece = torch.nn.Parameter(piece, requires_grad=False)
         _set(local, name, piece)
     for m in local.modules():
         if isinstance(m, QuantizedWeight) and not m.int4:
             m.n = m.s.shape[-1]
+    tp, coord = axis_size(mesh, MODEL_AXIS), axis_coord(mesh, MODEL_AXIS)
+    for name, w in int4.items():
+        k_in, n_out = spec_for_path(jax_path(name), rules)[-2:] or (None, None)
+        if tp > 1 and n_out == MODEL_AXIS:
+            leaves = int4_block(w, "columns", *_chunk(w.n, tp, coord))
+        elif tp > 1 and k_in == MODEL_AXIS:
+            leaves = int4_block(w, "rows", *_chunk(2 * w.q4.shape[0], tp, coord))
+        else:
+            leaves = {"q4": w.q4[:, :w.n], "s": w.s[:, :w.n]}
+        parent, _, leaf = name.rpartition(".")
+        setattr(local.get_submodule(parent), leaf, QuantizedWeight(leaves))
     return local

@@ -464,17 +464,26 @@ def make_train_step(cfg: VLMConfig, train_cfg: TrainConfig, frozen=(),
 
 
 def check_mesh_supported(cfg: VLMConfig, mesh) -> None:
-    """Refuse what the port does not run under a mesh (ROADMAP §1); the
-    pipeline (stage > 1) and serving refuse more of their own."""
+    """Refuse what training does not run under a mesh; the pipeline
+    (stage > 1) refuses more of its own. Serving checks `check_divisible`
+    alone (inference/engine.py)."""
+    from leopard_tpu_torch.parallel.mesh import mesh_config
+
+    check_divisible(cfg, mesh)
+    if mesh_config(mesh).seq > 1 and cfg.text.attn_impl != "ring":
+        raise NotImplementedError("the port shards the sequence only through the ring: "
+                                  "seq > 1 takes text.attn_impl='ring'")
+
+
+def check_divisible(cfg: VLMConfig, mesh) -> None:
+    """The mesh's expert axis must divide the experts and its model axis
+    every head count it cuts."""
     from leopard_tpu_torch.parallel.mesh import mesh_config
 
     m = mesh_config(mesh)
     e = cfg.text.num_experts
     if m.expert > 1 and e and e % m.expert:
         raise ValueError(f"{e} experts must divide over expert-axis size {m.expert}")
-    if m.seq > 1 and cfg.text.attn_impl != "ring":
-        raise NotImplementedError("the port shards the sequence only through the ring: "
-                                  "seq > 1 takes text.attn_impl='ring'")
     heads = {"kv heads": cfg.text.num_kv_heads, "vision heads": cfg.vision.num_heads}
     if cfg.perceiver is not None:
         heads.update({"perceiver heads": cfg.perceiver.num_heads,

@@ -125,32 +125,6 @@ def test_sampled_generate_is_seeded(engines):
         assert np.all((x >= 0) & (x < teng.cfg.text.vocab_size))
 
 
-class _MeshShape:
-    """What the engine reads of a mesh before it touches a process group:
-    its axis names and sizes."""
-
-    def __init__(self, **sizes):
-        from leopard_tpu_torch.parallel.mesh import AXIS_ORDER
-
-        self.mesh_dim_names = AXIS_ORDER
-        self.sizes = [sizes.get(a, 1) for a in AXIS_ORDER]
-
-    def size(self, dim=None):
-        return self.sizes[dim]
-
-
-@pytest.mark.parametrize("kw", [dict(mesh=_MeshShape(fsdp=2)), dict(mesh=_MeshShape(stage=2)),
-                                dict(mesh=_MeshShape(expert=2))],
-                         ids=["mesh", "stage", "expert"])
-def test_engine_rejects_what_the_port_lacks(engines, kw):
-    """Serving under a mesh is ported over "model" (and "data"); a mesh
-    that shards parameters over fsdp, the layers over pipeline stages, or
-    experts over "expert" is refused."""
-    _, teng = engines
-    with pytest.raises(NotImplementedError):
-        Engine(teng.cfg, teng.model, **kw)
-
-
 def test_engine_rejects_an_unknown_quantize_mode(engines):
     _, teng = engines
     with pytest.raises(ValueError, match="unknown quantize mode fp8"):

@@ -13,7 +13,8 @@ package's (leopard_tpu/convert/hf.py) and against HF's own modules.
     the tolerance of tests/test_hf_parity.py;
   - the patch-kernel flatten order against HF's conv on a weight whose
     channel and spatial axes all differ; the lm_head candidates; the three
-    on-disk layouts of `load_hf_state_dict`; the converter not yet ported;
+    on-disk layouts of `load_hf_state_dict` (the CLIP converter is held in
+    tests/test_torch_clip.py);
   - Idefics2: the connector and the whole Idefics2ForConditionalGeneration
     layout both ways against the JAX converter and export (the head as HF
     keeps it, `lm_head.weight`, where the JAX export writes
@@ -279,12 +280,6 @@ def test_load_hf_state_dict_layouts(tmp_path, jax_params, layout):
 def test_load_hf_state_dict_missing(tmp_path):
     with pytest.raises(FileNotFoundError):
         thf.load_hf_state_dict(str(tmp_path))
-
-
-@pytest.mark.parametrize("fn", ["convert_clip_vision"])
-def test_unported_converters_raise(fn):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        getattr(thf, fn)({}, tcfgs.tiny_vlm())
 
 
 def _idefics2(dtype):
