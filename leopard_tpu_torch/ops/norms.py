@@ -4,7 +4,8 @@ All statistics are computed in float32 regardless of input dtype; the result
 is cast back to the input dtype.
 
 `rms_norm` and `layer_norm` are what the models call. On a CUDA tensor they
-launch the fused Triton kernels of `ops/fused_norms.py` (K3a/K3b) or raise;
+launch the fused kernels of `ops/fused_norms.py` (K3a in Triton, K3b in
+CUDA C++) or raise;
 on a CPU tensor they compute the plain versions below, `rms_norm_ref` and
 `layer_norm_ref`, which are also the kernels' backward (recomputed, as the
 JAX package's fused norms recompute through its plain norms).

@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import inspect
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -29,6 +28,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as smoke  # noqa: E402  (the repo root, for its shapes)
+from tools import checkout_timing as timing  # noqa: E402
 
 
 def time_one(fa, kind, q, k, v, dout, seg, causal):
@@ -47,30 +47,16 @@ def time_one(fa, kind, q, k, v, dout, seg, causal):
             fa.flash_attention_bwd(q, k, v, seg, seg, out, lse, dout, **bkw))
 
 
-def import_port(root: Path):
-    """The root's flash-attention module and its model config module."""
-    for name in [m for m in sys.modules if m.split(".")[0] == "leopard_tpu_torch"]:
-        del sys.modules[name]
-    sys.path.insert(0, str(root))
-    try:
-        from leopard_tpu_torch import config
-        from leopard_tpu_torch.ops import flash_attention as fa
-    finally:
-        sys.path.remove(str(root))
-    return fa, config
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("time_flash_kernels: no CUDA device", file=sys.stderr)
         return 1
-    roots = [Path(a).resolve() for a in sys.argv[1:]] or [Path(".").resolve()]
+    roots = timing.roots()
     device = torch.device("cuda")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = timing.card()
     results, first = [], {}
     for i, root in enumerate(roots):
-        fa, config = import_port(root)
+        fa, config = timing.import_port(root, "ops.flash_attention", "config")
         full = config.leopard_llava_8b()
         shapes = [("K1", name, kw) for name, kw in smoke.K1_SHAPES.items()]
         shapes += [("K2", name, kw) for name, kw in smoke.k2_shapes(full.text, full.vision).items()]

@@ -24,7 +24,6 @@ the flush, and the events around it).
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -32,32 +31,23 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as smoke  # noqa: E402  (the repo root, for its shapes and timers)
+from tools import checkout_timing as timing  # noqa: E402
 
 N_LAYERS = 32  # Leopard-LLaVA-8B's text depth
 
 
 def import_port(root: Path):
     """The root's int4 matmul, quant and params modules."""
-    for name in [m for m in sys.modules if m.split(".")[0] == "leopard_tpu_torch"]:
-        del sys.modules[name]
-    sys.path.insert(0, str(root))
-    try:
-        from leopard_tpu_torch.models import params
-        from leopard_tpu_torch.ops import int4_matmul as tk4
-        from leopard_tpu_torch.ops import quant
-    finally:
-        sys.path.remove(str(root))
-    return tk4, quant, params
+    return timing.import_port(root, "ops.int4_matmul", "ops.quant", "models.params")
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("time_int4_kernels: no CUDA device", file=sys.stderr)
         return 1
-    roots = [Path(a).resolve() for a in sys.argv[1:]] or [Path(".").resolve()]
+    roots = timing.roots()
     device = torch.device("cuda")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = timing.card()
     shapes = {name: (2, k, n) for name, (k, n, _) in smoke.K4_SHAPES.items()}
     shapes["gate_up_m64"] = (64, 4096, 14336)
     calls = {name: N_LAYERS * per + (name == "lm_head")
@@ -75,7 +65,7 @@ def main() -> int:
         q = quant.quantize_int4(w)
         inputs[name] = (x, q["q4"], q["s"])
         del w
-    flush = torch.empty(2**30 // 4, dtype=torch.float32, device=device)
+    flush = timing.flush_buffer(device)
     one = torch.zeros(1, device=device)
     floor_ms = smoke.cuda_ms(lambda: one.add_(1.0), flush=flush)
     print(f"floor: one launch of a one-element add {floor_ms:.4f} ms [{card}]", flush=True)
