@@ -1981,23 +1981,20 @@ def run_pool(cont, reqs, launches, gen, prefix=None):
 
 
 def pool_report(cont, reqs, wall):
-    """Tokens/s, TTFT percentiles, and the host ms a segment step: the run's
-    wall time less staging and refills, over the segments' steps."""
-    ttft = sorted(cont.ttft.values())
+    """Tokens/s and the host ms a segment step: the run's wall time less
+    staging and refills, over the segments' steps."""
     tokens = sum(r.max_new_tokens for r in reqs)
     st = cont.stats
     steps = cont.segment_steps * st["segments"]
     return {"wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
             "segment_step_ms": (wall - st["stage_s"] - st["refill_s"]) / steps * 1e3,
-            "ttft_p50_s": float(np.percentile(ttft, 50)),
-            "ttft_p99_s": float(np.percentile(ttft, 99)),
             "stats": dict(cont.stats)}
 
 
 def continuous_phase(engine, cfg, launches, card):
     """Phase 16: the slot pool in bf16 over a queue of image and text
     requests; launch counts, budgets, the image requests' first tokens and
-    the staged prefills' logits; then throughput, TTFT and the same queue
+    the staged prefills' logits; then throughput and the same queue
     served statically in groups of 8."""
     from leopard_tpu_torch.config import GenerateConfig
     from leopard_tpu_torch.inference.continuous import ContinuousEngine
@@ -2066,8 +2063,7 @@ def continuous_phase(engine, cfg, launches, card):
           f"divergence) {agree}", flush=True)
     print(f"pool bf16 timing [{card}]: {rec['tokens']} tokens in {wall:.3f} s = "
           f"{rec['tokens_per_s']:.1f} tok/s (first run {wall1:.3f} s), "
-          f"{rec['segment_step_ms']:.2f} ms a segment step; TTFT p50 "
-          f"{rec['ttft_p50_s'] * 1e3:.1f} ms, p99 {rec['ttft_p99_s'] * 1e3:.1f} ms; static "
+          f"{rec['segment_step_ms']:.2f} ms a segment step; static "
           f"groups of {POOL['slots']}: {static_s:.3f} s = {rec['static_tokens_per_s']:.1f} "
           f"tok/s; stats {rec['stats']}", flush=True)
     return rec
@@ -2132,9 +2128,8 @@ def continuous_int4_phase(engine, cfg, launches, card, k4_checked):
           f"(K4: {7 * lt + 1} x {POOL_INT4['segment_steps']} x {cont.stats['segments']} "
           f"segments + {prefills} prefills); refused: {refusal}; the next run repeats the "
           f"tokens, prefix unchanged; {rec['tokens']} tokens in {wall:.3f} s = "
-          f"{rec['tokens_per_s']:.1f} tok/s, {rec['segment_step_ms']:.2f} ms a segment step, "
-          f"TTFT p50 {rec['ttft_p50_s'] * 1e3:.1f} ms, p99 "
-          f"{rec['ttft_p99_s'] * 1e3:.1f} ms [{card}]", flush=True)
+          f"{rec['tokens_per_s']:.1f} tok/s, {rec['segment_step_ms']:.2f} ms a segment step "
+          f"[{card}]", flush=True)
     return rec
 
 

@@ -27,7 +27,7 @@ prefills, and only then wait on the snapshot's event, which does not wait
 for the segment. Rows whose budget runs out during a segment are known to
 the host and refill at once, their output row captured first; rows that end
 early at eos show only in the snapshot and refill one segment late. Tokens
-do not depend on this timing; `stats` and `ttft` do.
+do not depend on this timing; `stats` does.
 
 Faults of the JAX engine that the port does not copy:
   - its admission guard counts the prompt's length, but a prefill writes a
@@ -155,7 +155,6 @@ class ContinuousEngine:
         self.max_new_cap = max_new_cap
         self.segment_steps = segment_steps
         self.stats: dict = {}
-        self.ttft: dict = {}
 
     def _fresh_cache(self, rows: int, prefix: Optional[Prefix]):
         """A `rows`-row cache of cache_len slots, seeded with the shared
@@ -216,9 +215,7 @@ class ContinuousEngine:
         `prefix`: an `Engine.build_prefix` result shared by every request of
         the run; each staged prefill seeds it and prefills only the request's
         own prompt. Fills `stats` (`staged_shapes`: the [rows, bucket] of
-        each staged prefill, in order) and `ttft` ({request index: seconds
-        from the start of the run to the boundary where the host first sees
-        the request's first token}).
+        each staged prefill, in order).
         """
         eng = self.engine
         gen_cfg = gen_cfg or eng.gen_cfg
@@ -315,16 +312,8 @@ class ContinuousEngine:
             _install(state, cache_blk, logits_blk, j, row, budget_of(ri), self.cache_len)
             slot_req[row] = ri
             rem[row] = budget_of(ri)
-            if budget_of(ri) > 0:
-                install_boundary[ri] = self.stats["boundaries"]
 
-        # A request installed at boundary k decodes its first token in the
-        # segment dispatched at k + 1, which the host first sees in the fetch
-        # at boundary k + 2: when a streaming client could receive it.
         pending: List[tuple] = []   # (request, host row capture, event) for the next fetch
-        install_boundary = {}
-        self.ttft = {}
-        t_run0 = time.perf_counter()
         while True:
             self.stats["boundaries"] += 1
             snap, snap_event = _to_host([state.done, state.gen_buf, state.gen_mask])
@@ -344,10 +333,6 @@ class ContinuousEngine:
                     event.synchronize()
             done_h, buf_h, mask_h = (t.numpy() for t in snap)
             t2 = time.perf_counter()
-            b_now = self.stats["boundaries"]
-            for ri, k in install_boundary.items():
-                if ri not in self.ttft and k <= b_now - 2:
-                    self.ttft[ri] = t2 - t_run0
             for ri, (buf1, mask1), _ in pending:
                 complete(ri, buf1.numpy(), mask1.numpy())
             pending = []

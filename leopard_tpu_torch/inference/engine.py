@@ -80,6 +80,7 @@ from leopard_tpu_torch.inference.speculative import _spec_decode
 from leopard_tpu_torch.models.decoder import KVCache
 from leopard_tpu_torch.models.vlm import LeopardVLM
 from leopard_tpu_torch.ops.quant import quantize_tree
+from leopard_tpu_torch.utils.timers import span
 
 
 def round_up(x: int, m: int) -> int:
@@ -257,19 +258,21 @@ class Engine:
         prompt lengths and the bucket."""
         lengths = [len(p) for p in prompts]
         s = self._bucket(max(lengths), self.seq_buckets)
-        tokens = np.zeros((len(prompts), s), np.int32)
-        seg = np.zeros((len(prompts), s), np.int32)
-        for i, p in enumerate(prompts):
-            tokens[i, : len(p)] = p
-            seg[i, : len(p)] = 1
+        with span("engine.pack", tokens=sum(lengths), slots=len(prompts) * s):
+            tokens = np.zeros((len(prompts), s), np.int32)
+            seg = np.zeros((len(prompts), s), np.int32)
+            for i, p in enumerate(prompts):
+                tokens[i, : len(p)] = p
+                seg[i, : len(p)] = 1
         return tokens, seg, lengths, s
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _new_cache(self, batch: int, length: int) -> KVCache:
-        return KVCache.create(self.cache_cfg, batch, length, device=self.device,
-                              quantized=self.quantize_kv)
+        with span("engine.cache"):
+            return KVCache.create(self.cache_cfg, batch, length, device=self.device,
+                                  quantized=self.quantize_kv)
 
     @torch.inference_mode()
     def encode_images(self, pixel_values, patch_mask=None) -> torch.Tensor:
@@ -279,16 +282,18 @@ class Engine:
         the device (rows ≥ N are never gathered by the splice)."""
         n = pixel_values.shape[0]
         nb = self._bucket(n, self.tile_buckets)
+        with span("engine.tiles", tiles=n, tile_slots=nb):
 
-        def padded(t):
-            t = torch.as_tensor(t)
-            if nb != n:
-                t = torch.cat([t, t.new_zeros((nb - n,) + tuple(t.shape[1:]))], dim=0)
-            return t.to(self.device)
+            def padded(t):
+                t = torch.as_tensor(t)
+                if nb != n:
+                    t = torch.cat([t, t.new_zeros((nb - n,) + tuple(t.shape[1:]))], dim=0)
+                return t.to(self.device)
 
-        if patch_mask is not None:
-            patch_mask = padded(torch.as_tensor(patch_mask, dtype=torch.bool))
-        return self.model.encode_images(padded(pixel_values), patch_mask)
+            if patch_mask is not None:
+                patch_mask = padded(torch.as_tensor(patch_mask, dtype=torch.bool))
+            pixel_values = padded(pixel_values)
+        return self.model.encode_images(pixel_values, patch_mask)
 
     def _features(self, images, patch_mask=None) -> Optional[torch.Tensor]:
         if images is None or images.shape[0] == 0:

@@ -100,6 +100,7 @@ from leopard_tpu_torch.parallel.context_parallel import (
 from leopard_tpu_torch.parallel.tensor_parallel import (
     copy_to_tp, gather_from_tp, reduce_from_tp, vocab_parallel_embedding,
 )
+from leopard_tpu_torch.utils.timers import span
 
 
 @dataclass
@@ -391,80 +392,83 @@ class Decoder(nn.Module):
             x = vocab_parallel_embedding(tokens, self.embed_tokens, par, cfg.vocab_size)
         else:
             x = self.embed_tokens[tokens]
-        b, s, _ = x.shape
-        dev = x.device
-        if positions is None:
-            base = cache.index[:, None] if cache is not None else 0
-            positions = (base + torch.arange(s, device=dev)[None, :]).expand(b, s)
-        attn_impl = self._attn_impl(s, cache, fresh_cache)
-        ring_layout = None
-        if attn_impl == "ring":  # this rank's shard, in the ring's layout, for every layer
-            ring_layout = pick_layout(s, par.cp_size)
-            idx = local_positions(s, par.cp_size, par.cp_rank, ring_layout).to(dev)
-            x, positions = x[:, idx], positions[:, idx]
-            if segment_ids is not None:
-                segment_ids = segment_ids[:, idx]
-            s = x.shape[1]
-        cos, sin = rope_cos_sin(positions, self._rope_inv_freq(dev))
+        with span("model.decoder"):
+            b, s, _ = x.shape
+            dev = x.device
+            if positions is None:
+                base = cache.index[:, None] if cache is not None else 0
+                positions = (base + torch.arange(s, device=dev)[None, :]).expand(b, s)
+            attn_impl = self._attn_impl(s, cache, fresh_cache)
+            ring_layout = None
+            if attn_impl == "ring":  # this rank's shard, in the ring's layout, for every layer
+                ring_layout = pick_layout(s, par.cp_size)
+                idx = local_positions(s, par.cp_size, par.cp_rank, ring_layout).to(dev)
+                x, positions = x[:, idx], positions[:, idx]
+                if segment_ids is not None:
+                    segment_ids = segment_ids[:, idx]
+                s = x.shape[1]
+            cos, sin = rope_cos_sin(positions, self._rope_inv_freq(dev))
 
-        slots = None
-        if cache is not None:
-            if segment_ids is None:
-                segment_ids = torch.ones((b, s), dtype=torch.int32, device=dev)
-            slots = cache.index[:, None].long() + torch.arange(s, device=dev)[None, :]
-            rows = torch.arange(b, device=dev)[:, None]
-            cache.seg[rows, slots] = segment_ids.to(torch.int32)
+            slots = None
+            if cache is not None:
+                if segment_ids is None:
+                    segment_ids = torch.ones((b, s), dtype=torch.int32, device=dev)
+                slots = cache.index[:, None].long() + torch.arange(s, device=dev)[None, :]
+                rows = torch.arange(b, device=dev)[:, None]
+                cache.seg[rows, slots] = segment_ids.to(torch.int32)
 
-        mask = None  # chunked_cont masks each kv chunk from the positions and the seg
-        if attn_impl == "dense" and cache is not None and not fresh_cache:
-            # slot == absolute position (see KVCache)
-            kv_pos = torch.arange(cache.seg.shape[1], device=dev)[None, :]
-            mask = (positions[:, :, None] >= kv_pos[:, None, :]) & (cache.seg != 0)[:, None, :]
-            if cfg.sliding_window is not None:
-                mask = mask & ((positions[:, :, None] - kv_pos[:, None, :]) < cfg.sliding_window)
-            mask = (mask & (segment_ids != 0)[:, :, None])[:, None]
-        elif attn_impl == "dense":
-            mask = make_attention_mask(
-                s, s, causal=True, q_segment_ids=segment_ids,
-                kv_segment_ids=segment_ids, sliding_window=cfg.sliding_window,
-                device=dev,
-            )
-        ranges = None
-        if attn_impl == "flash":  # one set of tile ranges for every layer's K1 and K2
-            ranges = tile_ranges(segment_ids, segment_ids, sq=s, skv=s, causal=True,
-                                 window=cfg.sliding_window, device=dev)
+            mask = None  # chunked_cont masks each kv chunk from the positions and the seg
+            if attn_impl == "dense" and cache is not None and not fresh_cache:
+                # slot == absolute position (see KVCache)
+                kv_pos = torch.arange(cache.seg.shape[1], device=dev)[None, :]
+                mask = (positions[:, :, None] >= kv_pos[:, None, :]) & (cache.seg != 0)[:, None, :]
+                if cfg.sliding_window is not None:
+                    mask = mask & ((positions[:, :, None] - kv_pos[:, None, :])
+                                   < cfg.sliding_window)
+                mask = (mask & (segment_ids != 0)[:, :, None])[:, None]
+            elif attn_impl == "dense":
+                mask = make_attention_mask(
+                    s, s, causal=True, q_segment_ids=segment_ids,
+                    kv_segment_ids=segment_ids, sliding_window=cfg.sliding_window,
+                    device=dev,
+                )
+            ranges = None
+            if attn_impl == "flash":  # one set of tile ranges for every layer's K1 and K2
+                ranges = tile_ranges(segment_ids, segment_ids, sq=s, skv=s, causal=True,
+                                     window=cfg.sliding_window, device=dev)
 
-        aux = None  # the MoE aux values, summed (losses) and maxed over layers
-        for i, layer in enumerate(self.layers):
-            run = layer if cache is not None else remat_wrap(layer, remat)
-            x = run(
-                x, cfg, cos, sin, attn_impl=attn_impl, mask=mask,
-                segment_ids=segment_ids, ranges=ranges, cache=cache, layer_idx=i,
-                slots=slots, fresh_cache=fresh_cache, positions=positions,
-                ring_layout=ring_layout,
-            )
-            if layer.moe is not None:
-                x, layer_aux = x
-                if cache is None and return_aux:
-                    aux = layer_aux if aux is None else {
-                        "aux_loss": aux["aux_loss"] + layer_aux["aux_loss"],
-                        "z_loss": aux["z_loss"] + layer_aux["z_loss"],
-                        "fraction_dropped": torch.maximum(aux["fraction_dropped"],
-                                                          layer_aux["fraction_dropped"])}
-        if return_aux and aux is None:
-            zero = torch.zeros((), dtype=torch.float32, device=dev)
-            aux = {"aux_loss": zero, "z_loss": zero, "fraction_dropped": zero}
-        if cache is not None:
-            cache.index = cache.index + (segment_ids != 0).sum(dim=1, dtype=torch.int32)
+            aux = None  # the MoE aux values, summed (losses) and maxed over layers
+            for i, layer in enumerate(self.layers):
+                run = layer if cache is not None else remat_wrap(layer, remat)
+                x = run(
+                    x, cfg, cos, sin, attn_impl=attn_impl, mask=mask,
+                    segment_ids=segment_ids, ranges=ranges, cache=cache, layer_idx=i,
+                    slots=slots, fresh_cache=fresh_cache, positions=positions,
+                    ring_layout=ring_layout,
+                )
+                if layer.moe is not None:
+                    x, layer_aux = x
+                    if cache is None and return_aux:
+                        aux = layer_aux if aux is None else {
+                            "aux_loss": aux["aux_loss"] + layer_aux["aux_loss"],
+                            "z_loss": aux["z_loss"] + layer_aux["z_loss"],
+                            "fraction_dropped": torch.maximum(aux["fraction_dropped"],
+                                                              layer_aux["fraction_dropped"])}
+            if return_aux and aux is None:
+                zero = torch.zeros((), dtype=torch.float32, device=dev)
+                aux = {"aux_loss": zero, "z_loss": zero, "fraction_dropped": zero}
+            if cache is not None:
+                cache.index = cache.index + (segment_ids != 0).sum(dim=1, dtype=torch.int32)
 
-        x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
-        if not return_hidden:
-            if logits_indices is not None:
-                x = x.gather(1, logits_indices.long()[:, None, None].expand(b, 1, x.shape[-1]))
-            # fp32 logits: an int4 head at M ≤ 64 on the card takes K4, which
-            # rounds x to bf16 as the TPU kernel does
-            x = gather_from_tp(matmul(copy_to_tp(x.float(), par), self._head()), par,
-                               cfg.vocab_size)
-            if ring_layout is not None:
-                x = gather_sequence(x, par, ring_layout)
+        with span("model.head"):
+            x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
+            if not return_hidden:
+                if logits_indices is not None:
+                    x = x.gather(1, logits_indices.long()[:, None, None].expand(b, 1, x.shape[-1]))
+                # fp32 logits: an int4 head at M ≤ 64 on the card takes K4, which
+                # rounds x to bf16 as the TPU kernel does
+                x = gather_from_tp(matmul(copy_to_tp(x.float(), par), self._head()), par,
+                                   cfg.vocab_size)
+                if ring_layout is not None:
+                    x = gather_sequence(x, par, ring_layout)
         return (x, cache, aux) if return_aux else (x, cache)

@@ -31,6 +31,7 @@ from leopard_tpu_torch.ops.image import normalize_uint8_nhwc
 from leopard_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from leopard_tpu_torch.parallel.sharding import maybe_constrain
 from leopard_tpu_torch.parallel.tensor_parallel import vocab_parallel_embedding
+from leopard_tpu_torch.utils.timers import span
 
 
 def splice_image_features(
@@ -81,20 +82,21 @@ class LeopardVLM(nn.Module):
         (Idefics2): the real patches of each image; the perceiver attends
         only those."""
         cfg = self.cfg
-        if pixel_values.dtype == torch.uint8:
-            pixel_values = normalize_uint8_nhwc(
-                pixel_values, cfg.anyres.image_mean, cfg.anyres.image_std
-            )
-        feats = self.vision(pixel_values, patch_mask=patch_mask, remat=remat)
-        if cfg.architecture == "leopard_idefics2":
-            seg = None
-            if patch_mask is not None:
-                seg = patch_mask.reshape(feats.shape[0], -1).to(device=feats.device,
-                                                                dtype=torch.int32)
-            return self.perceiver(feats, context_seg=seg)
-        if cfg.pixel_shuffle_factor > 1:
-            feats = pixel_shuffle(feats, cfg.pixel_shuffle_factor)
-        return self.projector(feats)
+        with span("model.tower"):
+            if pixel_values.dtype == torch.uint8:
+                pixel_values = normalize_uint8_nhwc(
+                    pixel_values, cfg.anyres.image_mean, cfg.anyres.image_std
+                )
+            feats = self.vision(pixel_values, patch_mask=patch_mask, remat=remat)
+            if cfg.architecture == "leopard_idefics2":
+                seg = None
+                if patch_mask is not None:
+                    seg = patch_mask.reshape(feats.shape[0], -1).to(device=feats.device,
+                                                                    dtype=torch.int32)
+                return self.perceiver(feats, context_seg=seg)
+            if cfg.pixel_shuffle_factor > 1:
+                feats = pixel_shuffle(feats, cfg.pixel_shuffle_factor)
+            return self.projector(feats)
 
     def forward(
         self,
@@ -119,19 +121,20 @@ class LeopardVLM(nn.Module):
         decoder's MoE aux values. `feature_row_offsets` maps one
         chunk's image tokens to their rows of the whole prompt's features
         (see splice_image_features)."""
-        embeds = vocab_parallel_embedding(tokens.clamp(min=0), self.text.embed_tokens, self.par,
-                                          self.cfg.text.vocab_size)
-        embeds = maybe_constrain(embeds, ("data", "fsdp"), "seq", None)
         if image_features is None and images is not None:
             image_features = self.encode_images(
                 images, patch_mask, remat=remat if remat_vision is None else remat_vision)
-        if image_features is not None:
-            image_features = maybe_constrain(image_features, None, None, None)
-            embeds = splice_image_features(
-                embeds, image_features, tokens == self.cfg.image_token_id,
-                row_offsets=feature_row_offsets,
-            )
+        with span("model.splice"):
+            embeds = vocab_parallel_embedding(tokens.clamp(min=0), self.text.embed_tokens,
+                                              self.par, self.cfg.text.vocab_size)
             embeds = maybe_constrain(embeds, ("data", "fsdp"), "seq", None)
+            if image_features is not None:
+                image_features = maybe_constrain(image_features, None, None, None)
+                embeds = splice_image_features(
+                    embeds, image_features, tokens == self.cfg.image_token_id,
+                    row_offsets=feature_row_offsets,
+                )
+                embeds = maybe_constrain(embeds, ("data", "fsdp"), "seq", None)
         return self.text(
             input_embeds=embeds, positions=positions, segment_ids=segment_ids, cache=cache,
             return_hidden=return_hidden, remat=remat, logits_indices=logits_indices,

@@ -5,8 +5,10 @@ A step loop with timers, metrics logging, eval and save intervals, SIGTERM
 checkpoint-and-exit, exit-on-duration, NaN-step counting, a parameter hash,
 a batch-size ramp, and a profiler window. The JAX package traces with
 `jax.profiler`; here `torch.profiler` records the window (CPU and, on a card,
-CUDA activity) and writes a chrome trace into `profile_dir`. `data_state` is
-any object with `to_dict()` (the data pipeline is not in the port yet).
+CUDA activity) and writes a chrome trace into `profile_dir`, which carries
+the step's program spans (`train.*`, `model.*`; utils/timers.py::span).
+`data_state` is any object with `to_dict()` (the data pipeline is not in the
+port yet).
 
 Under a device mesh every rank runs the loop; the caller gives the logger
 to the primary alone, and `CheckpointManager.save` gathers on every rank and
@@ -27,7 +29,9 @@ import torch
 from leopard_tpu_torch.config import TrainConfig, VLMConfig
 from leopard_tpu_torch.training.checkpoint import CheckpointManager
 from leopard_tpu_torch.training.trainer import TrainState
-from leopard_tpu_torch.utils.timers import MetricsLogger, StepTimeTracker, Timers, sync
+from leopard_tpu_torch.utils.timers import (
+    MetricsLogger, StepTimeTracker, Timers, clear_spans, sync,
+)
 
 PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 DEFAULT_PROFILE_DIR = os.path.join(PACKAGE_ROOT, "build", "profile")
@@ -141,6 +145,7 @@ def train(
     )
     while step < train_cfg.train_steps:
         if profile_steps and step == profile_steps[0]:
+            clear_spans()  # the window's spans alone, not an earlier session's
             prof = _profiler(profile_dir)
             prof.start()
 
@@ -152,8 +157,8 @@ def train(
         consumed_samples += cur_bs
 
         t0 = time.perf_counter()
-        with timers("step", sync_device=device):
-            state, metrics = step_fn(state, batch)
+        state, metrics = step_fn(state, batch)
+        sync(device)
         step_time = time.perf_counter() - t0
         tracker.record(step_time)
         step = int(state.step)

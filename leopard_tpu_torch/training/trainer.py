@@ -68,6 +68,7 @@ import torch.utils.checkpoint
 from leopard_tpu_torch.config import OptimizerConfig, TrainConfig, VLMConfig
 from leopard_tpu_torch.models.params import torch_dtype
 from leopard_tpu_torch.models.vlm import LeopardVLM
+from leopard_tpu_torch.utils.timers import span
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -153,31 +154,43 @@ class AdamW:
             nu={k: torch.zeros_like(p) for k, p in params.items()},
         )
 
+    def clip_of(self, gnorm: torch.Tensor) -> Optional[torch.Tensor]:
+        """The clip's divisor, the global norm `gnorm` in fp32, where it is
+        at or over `grad_clip`; None below it or without a clip. Reads
+        `gnorm` on the host."""
+        if self.cfg.grad_clip > 0 and not bool(gnorm < self.cfg.grad_clip):
+            return gnorm.to(torch.float32)
+        return None
+
     @torch.no_grad()
     def update_(self, grads: Tensors, state: AdamWState, params: Tensors,
                 gnorm: torch.Tensor) -> None:
         """One update of `params` and `state`, in place; `gnorm` is the
         gradients' global norm."""
+        self.update_clipped_(grads, state, params, self.clip_of(gnorm))
+
+    @torch.no_grad()
+    def update_clipped_(self, grads: Tensors, state: AdamWState, params: Tensors,
+                        clip: Optional[torch.Tensor]) -> None:
+        """`update_` with the clip's divisor given (`clip_of`)."""
         cfg = self.cfg
-        clip = None
-        if cfg.grad_clip > 0 and not bool(gnorm < cfg.grad_clip):
-            clip = gnorm.to(torch.float32)
         count = state.count + 1
         bc1 = 1.0 - cfg.beta1**count
         bc2 = 1.0 - cfg.beta2**count
         step_size = -self.schedule(state.count)
-        for name, p in params.items():
-            decay = cfg.weight_decay if cfg.weight_decay > 0 and decay_mask(name, p) else 0.0
-            flat = (t.view(-1) for t in (p, grads[name], state.mu[name], state.nu[name]))
-            for pp, g, m, v in zip(*(t.split(_SLICE) for t in flat)):
-                if clip is not None:
-                    g = g / clip * cfg.grad_clip
-                m.mul_(cfg.beta1).add_(g, alpha=1 - cfg.beta1)
-                v.mul_(cfg.beta2).add_(g * g, alpha=1 - cfg.beta2)
-                u = (m / bc1) / ((v / bc2).sqrt_().add_(cfg.eps))
-                if decay:
-                    u.add_(pp, alpha=decay)
-                pp.add_(u.mul_(step_size))
+        with span("train.adamw"):
+            for name, p in params.items():
+                decay = cfg.weight_decay if cfg.weight_decay > 0 and decay_mask(name, p) else 0.0
+                flat = (t.view(-1) for t in (p, grads[name], state.mu[name], state.nu[name]))
+                for pp, g, m, v in zip(*(t.split(_SLICE) for t in flat)):
+                    if clip is not None:
+                        g = g / clip * cfg.grad_clip
+                    m.mul_(cfg.beta1).add_(g, alpha=1 - cfg.beta1)
+                    v.mul_(cfg.beta2).add_(g * g, alpha=1 - cfg.beta2)
+                    u = (m / bc1) / ((v / bc2).sqrt_().add_(cfg.eps))
+                    if decay:
+                        u.add_(pp, alpha=decay)
+                    pp.add_(u.mul_(step_size))
         state.count = count
 
 
@@ -221,9 +234,10 @@ def sharded_state(model: torch.nn.Module, mesh, mesh_of: Optional[Callable] = No
 @torch.no_grad()
 def cast_for_compute(params: Tensors, model: torch.nn.Module) -> torch.nn.Module:
     """Copy the fp32 masters into the compute model's parameters, rounding
-    to their dtype as `astype` does."""
-    for name, p in model.named_parameters():
-        p.copy_(params[name])
+    to their dtype as `astype` does. Its span opens each step."""
+    with span("train.cast"):
+        for name, p in model.named_parameters():
+            p.copy_(params[name])
     return model
 
 
@@ -267,19 +281,23 @@ def chunked_cross_entropy(
     b, s, _ = hidden.shape
     chunk = min(chunk, s)
     pad = (-s) % chunk
-    if pad:
-        hidden = F.pad(hidden, (0, 0, 0, pad))
-        targets = F.pad(targets, (0, pad))
-        weights = F.pad(weights, (0, pad))
-    weights = weights.float()
-    unembed = unembed.float()
-    nll_sum = hidden.new_zeros((), dtype=torch.float32)
-    for i in range(0, s + pad, chunk):
-        nll_sum = nll_sum + torch.utils.checkpoint.checkpoint(
-            _chunk_nll, hidden[:, i:i + chunk], unembed, targets[:, i:i + chunk],
-            weights[:, i:i + chunk], use_reentrant=False)
-    total_w = torch.clamp(weights.sum(), min=1e-8)
-    return nll_sum / total_w, total_w
+    with span("train.loss") as sp:
+        # the loss's device time runs on through its chunks' recompute and
+        # backward, which end when `hidden`'s gradient is ready
+        sp.end_at_grad(hidden)
+        if pad:
+            hidden = F.pad(hidden, (0, 0, 0, pad))
+            targets = F.pad(targets, (0, pad))
+            weights = F.pad(weights, (0, pad))
+        weights = weights.float()
+        unembed = unembed.float()
+        nll_sum = hidden.new_zeros((), dtype=torch.float32)
+        for i in range(0, s + pad, chunk):
+            nll_sum = nll_sum + torch.utils.checkpoint.checkpoint(
+                _chunk_nll, hidden[:, i:i + chunk], unembed, targets[:, i:i + chunk],
+                weights[:, i:i + chunk], use_reentrant=False)
+        total_w = torch.clamp(weights.sum(), min=1e-8)
+        return nll_sum / total_w, total_w
 
 
 def vlm_loss(
@@ -349,13 +367,14 @@ def grads_of(m: torch.nn.Module, scale=None, into=None) -> Tensors:
     """The compute model's grads upcast to fp32 (zeros where none), times
     `scale`, added into `into`; the compute grads are freed."""
     out = {} if into is None else into
-    for name, p in m.named_parameters():
-        g = p.grad.float() if p.grad is not None else torch.zeros(
-            p.shape, dtype=torch.float32, device=p.device)
-        p.grad = None
-        if scale is not None:
-            g = g * scale
-        out[name] = g if into is None else out[name].add_(g)
+    with span("train.grads"):
+        for name, p in m.named_parameters():
+            g = p.grad.float() if p.grad is not None else torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device)
+            p.grad = None
+            if scale is not None:
+                g = g * scale
+            out[name] = g if into is None else out[name].add_(g)
     return out
 
 
@@ -369,7 +388,8 @@ def accumulate(m: torch.nn.Module, micros, run) -> Tuple[torch.Tensor, dict, Ten
     grads, nll, tw, moe = None, 0.0, 0.0, {}
     for mb in micros:
         backward, loss, aux = run(m, mb)
-        backward.backward()
+        with span("train.backward"):
+            backward.backward()
         w = aux["tokens_in_loss"].detach()
         grads = grads_of(m, scale=w, into=grads)
         nll, tw = nll + loss.detach() * w, tw + w
@@ -440,7 +460,8 @@ def make_train_step(cfg: VLMConfig, train_cfg: TrainConfig, frozen=(),
         batch = _to_device(batch, next(m.parameters()).device)
         if grad_accum_steps <= 1:
             loss, metrics = loss_fn(m, batch)
-            loss.backward()
+            with span("train.backward"):
+                loss.backward()
             return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads_of(m)
 
         def run(m, mb):
@@ -684,11 +705,14 @@ def apply_gradients(opt: AdamW, state: TrainState, grads: Tensors, loss, metrics
         for k in grads:
             if k.split(".", 1)[0] in frozen:
                 grads[k] = torch.zeros_like(grads[k])
-    gnorm = global_norm(grads)
+    with span("train.norm"):
+        gnorm = global_norm(grads)
+        loss_ok = bool(torch.isfinite(torch.as_tensor(loss)))
+        step_ok = loss_ok and bool(torch.isfinite(gnorm))
+        clip = opt.clip_of(gnorm) if step_ok else None
     metrics = dict(metrics)
     metrics["grad_norm"] = gnorm
-    loss_ok = bool(torch.isfinite(torch.as_tensor(loss)))
     metrics["nan_step"] = not loss_ok
-    if loss_ok and bool(torch.isfinite(gnorm)):
-        opt.update_(grads, state.opt_state, state.params, gnorm)
+    if step_ok:
+        opt.update_clipped_(grads, state.opt_state, state.params, clip)
     return state.replace(step=state.step + 1), metrics
